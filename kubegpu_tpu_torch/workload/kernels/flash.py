@@ -1,0 +1,178 @@
+"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+
+The counterpart of ``kubegpu_tpu/workload/kernels/flash.py``'s public API
+(``flash_attention_with_lse``, ``flash_attention``, ``merge_partials``)
+with the same ``[B, T, H, D]`` layout. The TPU's Pallas forward kernel
+(``_fwd_kernel``) becomes ``csrc/flash_fwd.cu``: one thread block per
+``(b, h, q-tile)`` with an in-block loop over k-tiles, bf16 tensor-core
+products with float32 online softmax, tiles the mask hides skipped, and
+the ``[B, T, H, D]`` strides read directly (no transposes). A float32
+instance (plain FMAs) serves float32 configs.
+
+Dispatch: a tensor on the CPU goes to `flash_attention_plain` (the full
+score matrix, masked at global positions); a tensor on CUDA launches the
+kernel or raises. There is no fallback between the two.
+``flash_attention_with_lse.launches`` counts kernel launches.
+
+Rows that see no key at all give ``O = 0`` and ``lse <= -1e20`` on both
+versions. (The Pallas kernel gives that only when every tile of the row
+is skipped; in a partly visible tile its fully masked row averages the
+tile's V. Causal and windowed attention never produce such a row, since
+every query sees itself.)
+
+Gradients belong to the training slice: inputs that require grad raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _mask(tq: int, tk: int, q_offset: int, kv_offset: int, causal: bool,
+          window: int, device):
+    """The ``[Tq, Tk]`` visibility mask at global positions, or None when
+    nothing is masked. A window implies the causal bound: keys in
+    ``(q - window, q]``, with or without ``causal``."""
+    if not causal and not window:
+        return None
+    qp = q_offset + torch.arange(tq, device=device)
+    kp = kv_offset + torch.arange(tk, device=device)
+    mask = qp[:, None] >= kp[None, :]
+    if window:
+        mask &= kp[None, :] > qp[:, None] - window
+    return mask
+
+
+def flash_attention_plain(q, k, v, scale, *, q_offset=0, kv_offset=0,
+                          causal=True, window=0):
+    """The plain version of the kernel: the full ``[Tq, Tk]`` score matrix
+    in float32, masked at global positions, ``P = exp(S - rowmax)`` cast
+    to the input type before ``P @ V`` and divided by the float32 row sum
+    afterwards, as the kernel does. Returns ``(o [B,Tq,H,D], lse
+    [B,H,Tq] f32)``."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = _mask(q.shape[1], k.shape[1], int(q_offset), int(kv_offset),
+                 causal, window, q.device)
+    if mask is not None:
+        s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    o = o / l.clamp_min(1e-30).squeeze(-1).transpose(1, 2)[..., None]
+    lse = (m + torch.log(l.clamp_min(1e-30))).squeeze(-1)
+    return o.to(q.dtype), lse
+
+
+def _kernel_operand(x):
+    """``x`` as the kernel reads it: unit stride in D; for bf16, the row
+    strides a multiple of 8 elements and the base 16-byte aligned (the
+    kernel stages rows with 16-byte loads). Anything else is copied to a
+    contiguous tensor first."""
+    ok = x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+    if x.dtype == torch.bfloat16:
+        ok = ok and all(s % 8 == 0 for s in x.stride()[:3])
+    return x if ok else x.contiguous()
+
+
+def _launch(q, k, v, scale, q_offset, kv_offset, causal, window):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash kernel takes bf16 or float32 q/k/v of one "
+                        f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, "
+                         f"got {d}")
+    q, k, v = (_kernel_operand(x) for x in (q, k, v))
+    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    from kubegpu_tpu_torch.workload.kernels import _build
+
+    fn = _build.load("flash_fwd").kgt_flash_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_int64] * 12
+                   + [ctypes.c_float] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), _DTYPES[q.dtype], b, h, tq, tk, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *o.stride()[:3], float(scale), int(q_offset),
+                 int(kv_offset), int(bool(causal)), int(window), stream)
+    if err:
+        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_with_lse.launches += 1
+    return o, lse
+
+
+def flash_attention_with_lse(q, k, v, scale, *, q_offset=0, kv_offset=0,
+                             causal=True, block_q=None, block_k=None,
+                             window=0):
+    """Flash attention returning ``(out, lse)``.
+
+    q: [B, Tq, H, D]; k, v: [B, Tk, H, D]. ``lse`` is [B, H, Tq] float32,
+    the log-sum-exp of each row's visible scores (`merge_partials` folds
+    partial results with it). Offsets place the blocks at global
+    positions ``offset + index``; ``window`` > 0 keeps each row to the
+    newest ``window`` keys. Explicit ``block_q``/``block_k`` must divide
+    the lengths, as in the reference; the CUDA kernel's own tiles take
+    any ``Tq, Tk >= 1``."""
+    tq, tk = q.shape[1], k.shape[1]
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if tq < 1 or tk < 1:
+        raise ValueError(f"sequence lengths must be >= 1, got ({tq}, {tk})")
+    if (block_q and tq % block_q) or (block_k and tk % block_k):
+        raise ValueError(f"seq lens ({tq}, {tk}) not divisible by blocks "
+                         f"({block_q}, {block_k})")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "flash attention gradients come with the training slice "
+            "(slice 2)")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, q_offset=q_offset,
+                                     kv_offset=kv_offset, causal=causal,
+                                     window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    return _launch(q, k, v, scale, q_offset, kv_offset, causal, window)
+
+
+flash_attention_with_lse.launches = 0
+
+
+def flash_attention(q, k, v, scale, **kw):
+    """Flash attention: [B, T, H, D] in, [B, T, H, D] out."""
+    return flash_attention_with_lse(q, k, v, scale, **kw)[0]
+
+
+def merge_partials(o1, lse1, o2, lse2):
+    """Combine attention over two disjoint K/V sets from their ``(o,
+    lse)`` partials: o = softmax-weighted mix, lse = log(exp(lse1) +
+    exp(lse2)). o: [B, T, H, D]; lse: [B, H, T]."""
+    m = torch.maximum(lse1, lse2)
+    w1 = torch.exp(lse1 - m)
+    w2 = torch.exp(lse2 - m)
+    lse = m + torch.log(w1 + w2)
+
+    def wgt(w):  # [B,H,T] -> [B,T,H,1]
+        return w.transpose(1, 2)[..., None]
+
+    o = (o1.float() * wgt(w1) + o2.float() * wgt(w2)) \
+        / wgt(w1 + w2).clamp_min(1e-30)
+    return o.to(o1.dtype), lse
