@@ -5,9 +5,12 @@
 
 Builds the port's CUDA kernels from ``kubegpu_tpu_torch/csrc/`` with nvcc,
 holds each kernel against its plain PyTorch version on the card, then
-drives the port's main path at the width of the repository's serving
-benchmark (vocab 8192, d_model 2048, 16 heads, 6 layers, d_ff 8192,
-max_seq 1024, random weights from a seed):
+drives the port's two main paths: serving at the width of the
+repository's serving benchmark (vocab 8192, d_model 2048, 16 heads, 6
+layers, d_ff 8192, max_seq 1024) and training at the width of its
+headline training configuration (``bench.py``'s first ``tpu`` candidate:
+vocab 8192, d_model 2304, 18 heads, 6 layers, d_ff 12288, batch 4,
+T = 2048, no remat), random weights from a seed:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the nvcc build and its seconds;
@@ -21,7 +24,18 @@ max_seq 1024, random weights from a seed):
 5. entry: the port's ``entry()`` forward on the card;
 6. serve: the continuous-batching server on the benchmark's traffic (4
    slots, 8 prompts of 16..512 tokens, 64 new tokens each, greedy); the
-   fused data plane's streams against the per-token oracle's.
+   fused data plane's streams against the per-token oracle's;
+7. kernel_bwd: the flash backward (K2 dQ, K3 dK/dV) through the autograd
+   Function against ``flash_attention_bwd_plain`` at the training shape
+   and at masking edge cases, with K2's, K3's and K1's times there, the
+   plain backward's, ``scaled_dot_product_attention``'s backward (a
+   yardstick the port never calls) and the bounds;
+8. train: per-leaf gradient errors of the bf16 kernel path and the bf16
+   plain-attention path against a float32 plain-attention reference on
+   one batch, then 5 AdamW steps of ``make_train_step`` (step ms,
+   tokens/s, MFU, losses, kernel launches per step), then
+   ``remat="full"`` against ``remat="none"`` on one batch (loss and
+   per-leaf gradients) and one step with ``remat="full"``.
 
 Every phase prints one JSON line and raises on failure. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -42,6 +56,12 @@ MODEL = dict(vocab=8192, d_model=2048, n_heads=16, n_layers=6, d_ff=8192,
 SLICE_SHAPE = (4, 1024, 16, 128)
 SERVE_SLOTS, SERVE_REQUESTS, SERVE_MAX_NEW = 4, 8, 64
 FORWARD_TOKENS = (4, 1024)
+# the training path: bench.py's headline training config (tpu ladder, first
+# candidate), batch 4 at T = 2048, no remat
+TRAIN_MODEL = dict(vocab=8192, d_model=2304, n_heads=18, n_layers=6,
+                   d_ff=12288, max_seq=2048)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
+TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 18, 128)
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 FMA, HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -62,6 +82,23 @@ TOL_BF16_LSE = 1e-3
 TOL_FWD_MEAN_RATIO = 1.25
 TOL_FWD_MAX_RATIO = 2.0
 TOL_FWD_F32 = 1e-3
+# Backward kernels against the plain backward, per output (dq, dk, dv):
+# max |delta| over max |ref|. bf16: both versions round P and dS to bf16
+# after float32 sums taken in another order, and round the output to
+# bf16; float32: summation order only.
+TOL_BWD_BF16 = 1e-2
+TOL_BWD_F32 = 1e-4
+# Training gradients: the bf16 kernel path's per-leaf relative L2 error
+# against the float32 plain-attention gradients may be at most 1.25x the
+# bf16 plain path's, in the median over leaves and for the worst leaf.
+# Remat "full" replays the same forward in the backward: on the same params
+# and batch its loss within 1e-3 (relative) of remat "none"'s, and every
+# leaf's gradient within 1e-2 relative L2 of remat "none"'s, under half
+# the bf16 path's own error against float32 (median 0.025); a recompute
+# that breaks errs by order 1.
+TOL_GRAD_RATIO = 1.25
+TOL_REMAT_LOSS = 1e-3
+TOL_REMAT_GRAD = 1e-2
 
 
 def emit(obj) -> None:
@@ -123,6 +160,23 @@ def attention_bound_ms(b, tq, tk, h, d, dtype, pairs) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def case_qkv(gen, dev, b, tq, tk, h, d, dt, strided=False):
+    """Random q [B, Tq, H, D], k, v [B, Tk, H, D] of type ``dt``; strided:
+    views of one packed [B, T, 3, H, D] tensor (Tq = Tk)."""
+    import torch
+
+    f32 = torch.float32
+    if strided:
+        qkv = torch.randn((b, tq, 3, h, d), generator=gen, device=dev,
+                          dtype=f32).to(dt)
+        return qkv.unbind(2)
+    q = torch.randn((b, tq, h, d), generator=gen, device=dev,
+                    dtype=f32).to(dt)
+    k, v = (torch.randn((b, tk, h, d), generator=gen, device=dev,
+                        dtype=f32).to(dt) for _ in range(2))
+    return q, k, v
+
+
 def kernel_phase(dev) -> dict:
     """K1 against its plain version at the serving shape and edge cases."""
     import torch
@@ -156,16 +210,8 @@ def kernel_phase(dev) -> dict:
     out = {}
     for name, (b, tq, tk, h, d), dt, kw in cases:
         kw = dict(kw)
-        strided = kw.pop("strided", False)
-        if strided:  # q, k, v as views of one packed [B, T, 3, H, D] tensor
-            qkv = torch.randn((b, tq, 3, h, d), generator=gen, device=dev,
-                              dtype=f32).to(dt)
-            q, k, v = qkv.unbind(2)
-        else:
-            q = torch.randn((b, tq, h, d), generator=gen, device=dev,
-                            dtype=f32).to(dt)
-            k, v = (torch.randn((b, tk, h, d), generator=gen, device=dev,
-                                dtype=f32).to(dt) for _ in range(2))
+        q, k, v = case_qkv(gen, dev, b, tq, tk, h, d, dt,
+                           kw.pop("strided", False))
         scale = d ** -0.5
         o, lse = flash_attention_with_lse(q, k, v, scale, **kw)
         torch.cuda.synchronize()
@@ -338,6 +384,323 @@ def serve_phase(dev, cfg, params) -> dict:
     return row
 
 
+def backward_bound_ms(b, tq, tk, h, d, dtype, pairs, kernel) -> tuple:
+    """Least time for K2 ("dq") or K3 ("dkv") on an H100 SXM: the larger
+    of their tensors moved once over the memory rate (K2: q, k, v, dO, dQ;
+    K3: q, k, v, dO, dK, dV; both lse and delta in float32) and their
+    operations per visible pair (K2: 6 D for S, dP, dQ; K3: 8 D for S, dP,
+    dV, dK) over the tensor-core (bf16) or FMA (float32) peak."""
+    import torch
+
+    esize = torch.finfo(dtype).bits // 8
+    rows = (3 * tq + 2 * tk) if kernel == "dq" else (2 * tq + 4 * tk)
+    nbytes = esize * b * h * d * rows + 2 * 4 * b * h * tq
+    flops = (6 if kernel == "dq" else 8) * d * pairs * b * h
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[name] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _launch_counts() -> tuple:
+    from kubegpu_tpu_torch.workload.kernels import flash
+
+    return (flash.flash_attention_with_lse.launches,
+            flash.flash_bwd_dq.launches, flash.flash_bwd_dkv.launches)
+
+
+def _zero_launch_counts() -> None:
+    from kubegpu_tpu_torch.workload.kernels import flash
+
+    flash.flash_attention_with_lse.launches = 0
+    flash.flash_bwd_dq.launches = 0
+    flash.flash_bwd_dkv.launches = 0
+
+
+def kernel_bwd_phase(dev) -> dict:
+    """K2 and K3 through the autograd Function against the plain backward,
+    at the training shape and edge cases; times at the training shape."""
+    import torch
+
+    from kubegpu_tpu_torch.workload.kernels.flash import (
+        _delta, flash_attention_bwd_plain, flash_attention_plain,
+        flash_attention_with_lse, flash_bwd_dkv, flash_bwd_dq)
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    b0, t0, h0, d0 = TRAIN_SHAPE
+    cases = [
+        ("train_causal", (b0, t0, t0, h0, d0), bf16, {}),
+        ("non_causal", (2, 256, 256, 4, 128), bf16, dict(causal=False)),
+        ("window_64", (2, 512, 512, 4, 128), bf16, dict(window=64)),
+        ("offsets_96_32", (1, 256, 256, 4, 64), bf16,
+         dict(q_offset=96, kv_offset=32)),
+        ("all_future", (1, 128, 128, 2, 64), bf16,
+         dict(q_offset=0, kv_offset=1000)),
+        ("ragged_200", (2, 200, 200, 4, 64), bf16, {}),
+        ("ragged_q70_k300_noncausal", (1, 70, 300, 2, 128), bf16,
+         dict(causal=False)),
+        ("head_dim_32", (2, 256, 256, 4, 32), bf16, {}),
+        ("strided_qkv", (2, 256, 256, 4, 64), bf16, dict(strided=True)),
+        ("lse_cotangent", (2, 256, 256, 4, 128), bf16, dict(dlse=True)),
+        ("f32_causal_window", (2, 200, 200, 4, 64), f32, dict(window=48)),
+        ("f32_offsets", (1, 130, 96, 2, 128), f32,
+         dict(q_offset=40, kv_offset=0)),
+        ("f32_non_causal_d32", (2, 64, 100, 2, 32), f32,
+         dict(causal=False)),
+        ("f32_lse_cotangent_ragged", (1, 77, 77, 2, 64), f32,
+         dict(dlse=True, window=20)),
+    ]
+    out = {}
+    for name, (b, tq, tk, h, d), dt, kw in cases:
+        kw = dict(kw)
+        q, k, v = case_qkv(gen, dev, b, tq, tk, h, d, dt,
+                           kw.pop("strided", False))
+        with_dlse = kw.pop("dlse", False)
+        q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+        scale = d ** -0.5
+        do = torch.randn((b, tq, h, d), generator=gen, device=dev,
+                         dtype=f32).to(dt)
+        dlse = torch.randn((b, h, tq), generator=gen, device=dev,
+                           dtype=f32) if with_dlse else None
+        o, lse = flash_attention_with_lse(q, k, v, scale, **kw)
+        before = _launch_counts()
+        if dlse is None:
+            grads = torch.autograd.grad(o, (q, k, v), do)
+        else:
+            grads = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        launched = [after[i] - before[i] for i in range(3)]
+        refs = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                         o.detach(), lse.detach(), do, dlse,
+                                         scale, **kw)
+        errs = [(g.float() - r.float()).abs().max().item()
+                for g, r in zip(grads, refs)]
+        tops = [r.float().abs().max().item() for r in refs]
+        if name == "all_future":
+            ok = all(not g.any() for g in grads) and max(tops) == 0.0
+        else:
+            tol = TOL_BWD_F32 if dt == f32 else TOL_BWD_BF16
+            ok = all(e <= tol * t for e, t in zip(errs, tops)) and all(
+                bool(torch.isfinite(g).all()) for g in grads)
+        ok = ok and launched == [0, 1, 1]
+        row = {"phase": "kernel_bwd", "case": name, "dtype": str(dt)[6:],
+               "shape": [b, tq, tk, h, d], "dlse": with_dlse,
+               "max_abs_err_dq_dk_dv": errs, "max_abs_ref_dq_dk_dv": tops,
+               "launches_fwd_dq_dkv": launched, "ok": ok}
+        if name == "train_causal":
+            qd, kd, vd = q.detach(), k.detach(), v.detach()
+            delta = _delta(o.detach(), do, None)
+            lsed = lse.detach()
+            pairs = visible_pairs(tq, tk, 0, 0, True, 0)
+            dq_bound = backward_bound_ms(b, tq, tk, h, d, dt, pairs, "dq")
+            dkv_bound = backward_bound_ms(b, tq, tk, h, d, dt, pairs, "dkv")
+            fwd_bound = attention_bound_ms(b, tq, tk, h, d, dt, pairs)
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+            do_t = do.transpose(1, 2)
+            row.update(
+                dq_ms=time_ms(lambda: flash_bwd_dq(qd, kd, vd, do, lsed,
+                                                   delta, scale)),
+                dkv_ms=time_ms(lambda: flash_bwd_dkv(qd, kd, vd, do, lsed,
+                                                     delta, scale)),
+                fwd_ms=time_ms(lambda: flash_attention_with_lse(
+                    qd, kd, vd, scale)),
+                plain_bwd_ms=time_ms(lambda: flash_attention_bwd_plain(
+                    qd, kd, vd, o.detach(), lsed, do, None, scale),
+                    runs=5, batch=2, warmup=1),
+                library_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                    lib_out, (qt, kt, vt), do_t, retain_graph=True)),
+                library_fwd_ms=time_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt.detach(), kt.detach(), vt.detach(),
+                        is_causal=True)),
+                plain_fwd_ms=time_ms(
+                    lambda: flash_attention_plain(qd, kd, vd, scale),
+                    runs=5, batch=2, warmup=1),
+                dq_bound_ms=dq_bound[0], dq_bound_by=dq_bound[1],
+                dkv_bound_ms=dkv_bound[0], dkv_bound_by=dkv_bound[1],
+                fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1])
+            out = dict(row)
+            del lib_out, qt, kt, vt
+        emit(row)
+        if not ok:
+            raise AssertionError(f"flash backward kernels disagree with "
+                                 f"their plain version on {name}: {row}")
+    return out
+
+
+def bigram_tokens(vocab: int, n: int, seed: int, fanout: int = 4):
+    """``n`` tokens of a seeded Markov chain in which every token has
+    ``fanout`` possible successors: a corpus with structure to learn (its
+    entropy is log(fanout) a token), so a few steps lower the loss by more
+    than the batch-to-batch noise of uniform random tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + seed)
+    succ = rng.integers(0, vocab, (vocab, fanout))
+    pick = rng.integers(0, fanout, n)
+    out = np.empty(n, np.uint32)
+    cur = int(rng.integers(vocab))
+    for i in range(n):
+        cur = int(succ[cur, pick[i]])
+        out[i] = cur
+    return out
+
+
+def _grad_errors(got, ref) -> list:
+    """Per-leaf relative L2 error of ``got`` against ``ref``."""
+    return [((g.float() - r).norm() / r.norm().clamp_min(1e-30)).item()
+            for g, r in zip(got, ref)]
+
+
+def _loss_and_grads(cfg, params, tokens) -> tuple:
+    """The loss of ``cfg`` on ``tokens`` and its gradient in every leaf of
+    ``params`` (leaves that require grad; their ``.grad`` stays as is)."""
+    import torch
+
+    from kubegpu_tpu_torch.workload.model import make_loss_fn
+    from kubegpu_tpu_torch.workload.train import param_leaves
+
+    loss = make_loss_fn(cfg)(params, tokens)
+    g = torch.autograd.grad(loss, param_leaves(params))
+    torch.cuda.synchronize()
+    return loss.item(), g
+
+
+def train_phase(dev) -> dict:
+    """The training path at the headline training config: gradient
+    accuracy against a float32 reference, then AdamW steps."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.workload.data import make_loader, write_token_shard
+    from kubegpu_tpu_torch.workload.model import TransformerConfig
+    from kubegpu_tpu_torch.workload.train import (init_sharded,
+                                                  make_train_step,
+                                                  train_step_model_flops)
+
+    cfg = TransformerConfig(**TRAIN_MODEL)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    # -- gradient accuracy on one batch: three paths, one at a time
+    params, _, _ = init_sharded(torch.Generator(device=dev).manual_seed(2),
+                                cfg, init_optimizer=False)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device=dev)
+    loss_ref, g_ref = _loss_and_grads(
+        dataclasses.replace(cfg, attn_impl="xla", dtype="float32"), params,
+        tokens)
+    _zero_launch_counts()
+    loss_k, g_k = _loss_and_grads(dataclasses.replace(cfg, attn_impl="flash"),
+                                  params, tokens)
+    grad_launches = list(_launch_counts())
+    err_k = _grad_errors(g_k, g_ref)
+    del g_k
+    loss_p, g_p = _loss_and_grads(dataclasses.replace(cfg, attn_impl="xla"),
+                                  params, tokens)
+    err_p = _grad_errors(g_p, g_ref)
+    finite = all(np.isfinite(err_k)) and all(np.isfinite(err_p))
+    del g_p, g_ref, params
+    torch.cuda.empty_cache()
+    med_k, med_p = statistics.median(err_k), statistics.median(err_p)
+    grad_row = {"phase": "train_grad", "layers": cfg.n_layers,
+                "loss_f32_plain": loss_ref, "loss_bf16_kernel": loss_k,
+                "loss_bf16_plain": loss_p,
+                "launches_fwd_dq_dkv": grad_launches,
+                "rel_l2_err_kernel_median_max": [med_k, max(err_k)],
+                "rel_l2_err_plain_median_max": [med_p, max(err_p)],
+                "leaves": len(err_k)}
+    grad_row["ok"] = (finite and grad_launches == [cfg.n_layers] * 3
+                      and med_k <= TOL_GRAD_RATIO * med_p
+                      and max(err_k) <= TOL_GRAD_RATIO * max(err_p))
+    emit(grad_row)
+    if not grad_row["ok"]:
+        raise AssertionError(f"train gradient check failed: {grad_row}")
+
+    # -- AdamW steps through the user's entry points
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-tokens-")
+    paths = [write_token_shard(os.path.join(tmp, f"shard{i}.kgtd"),
+                               bigram_tokens(cfg.vocab, 100_000, seed=i))
+             for i in range(2)]
+    loader = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    params, opt_state, optimizer = init_sharded(
+        torch.Generator(device=dev).manual_seed(0), cfg)
+    step = make_train_step(cfg, optimizer=optimizer)
+    losses, step_s, launches = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        batch = torch.from_numpy(next(loader)).to(dev)
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss.item())              # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        after = _launch_counts()
+        launches.append([after[i] - before[i] for i in range(3)])
+    run_launches = list(_launch_counts())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # remat "full" against remat "none" on the same params and batch: the
+    # loss and every leaf's gradient, then one train step with remat "full"
+    batch = torch.from_numpy(next(loader)).to(dev)
+    full_cfg = dataclasses.replace(cfg, remat="full")
+    loss_none, g_none = _loss_and_grads(cfg, params, batch)
+    loss_full, g_full = _loss_and_grads(full_cfg, params, batch)
+    remat_err = _grad_errors(g_full, g_none)
+    del g_none, g_full
+    full = make_train_step(full_cfg, optimizer=optimizer)
+    _zero_launch_counts()
+    params, opt_state, loss = full(params, opt_state, batch)
+    loss_full_step = loss.item()
+    full_launches = list(_launch_counts())
+    loader.close()
+    for path in paths:
+        os.remove(path)
+    os.rmdir(tmp)
+    del params, opt_state, optimizer, step, full
+    torch.cuda.empty_cache()
+
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    flops = train_step_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    n = cfg.n_layers
+    row = {"phase": "train", "model": TRAIN_MODEL, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "remat": cfg.remat, "steps": TRAIN_STEPS,
+           "losses": losses, "step_ms_each": [t * 1e3 for t in step_s],
+           "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "model_flops_per_step": flops,
+           "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
+           "launches_fwd_dq_dkv_per_step": launches,
+           "peak_memory_gb": peak_gb,
+           "remat_full_launches_fwd_dq_dkv": full_launches,
+           "remat_full_loss": loss_full, "remat_none_loss": loss_none,
+           "remat_full_step_loss": loss_full_step,
+           "remat_full_vs_none_grad_rel_l2_max": max(remat_err)}
+    row["ok"] = (
+        all(np.isfinite(losses)) and losses[-1] < losses[0]
+        and all(x == [n, n, n] for x in launches)
+        and full_launches == [2 * n, n, n]
+        and all(abs(x - loss_none) <= TOL_REMAT_LOSS * abs(loss_none)
+                for x in (loss_full, loss_full_step))
+        and all(np.isfinite(remat_err))
+        and max(remat_err) <= TOL_REMAT_GRAD)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"train phase failed: {row}")
+    row["run_launches"] = run_launches
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -371,15 +734,40 @@ def main() -> int:
     fwd = forward_phase(dev, cfg, params)
     entry_phase()
     serve_phase(dev, cfg, params)
+    del params                      # the training phases need the memory
+    torch.cuda.empty_cache()
 
+    kb = kernel_bwd_phase(dev)
+    train = train_phase(dev)
+    # each path's own launches, counted from zero: K1's "launches" is the
+    # forward path's (slice 1), K2's and K3's the training run's
+    run = train["run_launches"]
+    bwd_src = "kubegpu_tpu_torch/csrc/flash_bwd.cu"
     emit({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "kubegpu_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "kubegpu_tpu/workload/kernels/flash.py:126",
         "launches": fwd["kernel_launches"],
+        "launches_train_run": run[0],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]}]})
+        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+        "train_shape_ms": kb["fwd_ms"],
+        "train_shape_bound_ms": kb["fwd_bound_ms"]}, {
+        "name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
+        "replaces": "kubegpu_tpu/workload/kernels/flash.py:213",
+        "launches": run[1], "launches_train_run": run[1],
+        "max_abs_err": kb["max_abs_err_dq_dk_dv"][0], "ms": kb["dq_ms"],
+        "plain_ms": kb["plain_bwd_ms"], "bound_ms": kb["dq_bound_ms"],
+        "bound_by": kb["dq_bound_by"],
+        "library_ms": kb["library_bwd_ms"]}, {
+        "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_src,
+        "replaces": "kubegpu_tpu/workload/kernels/flash.py:244",
+        "launches": run[2], "launches_train_run": run[2],
+        "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
+        "ms": kb["dkv_ms"], "plain_ms": kb["plain_bwd_ms"],
+        "bound_ms": kb["dkv_bound_ms"], "bound_by": kb["dkv_bound_by"],
+        "library_ms": kb["library_bwd_ms"]}]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

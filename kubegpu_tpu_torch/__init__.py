@@ -2,11 +2,12 @@
 
 The JAX package ``kubegpu_tpu`` stays the reference; this package mirrors
 its paths (``workload/model.py``, ``workload/decode.py``,
-``workload/serve.py``, ``workload/kernels/flash.py``,
-``cmd/serve_demo.py``) so each module has an obvious counterpart. It
+``workload/serve.py``, ``workload/train.py``, ``workload/data.py``,
+``workload/kernels/flash.py``, ``cmd/serve_demo.py``,
+``cmd/train_demo.py``) so each module has an obvious counterpart. It
 imports torch and numpy, never JAX and nothing of ``kubegpu_tpu``: what it
 needs from there it keeps as its own copy (``metrics.py``,
-``workload/presets.py``).
+``workload/presets.py``, ``workload/data.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no CPU request they raise (``_device.resolve_device``).

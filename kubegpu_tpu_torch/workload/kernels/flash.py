@@ -1,26 +1,33 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
 The counterpart of ``kubegpu_tpu/workload/kernels/flash.py``'s public API
 (``flash_attention_with_lse``, ``flash_attention``, ``merge_partials``)
-with the same ``[B, T, H, D]`` layout. The TPU's Pallas forward kernel
-(``_fwd_kernel``) becomes ``csrc/flash_fwd.cu``: one thread block per
-``(b, h, q-tile)`` with an in-block loop over k-tiles, bf16 tensor-core
-products with float32 online softmax, tiles the mask hides skipped, and
-the ``[B, T, H, D]`` strides read directly (no transposes). A float32
-instance (plain FMAs) serves float32 configs.
+with the same ``[B, T, H, D]`` layout, forward and backward:
 
-Dispatch: a tensor on the CPU goes to `flash_attention_plain` (the full
-score matrix, masked at global positions); a tensor on CUDA launches the
+- the TPU's Pallas forward kernel (``_fwd_kernel``) becomes
+  ``csrc/flash_fwd.cu`` (K1): one thread block per ``(b, h, q-tile)`` with
+  an in-block loop over k-tiles, bf16 tensor-core products with float32
+  online softmax, tiles the mask hides skipped, the ``[B, T, H, D]``
+  strides read directly (no transposes);
+- the two backward kernels (``_dq_kernel``, ``_dkv_kernel``) become
+  ``csrc/flash_bwd.cu`` (K2: dQ over k-tiles; K3: dK and dV over q-tiles),
+  behind a ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)``
+  and takes the lse cotangent, which ring attention's merge needs.
+
+Each kernel has a float32 instance (plain FMAs) for float32 configs.
+
+Dispatch: a tensor on the CPU goes to the plain version
+(`flash_attention_plain`, `flash_attention_bwd_plain`: the full score
+matrix, masked at global positions); a tensor on CUDA launches the
 kernel or raises. There is no fallback between the two.
-``flash_attention_with_lse.launches`` counts kernel launches.
+``flash_attention_with_lse.launches``, ``flash_bwd_dq.launches`` and
+``flash_bwd_dkv.launches`` count kernel launches.
 
-Rows that see no key at all give ``O = 0`` and ``lse <= -1e20`` on both
-versions. (The Pallas kernel gives that only when every tile of the row
-is skipped; in a partly visible tile its fully masked row averages the
-tile's V. Causal and windowed attention never produce such a row, since
-every query sees itself.)
-
-Gradients belong to the training slice: inputs that require grad raise.
+Rows that see no key at all give ``O = 0``, ``lse <= -1e20`` and zero
+gradients on both versions. (The Pallas kernel gives that only when every
+tile of the row is skipped; in a partly visible tile its fully masked row
+averages the tile's V. Causal and windowed attention never produce such a
+row, since every query sees itself.)
 """
 
 from __future__ import annotations
@@ -119,6 +126,196 @@ def _launch(q, k, v, scale, q_offset, kv_offset, causal, window):
     return o, lse
 
 
+def _check_device(q) -> None:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cpu or cuda, not "
+                         f"{q.device}")
+
+
+def _delta(o, do, dlse):
+    """The backward's row term ``rowsum(dO * O) - dlse``, ``[B, H, Tq]``
+    float32 (flash.py:285-294): the lse cotangent folds in here, since
+    dS = P * (dP - delta) + dlse * P."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def _p_ds(q, k, v, lse, do, delta, scale, q_offset, kv_offset, causal,
+          window):
+    """``(P, dS)``, ``[B, H, Tq, Tk]`` float32: masked scores -inf, so
+    ``P = exp(S - lse)`` is exactly 0 there; ``dS = P * (dO V^T - delta)``."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = _mask(q.shape[1], k.shape[1], int(q_offset), int(kv_offset),
+                 causal, window, q.device)
+    if mask is not None:
+        s = s.masked_fill(~mask, -float("inf"))
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def _dq_plain(q, k, ds, scale):
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def _dkv_plain(q, k, v, do, p, ds, scale):
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, dlse, scale, *,
+                              q_offset=0, kv_offset=0, causal=True,
+                              window=0):
+    """The plain version of K2 and K3: the full ``[Tq, Tk]`` score matrix
+    in float32, masked scores -inf so ``P = exp(S - lse)`` is exactly 0
+    there; ``delta = rowsum(dO * O) - dlse``, ``dP = dO V^T``,
+    ``dS = P * (dP - delta)``, ``dq = scale dS K``, ``dk = scale dS^T Q``,
+    ``dv = P^T dO``, with P and dS cast to the input type before their
+    products and float32 accumulation, as the kernels do. ``dlse`` may be
+    None (no lse cotangent). Returns ``(dq, dk, dv)`` like q, k, v."""
+    p, ds = _p_ds(q, k, v, lse, do, _delta(o, do, dlse), scale, q_offset,
+                  kv_offset, causal, window)
+    return (_dq_plain(q, k, ds, scale),
+            *_dkv_plain(q, k, v, do, p, ds, scale))
+
+
+def _launch_bwd(symbol, q, k, v, do, lse, delta, scale, q_offset,
+                kv_offset, causal, window) -> list:
+    """Launch K2 (``kgt_flash_bwd_dq``: returns ``[dq]``) or K3
+    (``kgt_flash_bwd_dkv``: returns ``[dk, dv]``) on the current stream;
+    raises on any operand the kernels do not take or a refused launch."""
+    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in (k, v, do)):
+        raise TypeError(f"flash backward kernels take bf16 or float32 "
+                        f"q/k/v/dO of one type, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {do.dtype}")
+    if not all(x.device == q.device for x in (k, v, do, lse, delta)):
+        raise ValueError("flash backward operands must be on one device")
+    b, tq, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, "
+                         f"got {d}")
+    if lse.shape != (b, h, tq) or delta.shape != (b, h, tq):
+        raise ValueError(f"lse and delta must be [B, H, Tq] = {(b, h, tq)}, "
+                         f"got {tuple(lse.shape)}, {tuple(delta.shape)}")
+    q, k, v, do = (_kernel_operand(x) for x in (q, k, v, do))
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            for x in ((q,) if symbol.endswith("_dq") else (k, v))]
+    from kubegpu_tpu_torch.workload.kernels import _build
+
+    fn = getattr(_build.load("flash_bwd"), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int64] * (3 * len(outs)) + [ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(x.data_ptr() for x in outs), _DTYPES[q.dtype], b, h, tq,
+                 k.shape[1], d, strides,
+                 *(st for x in outs for st in x.stride()[:3]), float(scale),
+                 int(q_offset), int(kv_offset), int(bool(causal)),
+                 int(window), stream)
+    if err:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
+                           f"{err}")
+    return outs
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale, *, q_offset=0,
+                 kv_offset=0, causal=True, window=0):
+    """K2: ``dq`` from q, k, v, dO, lse and delta (`_delta`). CUDA tensors
+    launch the kernel (``flash_bwd_dq.launches`` counts it) or raise; CPU
+    tensors take the plain version."""
+    if q.device.type == "cpu":
+        _, ds = _p_ds(q, k, v, lse, do, delta, scale, q_offset, kv_offset,
+                      causal, window)
+        return _dq_plain(q, k, ds, scale)
+    _check_device(q)
+    (dq,) = _launch_bwd("kgt_flash_bwd_dq", q, k, v, do, lse, delta, scale,
+                        q_offset, kv_offset, causal, window)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale, *, q_offset=0,
+                  kv_offset=0, causal=True, window=0):
+    """K3: ``(dk, dv)`` from q, k, v, dO, lse and delta. CUDA tensors
+    launch the kernel (``flash_bwd_dkv.launches`` counts it) or raise; CPU
+    tensors take the plain version."""
+    if q.device.type == "cpu":
+        p, ds = _p_ds(q, k, v, lse, do, delta, scale, q_offset, kv_offset,
+                      causal, window)
+        return _dkv_plain(q, k, v, do, p, ds, scale)
+    _check_device(q)
+    dk, dv = _launch_bwd("kgt_flash_bwd_dkv", q, k, v, do, lse, delta,
+                         scale, q_offset, kv_offset, causal, window)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, dlse, scale, *, q_offset=0,
+                        kv_offset=0, causal=True, window=0):
+    """``(dq, dk, dv)`` of flash attention: the delta pre-pass (a plain
+    PyTorch reduction, as the reference leaves it to XLA), then K2 and K3
+    through their wrappers, which take the plain version on CPU
+    tensors."""
+    delta = _delta(o, do, dlse)
+    kw = dict(q_offset=q_offset, kv_offset=kv_offset, causal=causal,
+              window=window)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, **kw)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2+K3 backward (the plain versions on CPU tensors).
+    Saves ``(q, k, v, o, lse)``; no gradient for scale, offsets or mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, q_offset, kv_offset, causal, window):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, scale, q_offset=q_offset,
+                                           kv_offset=kv_offset,
+                                           causal=causal, window=window)
+        else:
+            o, lse = _launch(q, k, v, scale, q_offset, kv_offset, causal,
+                             window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (scale, q_offset, kv_offset, causal, window)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        scale, q_offset, kv_offset, causal, window = ctx.mask
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do, dlse, scale, q_offset=q_offset,
+            kv_offset=kv_offset, causal=causal, window=window)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention_with_lse(q, k, v, scale, *, q_offset=0, kv_offset=0,
                              causal=True, block_q=None, block_k=None,
                              window=0):
@@ -130,7 +327,8 @@ def flash_attention_with_lse(q, k, v, scale, *, q_offset=0, kv_offset=0,
     positions ``offset + index``; ``window`` > 0 keeps each row to the
     newest ``window`` keys. Explicit ``block_q``/``block_k`` must divide
     the lengths, as in the reference; the CUDA kernel's own tiles take
-    any ``Tq, Tk >= 1``."""
+    any ``Tq, Tk >= 1``. Differentiable in ``q``, ``k`` and ``v``,
+    through both outputs."""
     tq, tk = q.shape[1], k.shape[1]
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
@@ -139,18 +337,9 @@ def flash_attention_with_lse(q, k, v, scale, *, q_offset=0, kv_offset=0,
     if (block_q and tq % block_q) or (block_k and tk % block_k):
         raise ValueError(f"seq lens ({tq}, {tk}) not divisible by blocks "
                          f"({block_q}, {block_k})")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash attention gradients come with the training slice "
-            "(slice 2)")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale, q_offset=q_offset,
-                                     kv_offset=kv_offset, causal=causal,
-                                     window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cpu or cuda, not "
-                         f"{q.device}")
-    return _launch(q, k, v, scale, q_offset, kv_offset, causal, window)
+    _check_device(q)
+    return _FlashAttention.apply(q, k, v, float(scale), int(q_offset),
+                                 int(kv_offset), bool(causal), int(window))
 
 
 flash_attention_with_lse.launches = 0

@@ -14,8 +14,15 @@ logits:
   (`kernels.flash`), chosen by ``attn_impl``;
 - logits leave as float32.
 
+Training: `make_loss_fn` (next-token cross entropy) and per-layer
+rematerialisation, ``remat="none"`` (keep every activation) or ``"full"``
+(keep each layer's input and recompute the layer in the backward pass,
+through ``torch.utils.checkpoint``). Gradients of the flash kernel are its
+own backward kernels (`kernels.flash`).
+
 Single device, eager. Mixture-of-experts layers and sequence parallelism
-over a mesh belong to later slices and raise `NotImplementedError`.
+over a mesh belong to later slices and raise `NotImplementedError`, as
+does ``remat="dots"``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from kubegpu_tpu_torch._device import resolve_device
 
@@ -49,8 +57,9 @@ class TransformerConfig:
     n_experts: int = 0
     moe_top_k: int = 1
     moe_aux_weight: float = 0.01
-    # Rematerialisation only matters to training; accepted and ignored
-    # by the inference slice.
+    # Rematerialisation per layer in training: "none" keeps every
+    # activation, "full" recomputes each layer in the backward pass;
+    # "dots" (keep matmul outputs and the flash residuals) raises.
     remat: str = "none"
     # Sliding window: each position attends the newest ``attn_window``
     # positions (0 = full causal).
@@ -207,6 +216,11 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
     _check_in_slice(cfg, mesh)
     if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat mode {cfg.remat!r}")
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (a selective-checkpoint policy that keeps matmul "
+            "outputs and the flash residuals) comes with slice 3; use "
+            "'none' or 'full'")
     scale = cfg.head_dim ** -0.5
 
     def attention_fn(t: int, device: torch.device):
@@ -249,7 +263,11 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
         positions = torch.arange(t, device=dev).expand(b, t)
         attend = attention_fn(t, dev)
         for layer in params["layers"]:
-            x = block(layer, x, positions, attend)
+            if cfg.remat == "full" and torch.is_grad_enabled():
+                x = checkpoint(block, layer, x, positions, attend,
+                               use_reentrant=False)
+            else:
+                x = block(layer, x, positions, attend)
         x = _rmsnorm(x, params["final_norm"])
         logits = x @ params["unembed"].to(dt)
         return logits.float(), torch.zeros((), device=dev)
@@ -266,3 +284,18 @@ def make_forward(cfg: TransformerConfig, mesh=None):
 
     return forward
 
+
+def make_loss_fn(cfg: TransformerConfig, mesh=None):
+    """``loss_fn(params, tokens [B, T+1]) -> loss``: next-token cross
+    entropy from the float32 logits, token mean, plus ``moe_aux_weight``
+    times the aux loss."""
+    fwd = make_forward_with_aux(cfg, mesh)
+
+    def loss_fn(params, tokens):
+        tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+        logits, aux = fwd(params, tokens[:, :-1])
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              tokens[:, 1:].reshape(-1))
+        return nll + cfg.moe_aux_weight * aux
+
+    return loss_fn

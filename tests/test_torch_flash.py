@@ -131,8 +131,9 @@ def test_argument_checks():
         tflash.flash_attention(q, k, v, 0.25, block_q=32)
     with pytest.raises(ValueError, match="window"):
         tflash.flash_attention(q, k, v, 0.25, window=-1)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tflash.flash_attention(q.requires_grad_(), k, v, 0.25)
+    # inputs that require grad are taken (slice 2 brought the backward)
+    out = tflash.flash_attention(q.requires_grad_(), k, v, 0.25)
+    assert out.requires_grad and out.grad_fn is not None
 
 
 def test_cpu_tensors_use_plain_version_and_count_no_launch():

@@ -182,7 +182,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
                 mods.append(rel.replace(os.sep, ".").removesuffix(
                     ".__init__"))
-    assert "kubegpu_tpu_torch.workload.serve" in mods
+    for name in ("workload.serve", "workload.train", "workload.data",
+                 "cmd.train_demo", "workload.kernels.flash"):
+        assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
