@@ -15,9 +15,12 @@ T = 2048, no remat), random weights from a seed:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the nvcc build and its seconds;
 3. kernel: the flash-attention forward against ``flash_attention_plain``
-   at the serving shape and at masking edge cases, with its time, the
-   plain version's, ``scaled_dot_product_attention``'s (a yardstick the
-   port never calls) and the least time the card could take;
+   at the serving shape and at masking edge cases (one tile; several
+   stages over a ragged T = 2085), each row naming the kernel instance
+   that ran, with its time, the previous (mma.sync) design's time at the
+   same shape, the plain version's, ``scaled_dot_product_attention``'s (a
+   yardstick the port never calls) and the least time the card could
+   take;
 4. forward: the full-width forward pass on tokens [4, 1024] through the
    kernel (one launch per layer), against the same forward with the plain
    attention;
@@ -27,9 +30,12 @@ T = 2048, no remat), random weights from a seed:
    fused data plane's streams against the per-token oracle's;
 7. kernel_bwd: the flash backward (K2 dQ, K3 dK/dV) through the autograd
    Function against ``flash_attention_bwd_plain`` at the training shape
-   and at masking edge cases, with K2's, K3's and K1's times there, the
-   plain backward's, ``scaled_dot_product_attention``'s backward (a
-   yardstick the port never calls) and the bounds;
+   and at masking edge cases (the same new ones as the forward's), with
+   K2's, K3's, the delta pre-pass's and K1's times there, K3's and K1's
+   previous designs', the plain backward's,
+   ``scaled_dot_product_attention``'s backward (a yardstick the port
+   never calls; it includes its own pre-pass, so it stands against K2 +
+   K3 + delta) and the bounds;
 8. train: per-leaf gradient errors of the bf16 kernel path and the bf16
    plain-attention path against a float32 plain-attention reference on
    one batch, then 5 AdamW steps of ``make_train_step`` (step ms,
@@ -37,7 +43,9 @@ T = 2048, no remat), random weights from a seed:
    ``remat="full"`` against ``remat="none"`` on one batch (loss and
    per-leaf gradients) and one step with ``remat="full"``.
 
-Every phase prints one JSON line and raises on failure. The last line is
+The ``kernels`` line names each kernel's instance on the main path and
+the launches that went to each instance. Every phase prints one JSON line
+and raises on failure. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -182,7 +190,7 @@ def kernel_phase(dev) -> dict:
     import torch
 
     from kubegpu_tpu_torch.workload.kernels.flash import (
-        flash_attention_plain, flash_attention_with_lse)
+        _instance, _launch, flash_attention_plain, flash_attention_with_lse)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -190,6 +198,8 @@ def kernel_phase(dev) -> dict:
     cases = [
         # name, (B, Tq, Tk, H, D), dtype, kwargs
         ("slice_causal", (b0, t0, t0, h0, d0), bf16, {}),
+        ("single_tile", (1, 64, 64, 1, 128), bf16, {}),
+        ("ragged_multistage", (1, 2085, 2085, 2, 128), bf16, {}),
         ("non_causal", (2, 256, 256, 4, 128), bf16, dict(causal=False)),
         ("window_64", (2, 512, 512, 4, 128), bf16, dict(window=64)),
         ("offsets_96_32", (1, 256, 256, 4, 64), bf16,
@@ -213,8 +223,10 @@ def kernel_phase(dev) -> dict:
         q, k, v = case_qkv(gen, dev, b, tq, tk, h, d, dt,
                            kw.pop("strided", False))
         scale = d ** -0.5
+        before = _instance_counts()
         o, lse = flash_attention_with_lse(q, k, v, scale, **kw)
         torch.cuda.synchronize()
+        instance = _ran(before)[0]
         o_ref, lse_ref = flash_attention_plain(q, k, v, scale, **kw)
         err_o = (o.float() - o_ref.float()).abs().max().item()
         if name == "all_future":
@@ -227,14 +239,17 @@ def kernel_phase(dev) -> dict:
                 else (TOL_BF16_O, TOL_BF16_LSE)
             ok = err_o <= tol_o and err_l <= tol_l \
                 and bool(torch.isfinite(o).all())
+        ok = ok and instance == _instance(dt, d)
         row = {"phase": "kernel", "case": name, "dtype": str(dt)[6:],
-               "shape": [b, tq, tk, h, d], "max_abs_err_o": err_o,
-               "max_abs_err_lse": err_l, "ok": ok}
+               "shape": [b, tq, tk, h, d], "instance": instance,
+               "max_abs_err_o": err_o, "max_abs_err_lse": err_l, "ok": ok}
         if name == "slice_causal":
             pairs = visible_pairs(tq, tk, 0, 0, True, 0)
             bound, bound_by = attention_bound_ms(b, tq, tk, h, d, dt, pairs)
             row.update(
                 ms=time_ms(lambda: flash_attention_with_lse(q, k, v, scale)),
+                previous_ms=time_ms(lambda: _launch(
+                    q, k, v, scale, 0, 0, True, 0, instance="mma")),
                 plain_ms=time_ms(
                     lambda: flash_attention_plain(q, k, v, scale)),
                 library_ms=time_ms(
@@ -271,10 +286,11 @@ def forward_phase(dev, cfg, params) -> dict:
                            device=dev)
     fwd = make_forward(cfg)                      # attn_impl "auto"
     with torch.no_grad():
-        flash_attention_with_lse.launches = 0
+        _zero_launch_counts()
         logits = fwd(params, tokens)
         torch.cuda.synchronize()
         launches = flash_attention_with_lse.launches
+        by_instance = dict(flash_attention_with_lse.launches_by_instance)
         plain = make_forward(dataclasses.replace(cfg, attn_impl="xla"))
         ref = plain(params, tokens)
         f32 = dataclasses.replace(cfg, dtype="float32")
@@ -290,6 +306,7 @@ def forward_phase(dev, cfg, params) -> dict:
     err_p = (ref - truth).abs()
     row = {"phase": "forward", "tokens": list(FORWARD_TOKENS),
            "kernel_launches": launches,
+           "kernel_launches_by_instance": by_instance,
            "finite": bool(torch.isfinite(logits).all()),
            "bf16_kernel_vs_f32": [err_k.mean().item(), err_k.max().item()],
            "bf16_plain_vs_f32": [err_p.mean().item(), err_p.max().item()],
@@ -300,7 +317,7 @@ def forward_phase(dev, cfg, params) -> dict:
                (f32_flash - truth).abs().max().item(),
            "forward_ms": fwd_ms, "forward_plain_attention_ms": plain_ms}
     row["ok"] = (
-        launches == cfg.n_layers and row["finite"]
+        launches == cfg.n_layers == by_instance["sm90"] and row["finite"]
         and tuple(logits.shape) == FORWARD_TOKENS + (cfg.vocab,)
         and row["bf16_kernel_vs_f32"][0]
         <= TOL_FWD_MEAN_RATIO * row["bf16_plain_vs_f32"][0]
@@ -412,9 +429,29 @@ def _launch_counts() -> tuple:
 def _zero_launch_counts() -> None:
     from kubegpu_tpu_torch.workload.kernels import flash
 
-    flash.flash_attention_with_lse.launches = 0
-    flash.flash_bwd_dq.launches = 0
-    flash.flash_bwd_dkv.launches = 0
+    for fn in (flash.flash_attention_with_lse, flash.flash_bwd_dq,
+               flash.flash_bwd_dkv):
+        fn.launches = 0
+        fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance, 0)
+
+
+def _instance_counts() -> tuple:
+    """K1's and K3's launches per instance."""
+    from kubegpu_tpu_torch.workload.kernels import flash
+
+    return (dict(flash.flash_attention_with_lse.launches_by_instance),
+            dict(flash.flash_bwd_dkv.launches_by_instance))
+
+
+def _ran(before) -> tuple:
+    """The instance of K1 and of K3 launched since ``before`` (an
+    `_instance_counts` reading), None where it did not launch, a list where
+    several did."""
+    out = []
+    for was, now in zip(before, _instance_counts()):
+        hit = [k for k in now if now[k] > was[k]]
+        out.append(hit[0] if len(hit) == 1 else (hit or None))
+    return tuple(out)
 
 
 def kernel_bwd_phase(dev) -> dict:
@@ -423,7 +460,8 @@ def kernel_bwd_phase(dev) -> dict:
     import torch
 
     from kubegpu_tpu_torch.workload.kernels.flash import (
-        _delta, flash_attention_bwd_plain, flash_attention_plain,
+        _delta, _instance, _launch, flash_attention_bwd_plain,
+        flash_attention_plain,
         flash_attention_with_lse, flash_bwd_dkv, flash_bwd_dq)
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -431,6 +469,8 @@ def kernel_bwd_phase(dev) -> dict:
     b0, t0, h0, d0 = TRAIN_SHAPE
     cases = [
         ("train_causal", (b0, t0, t0, h0, d0), bf16, {}),
+        ("single_tile", (1, 64, 64, 1, 128), bf16, {}),
+        ("ragged_multistage", (1, 2085, 2085, 2, 128), bf16, {}),
         ("non_causal", (2, 256, 256, 4, 128), bf16, dict(causal=False)),
         ("window_64", (2, 512, 512, 4, 128), bf16, dict(window=64)),
         ("offsets_96_32", (1, 256, 256, 4, 64), bf16,
@@ -465,6 +505,7 @@ def kernel_bwd_phase(dev) -> dict:
                            dtype=f32) if with_dlse else None
         o, lse = flash_attention_with_lse(q, k, v, scale, **kw)
         before = _launch_counts()
+        before_instance = _instance_counts()
         if dlse is None:
             grads = torch.autograd.grad(o, (q, k, v), do)
         else:
@@ -472,6 +513,7 @@ def kernel_bwd_phase(dev) -> dict:
         torch.cuda.synchronize()
         after = _launch_counts()
         launched = [after[i] - before[i] for i in range(3)]
+        instance = _ran(before_instance)[1]
         refs = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
                                          o.detach(), lse.detach(), do, dlse,
                                          scale, **kw)
@@ -484,9 +526,10 @@ def kernel_bwd_phase(dev) -> dict:
             tol = TOL_BWD_F32 if dt == f32 else TOL_BWD_BF16
             ok = all(e <= tol * t for e, t in zip(errs, tops)) and all(
                 bool(torch.isfinite(g).all()) for g in grads)
-        ok = ok and launched == [0, 1, 1]
+        ok = ok and launched == [0, 1, 1] and instance == _instance(dt, d)
         row = {"phase": "kernel_bwd", "case": name, "dtype": str(dt)[6:],
                "shape": [b, tq, tk, h, d], "dlse": with_dlse,
+               "dkv_instance": instance,
                "max_abs_err_dq_dk_dv": errs, "max_abs_ref_dq_dk_dv": tops,
                "launches_fwd_dq_dkv": launched, "ok": ok}
         if name == "train_causal":
@@ -507,8 +550,13 @@ def kernel_bwd_phase(dev) -> dict:
                                                    delta, scale)),
                 dkv_ms=time_ms(lambda: flash_bwd_dkv(qd, kd, vd, do, lsed,
                                                      delta, scale)),
+                dkv_previous_ms=time_ms(lambda: flash_bwd_dkv(
+                    qd, kd, vd, do, lsed, delta, scale, instance="mma")),
+                delta_ms=time_ms(lambda: _delta(o.detach(), do, None)),
                 fwd_ms=time_ms(lambda: flash_attention_with_lse(
                     qd, kd, vd, scale)),
+                fwd_previous_ms=time_ms(lambda: _launch(
+                    qd, kd, vd, scale, 0, 0, True, 0, instance="mma")),
                 plain_bwd_ms=time_ms(lambda: flash_attention_bwd_plain(
                     qd, kd, vd, o.detach(), lsed, do, None, scale),
                     runs=5, batch=2, warmup=1),
@@ -648,6 +696,7 @@ def train_phase(dev) -> dict:
         after = _launch_counts()
         launches.append([after[i] - before[i] for i in range(3)])
     run_launches = list(_launch_counts())
+    run_by_instance = _instance_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # remat "full" against remat "none" on the same params and batch: the
@@ -681,6 +730,7 @@ def train_phase(dev) -> dict:
            "model_flops_per_step": flops,
            "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
            "launches_fwd_dq_dkv_per_step": launches,
+           "run_launches_by_instance_fwd_dkv": run_by_instance,
            "peak_memory_gb": peak_gb,
            "remat_full_launches_fwd_dq_dkv": full_launches,
            "remat_full_loss": loss_full, "remat_none_loss": loss_none,
@@ -689,6 +739,7 @@ def train_phase(dev) -> dict:
     row["ok"] = (
         all(np.isfinite(losses)) and losses[-1] < losses[0]
         and all(x == [n, n, n] for x in launches)
+        and all(c["sm90"] == TRAIN_STEPS * n for c in run_by_instance)
         and full_launches == [2 * n, n, n]
         and all(abs(x - loss_none) <= TOL_REMAT_LOSS * abs(loss_none)
                 for x in (loss_full, loss_full_step))
@@ -698,6 +749,7 @@ def train_phase(dev) -> dict:
     if not row["ok"]:
         raise AssertionError(f"train phase failed: {row}")
     row["run_launches"] = run_launches
+    row["run_by_instance"] = run_by_instance
     return row
 
 
@@ -741,33 +793,50 @@ def main() -> int:
     train = train_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's
+    # K1's and K3's instance is the main path's (bf16, head_dim 128: sm90);
+    # "previous_ms" times their mma.sync instance at the same shape
     run = train["run_launches"]
-    bwd_src = "kubegpu_tpu_torch/csrc/flash_bwd.cu"
+    k1_run, k3_run = train["run_by_instance"]
+    src = "kubegpu_tpu_torch/csrc/"
     emit({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
-        "source": "kubegpu_tpu_torch/csrc/flash_fwd.cu",
+        "source": src + "flash_fwd_sm90.cu", "instance": k1["instance"],
+        "previous_source": src + "flash_fwd.cu",
         "replaces": "kubegpu_tpu/workload/kernels/flash.py:126",
         "launches": fwd["kernel_launches"],
+        "launches_by_instance": fwd["kernel_launches_by_instance"],
         "launches_train_run": run[0],
+        "launches_train_run_by_instance": k1_run,
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
+        "previous_ms": k1["previous_ms"],
+        "serve_shape_previous_ms": k1["previous_ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
         "train_shape_ms": kb["fwd_ms"],
+        "train_shape_previous_ms": kb["fwd_previous_ms"],
+        "train_shape_library_ms": kb["library_fwd_ms"],
         "train_shape_bound_ms": kb["fwd_bound_ms"]}, {
-        "name": "flash_bwd_dq", "route": "cuda", "source": bwd_src,
+        "name": "flash_bwd_dq", "route": "cuda",
+        "source": src + "flash_bwd.cu", "instance": "mma",
         "replaces": "kubegpu_tpu/workload/kernels/flash.py:213",
         "launches": run[1], "launches_train_run": run[1],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0], "ms": kb["dq_ms"],
         "plain_ms": kb["plain_bwd_ms"], "bound_ms": kb["dq_bound_ms"],
         "bound_by": kb["dq_bound_by"],
-        "library_ms": kb["library_bwd_ms"]}, {
-        "name": "flash_bwd_dkv", "route": "cuda", "source": bwd_src,
+        "library_ms": kb["library_bwd_ms"], "delta_ms": kb["delta_ms"]}, {
+        "name": "flash_bwd_dkv", "route": "cuda",
+        "source": src + "flash_bwd_dkv_sm90.cu",
+        "instance": kb["dkv_instance"],
+        "previous_source": src + "flash_bwd.cu",
         "replaces": "kubegpu_tpu/workload/kernels/flash.py:244",
         "launches": run[2], "launches_train_run": run[2],
+        "launches_train_run_by_instance": k3_run,
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
-        "ms": kb["dkv_ms"], "plain_ms": kb["plain_bwd_ms"],
+        "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
+        "plain_ms": kb["plain_bwd_ms"],
         "bound_ms": kb["dkv_bound_ms"], "bound_by": kb["dkv_bound_by"],
-        "library_ms": kb["library_bwd_ms"]}]})
+        "library_ms": kb["library_bwd_ms"], "delta_ms": kb["delta_ms"],
+        "k2_k3_delta_ms": kb["dq_ms"] + kb["dkv_ms"] + kb["delta_ms"]}]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

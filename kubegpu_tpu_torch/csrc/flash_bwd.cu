@@ -33,8 +33,13 @@
 //   K3: 8 D FLOP per pair (S, dP, dV, dK) = 154.7 GFLOP, 0.156 ms;
 //       bytes q, k, v, dO, dK, dV, lse, delta = 227.7 MB, 0.068 ms: bound by
 //       operations.
-// The first versions use mma.sync (wgmma, TMA and a persistent schedule
-// are later work), so they sit well above those bounds.
+// Both use mma.sync, which caps them well below Hopper's tensor-core rate.
+// K2 here is the main path's dQ kernel at every shape. K3 here serves bf16
+// at head_dim 32 and float32 on the main path; at head_dim 64 and 128 in
+// bf16 the main path takes the Hopper redesign (flash_bwd_dkv_sm90.cu:
+// wgmma, TMA, a producer warp, 64-row query tiles used by 128 keys), and
+// this K3 stays as the previous design, which chip_smoke.py times beside
+// it. The wrapper's shape rule (kernels/flash.py::_instance) picks it.
 //
 // The float32 instances (plain FMAs, one thread per query row in K2 and per
 // key in K3) serve float32 configs; at D = 128 their accumulators spill.
@@ -694,16 +699,13 @@ extern "C" int kgt_flash_bwd_dq(const void* q, const void* k, const void* v,
   }
 }
 
-extern "C" int kgt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv,
-                                 int dtype, int B, int H, int Tq, int Tk,
-                                 int D, const long long* in_strides,
-                                 long long dksb, long long dkst,
-                                 long long dksh, long long dvsb,
-                                 long long dvst, long long dvsh, float scale,
-                                 int q_offset, int kv_offset, int causal,
-                                 int window, void* stream) {
+extern "C" int kgt_flash_bwd_dkv_mma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int dtype, int B,
+    int H, int Tq, int Tk, int D, const long long* in_strides,
+    long long dksb, long long dkst, long long dksh, long long dvsb,
+    long long dvst, long long dvsh, float scale, int q_offset, int kv_offset,
+    int causal, int window, void* stream) {
   if (bad_args(dtype, B, H, Tq, Tk))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p = make_params(q, k, v, dout, lse, delta, B, H, Tq, Tk,

@@ -1,4 +1,9 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash attention forward (K1), mma.sync instances, plain C interface for
+// ctypes: bf16 at head_dim 32 and float32 at 32, 64 and 128 on the main
+// path, and bf16 at 64 and 128 as the previous design, which chip_smoke.py
+// times beside the Hopper instance (flash_fwd_sm90.cu) that the main path
+// takes there. The wrapper's shape rule (kernels/flash.py::_instance)
+// picks the instance.
 //
 // Replaces kubegpu_tpu/workload/kernels/flash.py::_fwd_kernel, the TPU's
 // Pallas forward: causal, sliding-window or non-causal attention with an
@@ -23,8 +28,9 @@
 // units (exp2), the per-element mask only on tiles the mask cuts, K/V
 // tiles staged in two stages with cp.async (the next tile loads while this
 // one computes), and the query tiles that see the most keys scheduled
-// first. wgmma, TMA, a producer warp and a persistent schedule are later
-// work.
+// first. mma.sync caps it well below Hopper's tensor-core rate, and every
+// thread both copies and computes; flash_fwd_sm90.cu is the redesign with
+// wgmma, TMA and a producer warp.
 //
 // Rows that see no key at all give O = 0 and lse <= -1e20: a masked
 // score is -inf, so its probability is exactly 0 whatever tile it
@@ -372,15 +378,15 @@ cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
 // dimensions of q, k, v and o; D has unit stride. Returns cudaGetLastError()
 // after the launch (a launch the card refuses never runs, and a later
 // synchronize would not report it).
-extern "C" int kgt_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int dtype, int B, int H,
-                             int Tq, int Tk, int D, long long qsb,
-                             long long qst, long long qsh, long long ksb,
-                             long long kst, long long ksh, long long vsb,
-                             long long vst, long long vsh, long long osb,
-                             long long ost, long long osh, float scale,
-                             int q_offset, int kv_offset, int causal,
-                             int window, void* stream) {
+extern "C" int kgt_flash_fwd_mma(const void* q, const void* k, const void* v,
+                                 void* o, void* lse, int dtype, int B, int H,
+                                 int Tq, int Tk, int D, long long qsb,
+                                 long long qst, long long qsh, long long ksb,
+                                 long long kst, long long ksh, long long vsb,
+                                 long long vst, long long vsh, long long osb,
+                                 long long ost, long long osh, float scale,
+                                 int q_offset, int kv_offset, int causal,
+                                 int window, void* stream) {
   if ((dtype != 0 && dtype != 1) || B < 1 || H < 1 || Tq < 1 || Tk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q,   k,   v,   o,   static_cast<float*>(lse), B,   H,   Tq,

@@ -4,24 +4,31 @@ The counterpart of ``kubegpu_tpu/workload/kernels/flash.py``'s public API
 (``flash_attention_with_lse``, ``flash_attention``, ``merge_partials``)
 with the same ``[B, T, H, D]`` layout, forward and backward:
 
-- the TPU's Pallas forward kernel (``_fwd_kernel``) becomes
-  ``csrc/flash_fwd.cu`` (K1): one thread block per ``(b, h, q-tile)`` with
-  an in-block loop over k-tiles, bf16 tensor-core products with float32
-  online softmax, tiles the mask hides skipped, the ``[B, T, H, D]``
-  strides read directly (no transposes);
-- the two backward kernels (``_dq_kernel``, ``_dkv_kernel``) become
-  ``csrc/flash_bwd.cu`` (K2: dQ over k-tiles; K3: dK and dV over q-tiles),
-  behind a ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)``
-  and takes the lse cotangent, which ring attention's merge needs.
+- the TPU's Pallas forward kernel (``_fwd_kernel``) becomes K1: one
+  thread block per ``(b, h, q-tile)`` with an in-block loop over k-tiles,
+  bf16 tensor-core products with float32 online softmax, tiles the mask
+  hides skipped, the ``[B, T, H, D]`` strides read directly (no
+  transposes);
+- the two backward kernels (``_dq_kernel``, ``_dkv_kernel``) become K2
+  (dQ over k-tiles) and K3 (dK and dV over q-tiles), behind a
+  ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` and takes
+  the lse cotangent, which ring attention's merge needs.
 
-Each kernel has a float32 instance (plain FMAs) for float32 configs.
+K1 and K3 have two instances, picked by `_instance` from the dtype and
+head_dim alone: "sm90" (``csrc/flash_fwd_sm90.cu``,
+``csrc/flash_bwd_dkv_sm90.cu``: wgmma, TMA, a producer warpgroup; bf16 at
+head_dim 64 and 128, the main path) and "mma" (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``: mma.sync for bf16, plain FMAs for float32). K2 has
+the "mma" instance only. A launch the instance refuses raises; no
+instance stands in for another.
 
 Dispatch: a tensor on the CPU goes to the plain version
 (`flash_attention_plain`, `flash_attention_bwd_plain`: the full score
 matrix, masked at global positions); a tensor on CUDA launches the
 kernel or raises. There is no fallback between the two.
 ``flash_attention_with_lse.launches``, ``flash_bwd_dq.launches`` and
-``flash_bwd_dkv.launches`` count kernel launches.
+``flash_bwd_dkv.launches`` count kernel launches, and each wrapper's
+``launches_by_instance`` counts them per instance.
 
 Rows that see no key at all give ``O = 0``, ``lse <= -1e20`` and zero
 gradients on both versions. (The Pallas kernel gives that only when every
@@ -39,6 +46,24 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+SM90_HEAD_DIMS = (64, 128)
+# instance -> (K1's library, K1's symbol, K3's library, K3's symbol); a
+# library is built from csrc/<library>.cu
+_LIBS = {"sm90": ("flash_fwd_sm90", "kgt_flash_fwd_sm90",
+                  "flash_bwd_dkv_sm90", "kgt_flash_bwd_dkv_sm90"),
+         "mma": ("flash_fwd", "kgt_flash_fwd_mma",
+                 "flash_bwd", "kgt_flash_bwd_dkv_mma")}
+
+
+def _instance(dtype, d: int) -> str:
+    """The kernel instance of K1 and K3 for ``dtype`` and head_dim ``d``:
+    "sm90" for bf16 at head_dim 64 or 128, "mma" for bf16 at 32 and for
+    float32. Raises ValueError for a head_dim no instance takes."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, "
+                         f"got {d}")
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS \
+        else "mma"
 
 
 def _mask(tq: int, tk: int, q_offset: int, kv_offset: int, causal: bool,
@@ -81,16 +106,22 @@ def flash_attention_plain(q, k, v, scale, *, q_offset=0, kv_offset=0,
 
 def _kernel_operand(x):
     """``x`` as the kernel reads it: unit stride in D; for bf16, the row
-    strides a multiple of 8 elements and the base 16-byte aligned (the
-    kernel stages rows with 16-byte loads). Anything else is copied to a
-    contiguous tensor first."""
+    strides positive multiples of 8 elements and the base 16-byte aligned
+    (the mma kernels stage rows with 16-byte loads, and the sm90 kernels'
+    TMA maps need exactly that). Anything else, an expanded (stride 0)
+    view included, is copied to a contiguous tensor first; a view of a
+    packed [B, T, 3, H, D] tensor passes as it is."""
     ok = x.stride(-1) == 1 and x.data_ptr() % 16 == 0
     if x.dtype == torch.bfloat16:
-        ok = ok and all(s % 8 == 0 for s in x.stride()[:3])
+        ok = ok and all(s > 0 and s % 8 == 0 for s in x.stride()[:3])
     return x if ok else x.contiguous()
 
 
-def _launch(q, k, v, scale, q_offset, kv_offset, causal, window):
+def _launch(q, k, v, scale, q_offset, kv_offset, causal, window,
+            instance=None):
+    """K1 on the current stream: ``instance`` None takes `_instance`'s
+    choice; "mma" at bf16 head_dim 64/128 runs the previous design (only
+    ``chip_smoke.py`` asks for it, to time it)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes bf16 or float32 q/k/v of one "
                         f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -98,15 +129,14 @@ def _launch(q, k, v, scale, q_offset, kv_offset, causal, window):
         raise ValueError("q, k and v must be on one device")
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
+    instance = instance or _instance(q.dtype, d)
     q, k, v = (_kernel_operand(x) for x in (q, k, v))
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     from kubegpu_tpu_torch.workload.kernels import _build
 
-    fn = _build.load("flash_fwd").kgt_flash_fwd
+    lib, symbol = _LIBS[instance][:2]
+    fn = getattr(_build.load(lib), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_int64] * 12
@@ -120,9 +150,10 @@ def _launch(q, k, v, scale, q_offset, kv_offset, causal, window):
                  *o.stride()[:3], float(scale), int(q_offset),
                  int(kv_offset), int(bool(causal)), int(window), stream)
     if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
                            f"{err}")
     flash_attention_with_lse.launches += 1
+    flash_attention_with_lse.launches_by_instance[instance] += 1
     return o, lse
 
 
@@ -185,11 +216,12 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, dlse, scale, *,
             *_dkv_plain(q, k, v, do, p, ds, scale))
 
 
-def _launch_bwd(symbol, q, k, v, do, lse, delta, scale, q_offset,
+def _launch_bwd(lib, symbol, q, k, v, do, lse, delta, scale, q_offset,
                 kv_offset, causal, window) -> list:
-    """Launch K2 (``kgt_flash_bwd_dq``: returns ``[dq]``) or K3
-    (``kgt_flash_bwd_dkv``: returns ``[dk, dv]``) on the current stream;
-    raises on any operand the kernels do not take or a refused launch."""
+    """Launch K2 (``kgt_flash_bwd_dq``: returns ``[dq]``) or K3 (either
+    instance's symbol: returns ``[dk, dv]``) from the library built from
+    ``csrc/<lib>.cu`` on the current stream; raises on any operand the
+    kernels do not take or a refused launch."""
     if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in (k, v, do)):
         raise TypeError(f"flash backward kernels take bf16 or float32 "
                         f"q/k/v/dO of one type, got {q.dtype}, {k.dtype}, "
@@ -197,9 +229,7 @@ def _launch_bwd(symbol, q, k, v, do, lse, delta, scale, q_offset,
     if not all(x.device == q.device for x in (k, v, do, lse, delta)):
         raise ValueError("flash backward operands must be on one device")
     b, tq, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel supports head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
+    _instance(q.dtype, d)  # raises for a head_dim no kernel takes
     if lse.shape != (b, h, tq) or delta.shape != (b, h, tq):
         raise ValueError(f"lse and delta must be [B, H, Tq] = {(b, h, tq)}, "
                          f"got {tuple(lse.shape)}, {tuple(delta.shape)}")
@@ -212,7 +242,7 @@ def _launch_bwd(symbol, q, k, v, do, lse, delta, scale, q_offset,
             for x in ((q,) if symbol.endswith("_dq") else (k, v))]
     from kubegpu_tpu_torch.workload.kernels import _build
 
-    fn = getattr(_build.load("flash_bwd"), symbol)
+    fn = getattr(_build.load(lib), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong)]
@@ -243,32 +273,40 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, *, q_offset=0,
                       causal, window)
         return _dq_plain(q, k, ds, scale)
     _check_device(q)
-    (dq,) = _launch_bwd("kgt_flash_bwd_dq", q, k, v, do, lse, delta, scale,
-                        q_offset, kv_offset, causal, window)
+    (dq,) = _launch_bwd("flash_bwd", "kgt_flash_bwd_dq", q, k, v, do, lse,
+                        delta, scale, q_offset, kv_offset, causal, window)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_by_instance["mma"] += 1
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_by_instance = {"mma": 0}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale, *, q_offset=0,
-                  kv_offset=0, causal=True, window=0):
+                  kv_offset=0, causal=True, window=0, instance=None):
     """K3: ``(dk, dv)`` from q, k, v, dO, lse and delta. CUDA tensors
     launch the kernel (``flash_bwd_dkv.launches`` counts it) or raise; CPU
-    tensors take the plain version."""
+    tensors take the plain version. ``instance`` None takes `_instance`'s
+    choice; "mma" at bf16 head_dim 64/128 runs the previous design (only
+    ``chip_smoke.py`` asks for it, to time it)."""
     if q.device.type == "cpu":
         p, ds = _p_ds(q, k, v, lse, do, delta, scale, q_offset, kv_offset,
                       causal, window)
         return _dkv_plain(q, k, v, do, p, ds, scale)
     _check_device(q)
-    dk, dv = _launch_bwd("kgt_flash_bwd_dkv", q, k, v, do, lse, delta,
-                         scale, q_offset, kv_offset, causal, window)
+    instance = instance or _instance(q.dtype, q.shape[-1])
+    lib, symbol = _LIBS[instance][2:]
+    dk, dv = _launch_bwd(lib, symbol, q, k, v, do, lse, delta, scale,
+                         q_offset, kv_offset, causal, window)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches_by_instance[instance] += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_by_instance = {"sm90": 0, "mma": 0}
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, dlse, scale, *, q_offset=0,
@@ -343,6 +381,7 @@ def flash_attention_with_lse(q, k, v, scale, *, q_offset=0, kv_offset=0,
 
 
 flash_attention_with_lse.launches = 0
+flash_attention_with_lse.launches_by_instance = {"sm90": 0, "mma": 0}
 
 
 def flash_attention(q, k, v, scale, **kw):
