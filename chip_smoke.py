@@ -28,18 +28,21 @@ T = 2048, no remat), random weights from a seed:
 6. serve: the continuous-batching server on the benchmark's traffic (4
    slots, 8 prompts of 16..512 tokens, 64 new tokens each, greedy); the
    fused data plane's streams against the per-token oracle's;
-7. kernel_bwd: the flash backward (K2 dQ, K3 dK/dV) through the autograd
-   Function against ``flash_attention_bwd_plain`` at the training shape
-   and at masking edge cases (the same new ones as the forward's), with
-   K2's, K3's, the delta pre-pass's and K1's times there, K3's and K1's
-   previous designs', the plain backward's,
-   ``scaled_dot_product_attention``'s backward (a yardstick the port
-   never calls; it includes its own pre-pass, so it stands against K2 +
-   K3 + delta) and the bounds;
+7. kernel_bwd: the flash backward (K2 dQ with the row term delta, K3
+   dK/dV) through the autograd Function against
+   ``flash_attention_bwd_plain`` at the training shape and at masking
+   edge cases (the same new ones as the forward's), each row naming K2's
+   and K3's instances and holding the delta K2 hands K3 against
+   ``_delta``; with K2's, K3's and K1's times there, their previous
+   designs' (K2's with the ``_delta`` pre-pass it needs), the pre-pass's
+   alone, their plain versions', ``scaled_dot_product_attention``'s
+   backward (a yardstick the port never calls; it includes its own
+   pre-pass, so it stands against K2 + K3) and the bounds;
 8. train: per-leaf gradient errors of the bf16 kernel path and the bf16
    plain-attention path against a float32 plain-attention reference on
    one batch, then 5 AdamW steps of ``make_train_step`` (step ms,
-   tokens/s, MFU, losses, kernel launches per step), then
+   tokens/s, MFU, losses, kernel launches per step, calls of the
+   ``_delta`` pre-pass, which the sm90 K2 leaves none of), then
    ``remat="full"`` against ``remat="none"`` on one batch (loss and
    per-leaf gradients) and one step with ``remat="full"``.
 
@@ -52,6 +55,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -96,6 +100,10 @@ TOL_FWD_F32 = 1e-3
 # bf16; float32: summation order only.
 TOL_BWD_BF16 = 1e-2
 TOL_BWD_F32 = 1e-4
+# The delta K2 emits against `_delta` on the same (o, dO, dlse): both sum
+# float32 products of the same bf16 or float32 values, in another order,
+# so within 1e-4 of the largest |delta|.
+TOL_DELTA = 1e-4
 # Training gradients: the bf16 kernel path's per-leaf relative L2 error
 # against the float32 plain-attention gradients may be at most 1.25x the
 # bf16 plain path's, in the median over leaves and for the worst leaf.
@@ -402,20 +410,24 @@ def serve_phase(dev, cfg, params) -> dict:
 
 
 def backward_bound_ms(b, tq, tk, h, d, dtype, pairs, kernel) -> tuple:
-    """Least time for K2 ("dq") or K3 ("dkv") on an H100 SXM: the larger
-    of their tensors moved once over the memory rate (K2: q, k, v, dO, dQ;
-    K3: q, k, v, dO, dK, dV; both lse and delta in float32) and their
-    operations per visible pair (K2: 6 D for S, dP, dQ; K3: 8 D for S, dP,
-    dV, dK) over the tensor-core (bf16) or FMA (float32) peak."""
+    """Least time for K2 ("dq", with the row term delta it computes) or K3
+    ("dkv") on an H100 SXM: the larger of their tensors moved once over
+    the memory rate (K2: q, k, v, dO, O, dQ; K3: q, k, v, dO, dK, dV; both
+    lse and delta in float32) and their operations (K2: 6 D a visible pair
+    for S, dP, dQ on the tensor cores, and 2 D a row for delta in float32
+    FMAs; K3: 8 D a pair for S, dP, dV, dK) over the peak of their type
+    (the tensor cores for bf16 products, the FMA units for float32)."""
     import torch
 
     esize = torch.finfo(dtype).bits // 8
-    rows = (3 * tq + 2 * tk) if kernel == "dq" else (2 * tq + 4 * tk)
+    rows = (4 * tq + 2 * tk) if kernel == "dq" else (2 * tq + 4 * tk)
     nbytes = esize * b * h * d * rows + 2 * 4 * b * h * tq
     flops = (6 if kernel == "dq" else 8) * d * pairs * b * h
     name = "bfloat16" if dtype == torch.bfloat16 else "float32"
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[name] * 1e3
+    if kernel == "dq":
+        t_ops += 2 * d * tq * b * h / PEAK_FLOPS["float32"] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -436,15 +448,16 @@ def _zero_launch_counts() -> None:
 
 
 def _instance_counts() -> tuple:
-    """K1's and K3's launches per instance."""
+    """K1's, K2's and K3's launches per instance."""
     from kubegpu_tpu_torch.workload.kernels import flash
 
     return (dict(flash.flash_attention_with_lse.launches_by_instance),
+            dict(flash.flash_bwd_dq.launches_by_instance),
             dict(flash.flash_bwd_dkv.launches_by_instance))
 
 
 def _ran(before) -> tuple:
-    """The instance of K1 and of K3 launched since ``before`` (an
+    """The instance of K1, K2 and K3 launched since ``before`` (an
     `_instance_counts` reading), None where it did not launch, a list where
     several did."""
     out = []
@@ -456,12 +469,13 @@ def _ran(before) -> tuple:
 
 def kernel_bwd_phase(dev) -> dict:
     """K2 and K3 through the autograd Function against the plain backward,
-    at the training shape and edge cases; times at the training shape."""
+    at the training shape and edge cases, and the delta K2 gives K3 against
+    `_delta`; times at the training shape."""
     import torch
 
     from kubegpu_tpu_torch.workload.kernels.flash import (
-        _delta, _instance, _launch, flash_attention_bwd_plain,
-        flash_attention_plain,
+        _delta, _dkv_plain, _dq_plain, _instance, _launch, _p_ds,
+        flash_attention_bwd_plain, flash_attention_plain,
         flash_attention_with_lse, flash_bwd_dkv, flash_bwd_dq)
 
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -513,7 +527,14 @@ def kernel_bwd_phase(dev) -> dict:
         torch.cuda.synchronize()
         after = _launch_counts()
         launched = [after[i] - before[i] for i in range(3)]
-        instance = _ran(before_instance)[1]
+        _, dq_instance, instance = _ran(before_instance)
+        # the delta K2 hands K3, from a direct call on the same inputs
+        _, delta_k = flash_bwd_dq(q.detach(), k.detach(), v.detach(),
+                                  o.detach(), do, lse.detach(), dlse, scale,
+                                  **kw)
+        delta_ref = _delta(o.detach(), do, dlse)
+        delta_err = (delta_k - delta_ref).abs().max().item()
+        delta_top = delta_ref.abs().max().item()
         refs = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
                                          o.detach(), lse.detach(), do, dlse,
                                          scale, **kw)
@@ -526,15 +547,18 @@ def kernel_bwd_phase(dev) -> dict:
             tol = TOL_BWD_F32 if dt == f32 else TOL_BWD_BF16
             ok = all(e <= tol * t for e, t in zip(errs, tops)) and all(
                 bool(torch.isfinite(g).all()) for g in grads)
-        ok = ok and launched == [0, 1, 1] and instance == _instance(dt, d)
+        ok = (ok and launched == [0, 1, 1] and instance == _instance(dt, d)
+              and dq_instance == _instance(dt, d)
+              and delta_err <= TOL_DELTA * delta_top)
         row = {"phase": "kernel_bwd", "case": name, "dtype": str(dt)[6:],
                "shape": [b, tq, tk, h, d], "dlse": with_dlse,
-               "dkv_instance": instance,
+               "dq_instance": dq_instance, "dkv_instance": instance,
+               "delta_max_abs_err": delta_err, "delta_max_abs": delta_top,
                "max_abs_err_dq_dk_dv": errs, "max_abs_ref_dq_dk_dv": tops,
                "launches_fwd_dq_dkv": launched, "ok": ok}
         if name == "train_causal":
-            qd, kd, vd = q.detach(), k.detach(), v.detach()
-            delta = _delta(o.detach(), do, None)
+            qd, kd, vd, od = q.detach(), k.detach(), v.detach(), o.detach()
+            delta = _delta(od, do, None)
             lsed = lse.detach()
             pairs = visible_pairs(tq, tk, 0, 0, True, 0)
             dq_bound = backward_bound_ms(b, tq, tk, h, d, dt, pairs, "dq")
@@ -546,19 +570,25 @@ def kernel_bwd_phase(dev) -> dict:
                 qt, kt, vt, is_causal=True)
             do_t = do.transpose(1, 2)
             row.update(
-                dq_ms=time_ms(lambda: flash_bwd_dq(qd, kd, vd, do, lsed,
-                                                   delta, scale)),
+                dq_ms=time_ms(lambda: flash_bwd_dq(qd, kd, vd, od, do, lsed,
+                                                   None, scale)),
+                dq_previous_ms=time_ms(lambda: flash_bwd_dq(
+                    qd, kd, vd, od, do, lsed, None, scale, instance="mma")),
                 dkv_ms=time_ms(lambda: flash_bwd_dkv(qd, kd, vd, do, lsed,
                                                      delta, scale)),
                 dkv_previous_ms=time_ms(lambda: flash_bwd_dkv(
                     qd, kd, vd, do, lsed, delta, scale, instance="mma")),
-                delta_ms=time_ms(lambda: _delta(o.detach(), do, None)),
+                delta_ms=time_ms(lambda: _delta(od, do, None)),
                 fwd_ms=time_ms(lambda: flash_attention_with_lse(
                     qd, kd, vd, scale)),
                 fwd_previous_ms=time_ms(lambda: _launch(
                     qd, kd, vd, scale, 0, 0, True, 0, instance="mma")),
-                plain_bwd_ms=time_ms(lambda: flash_attention_bwd_plain(
-                    qd, kd, vd, o.detach(), lsed, do, None, scale),
+                dq_plain_ms=time_ms(lambda: _dq_plain(qd, kd, _p_ds(
+                    qd, kd, vd, lsed, do, _delta(od, do, None), scale, 0, 0,
+                    True, 0)[1], scale), runs=5, batch=2, warmup=1),
+                dkv_plain_ms=time_ms(lambda: _dkv_plain(
+                    qd, kd, vd, do, *_p_ds(qd, kd, vd, lsed, do, delta,
+                                           scale, 0, 0, True, 0), scale),
                     runs=5, batch=2, warmup=1),
                 library_bwd_ms=time_ms(lambda: torch.autograd.grad(
                     lib_out, (qt, kt, vt), do_t, retain_graph=True)),
@@ -603,6 +633,26 @@ def _grad_errors(got, ref) -> list:
     """Per-leaf relative L2 error of ``got`` against ``ref``."""
     return [((g.float() - r).norm() / r.norm().clamp_min(1e-30)).item()
             for g, r in zip(got, ref)]
+
+
+@contextlib.contextmanager
+def _counting_delta_prepass():
+    """Counts, in the list it yields, the calls of the ``_delta`` pre-pass
+    made inside the block: the mma K2 needs it, the sm90 K2 computes delta
+    itself."""
+    from kubegpu_tpu_torch.workload.kernels import flash
+
+    prepass, calls = flash._delta, [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return prepass(*args)
+
+    flash._delta = counted
+    try:
+        yield calls
+    finally:
+        flash._delta = prepass
 
 
 def _loss_and_grads(cfg, params, tokens) -> tuple:
@@ -685,16 +735,17 @@ def train_phase(dev) -> dict:
     losses, step_s, launches = [], [], []
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
-    for _ in range(TRAIN_STEPS):
-        batch = torch.from_numpy(next(loader)).to(dev)
-        before = _launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, loss = step(params, opt_state, batch)
-        losses.append(loss.item())              # waits for the step
-        step_s.append(time.perf_counter() - t0)
-        after = _launch_counts()
-        launches.append([after[i] - before[i] for i in range(3)])
+    with _counting_delta_prepass() as delta_calls:
+        for _ in range(TRAIN_STEPS):
+            batch = torch.from_numpy(next(loader)).to(dev)
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, batch)
+            losses.append(loss.item())              # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            after = _launch_counts()
+            launches.append([after[i] - before[i] for i in range(3)])
     run_launches = list(_launch_counts())
     run_by_instance = _instance_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -730,7 +781,8 @@ def train_phase(dev) -> dict:
            "model_flops_per_step": flops,
            "mfu": flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"],
            "launches_fwd_dq_dkv_per_step": launches,
-           "run_launches_by_instance_fwd_dkv": run_by_instance,
+           "run_launches_by_instance_fwd_dq_dkv": run_by_instance,
+           "delta_prepass_calls": delta_calls[0],
            "peak_memory_gb": peak_gb,
            "remat_full_launches_fwd_dq_dkv": full_launches,
            "remat_full_loss": loss_full, "remat_none_loss": loss_none,
@@ -740,6 +792,7 @@ def train_phase(dev) -> dict:
         all(np.isfinite(losses)) and losses[-1] < losses[0]
         and all(x == [n, n, n] for x in launches)
         and all(c["sm90"] == TRAIN_STEPS * n for c in run_by_instance)
+        and delta_calls[0] == 0
         and full_launches == [2 * n, n, n]
         and all(abs(x - loss_none) <= TOL_REMAT_LOSS * abs(loss_none)
                 for x in (loss_full, loss_full_step))
@@ -793,10 +846,11 @@ def main() -> int:
     train = train_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's
-    # K1's and K3's instance is the main path's (bf16, head_dim 128: sm90);
-    # "previous_ms" times their mma.sync instance at the same shape
+    # each kernel's instance is the main path's (bf16, head_dim 128: sm90);
+    # "previous_ms" times their mma.sync instance at the same shape, K2's
+    # with the `_delta` pre-pass it needs ("delta_ms" alone)
     run = train["run_launches"]
-    k1_run, k3_run = train["run_by_instance"]
+    k1_run, k2_run, k3_run = train["run_by_instance"]
     src = "kubegpu_tpu_torch/csrc/"
     emit({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
@@ -817,13 +871,19 @@ def main() -> int:
         "train_shape_library_ms": kb["library_fwd_ms"],
         "train_shape_bound_ms": kb["fwd_bound_ms"]}, {
         "name": "flash_bwd_dq", "route": "cuda",
-        "source": src + "flash_bwd.cu", "instance": "mma",
+        "source": src + "flash_bwd_dq_sm90.cu",
+        "instance": kb["dq_instance"],
+        "previous_source": src + "flash_bwd.cu",
         "replaces": "kubegpu_tpu/workload/kernels/flash.py:213",
         "launches": run[1], "launches_train_run": run[1],
-        "max_abs_err": kb["max_abs_err_dq_dk_dv"][0], "ms": kb["dq_ms"],
-        "plain_ms": kb["plain_bwd_ms"], "bound_ms": kb["dq_bound_ms"],
+        "launches_train_run_by_instance": k2_run,
+        "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
+        "delta_max_abs_err": kb["delta_max_abs_err"], "ms": kb["dq_ms"],
+        "previous_ms": kb["dq_previous_ms"], "delta_ms": kb["delta_ms"],
+        "plain_ms": kb["dq_plain_ms"], "bound_ms": kb["dq_bound_ms"],
         "bound_by": kb["dq_bound_by"],
-        "library_ms": kb["library_bwd_ms"], "delta_ms": kb["delta_ms"]}, {
+        "library_ms": kb["library_bwd_ms"],
+        "k2_k3_ms": kb["dq_ms"] + kb["dkv_ms"]}, {
         "name": "flash_bwd_dkv", "route": "cuda",
         "source": src + "flash_bwd_dkv_sm90.cu",
         "instance": kb["dkv_instance"],
@@ -833,10 +893,9 @@ def main() -> int:
         "launches_train_run_by_instance": k3_run,
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
         "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
-        "plain_ms": kb["plain_bwd_ms"],
+        "plain_ms": kb["dkv_plain_ms"],
         "bound_ms": kb["dkv_bound_ms"], "bound_by": kb["dkv_bound_by"],
-        "library_ms": kb["library_bwd_ms"], "delta_ms": kb["delta_ms"],
-        "k2_k3_delta_ms": kb["dq_ms"] + kb["dkv_ms"] + kb["delta_ms"]}]})
+        "library_ms": kb["library_bwd_ms"]}]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -34,12 +34,12 @@
 //       bytes q, k, v, dO, dK, dV, lse, delta = 227.7 MB, 0.068 ms: bound by
 //       operations.
 // Both use mma.sync, which caps them well below Hopper's tensor-core rate.
-// K2 here is the main path's dQ kernel at every shape. K3 here serves bf16
-// at head_dim 32 and float32 on the main path; at head_dim 64 and 128 in
-// bf16 the main path takes the Hopper redesign (flash_bwd_dkv_sm90.cu:
-// wgmma, TMA, a producer warp, 64-row query tiles used by 128 keys), and
-// this K3 stays as the previous design, which chip_smoke.py times beside
-// it. The wrapper's shape rule (kernels/flash.py::_instance) picks it.
+// They serve bf16 at head_dim 32 and float32 on the main path; at head_dim
+// 64 and 128 in bf16 the main path takes the Hopper redesigns
+// (flash_bwd_dq_sm90.cu, which also computes delta, and
+// flash_bwd_dkv_sm90.cu: wgmma, TMA, a producer warp), and these stay as
+// the previous designs, which chip_smoke.py times beside them. The
+// wrapper's shape rule (kernels/flash.py::_instance) picks them.
 //
 // The float32 instances (plain FMAs, one thread per query row in K2 and per
 // key in K3) serve float32 configs; at D = 128 their accumulators spill.
@@ -673,14 +673,12 @@ bool bad_args(int dtype, int B, int H, int Tq, int Tk) {
 // (elements) of q, k, v and dO, in that order (12 values); D has unit
 // stride. lse and delta are [B, H, Tq] float32, contiguous. Each returns
 // cudaGetLastError() after its launch.
-extern "C" int kgt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq, int dtype, int B,
-                                int H, int Tq, int Tk, int D,
-                                const long long* in_strides, long long dqsb,
-                                long long dqst, long long dqsh, float scale,
-                                int q_offset, int kv_offset, int causal,
-                                int window, void* stream) {
+extern "C" int kgt_flash_bwd_dq_mma(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int dtype, int B, int H,
+    int Tq, int Tk, int D, const long long* in_strides, long long dqsb,
+    long long dqst, long long dqsh, float scale, int q_offset, int kv_offset,
+    int causal, int window, void* stream) {
   if (bad_args(dtype, B, H, Tq, Tk))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p = make_params(q, k, v, dout, lse, delta, B, H, Tq, Tk,

@@ -4,14 +4,14 @@
 //
 // Replaces kubegpu_tpu/workload/kernels/flash.py::_dkv_kernel with the
 // conventions of flash_bwd.cu (whose mma.sync K3 stays for head_dim 32 and
-// float32, and as the previous design for comparison; K2 stays there too):
-// S = scale Q K^T and P = exp(S - lse) recomputed tile by tile in log2
-// units, dP = dO V^T, dS = P o (dP - delta) with delta = rowsum(dO o O) -
-// dlse from the wrapper; dV = P^T dO, dK = scale dS^T Q. Masking at global
-// positions, tiles the mask hides skipped, any Tq, Tk >= 1. No atomics:
-// each dK/dV element is owned by one thread, so the result is
-// deterministic. P and dS are cast to bf16 before their products, with
-// float32 accumulation.
+// float32, and as the previous design for comparison): S = scale Q K^T and
+// P = exp(S - lse) recomputed tile by tile in log2 units, dP = dO V^T,
+// dS = P o (dP - delta) with delta = rowsum(dO o O) - dlse as K2
+// (flash_bwd_dq_sm90.cu) wrote it; dV = P^T dO, dK = scale dS^T Q.
+// Masking at global positions, tiles the mask hides skipped, any Tq,
+// Tk >= 1. No atomics: each dK/dV element is owned by one thread, so the
+// result is deterministic. P and dS are cast to bf16 before their
+// products, with float32 accumulation.
 //
 // What bounds it on an H100 SXM, at the training shape (B=4, T=2048,
 // H=18, D=128, causal; 151.07M visible pairs): 8 D FLOP a pair (S, dP, dV,

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// flash_fwd_sm90.cu (K1) and flash_bwd_dkv_sm90.cu (K3): TMA tile loads
-// into 128-byte-swizzled shared memory, mbarrier waits, wgmma
-// shared-memory descriptors and the three wgmma shapes the kernels use,
-// and the host-side tensor maps. Hand-written PTX; no CuTe. Header-only.
+// flash_fwd_sm90.cu (K1), flash_bwd_dq_sm90.cu (K2) and
+// flash_bwd_dkv_sm90.cu (K3): TMA tile loads into 128-byte-swizzled shared
+// memory, mbarrier waits, wgmma shared-memory descriptors and the three
+// wgmma shapes the kernels use, and the host-side tensor maps.
+// Hand-written PTX; no CuTe. Header-only.
 //
 // Shared-memory tiles. A tile of R rows x D bf16 columns is stored as D/64
 // boxes of R rows x 64 columns (128 bytes a row), each box written by one
@@ -15,11 +16,11 @@
 //   in S = Q K^T, K and Q in S^T = K Q^T): the stride between 8-row groups
 //   (SBO) is 1024 bytes; the k-th 16-column step starts 32 k bytes into the
 //   box, the fifth step in the next box.
-// - MN-major (the output's columns run along the row: V in O = P V, dO
-//   and Q in dV = P^T dO, dK = dS^T Q): the 16 reduction rows of a step
-//   are two 8-row groups 1024 bytes apart (SBO); a product wider than one
-//   box (n128 at D = 128) steps to the next 64 columns by the leading
-//   offset (LBO), the distance between the two boxes.
+// - MN-major (the output's columns run along the row: V in O = P V, K in
+//   dQ = dS K, dO and Q in dV = P^T dO, dK = dS^T Q): the 16 reduction
+//   rows of a step are two 8-row groups 1024 bytes apart (SBO); a product
+//   wider than one box (n128 at D = 128) steps to the next 64 columns by
+//   the leading offset (LBO), the distance between the two boxes.
 
 #pragma once
 
@@ -351,10 +352,16 @@ inline EncodeTiledFn encode_tiled() {
 // stride in D, as a 4-D map over (D, T, H, B) whose box is 64 columns x
 // ``rows`` rows of one (b, h), 128-byte swizzled. Rows past T come back
 // zero-filled. False when cuTensorMapEncodeTiled refuses the map (a base
-// not 16-byte aligned, a stride not a multiple of 16 bytes).
+// not 16-byte aligned, a stride not a multiple of 16 bytes) or no context
+// can be bound.
 inline bool make_map(CUtensorMap* map, const void* base, int B, int T, int H,
                      int D, long long sb, long long st, long long sh,
                      int rows) {
+  // The encoding is a driver call and needs a context current on the
+  // calling thread. A thread whose first CUDA call this is (PyTorch's
+  // autograd worker, when the backward starts with a kernel of this file)
+  // has none: a runtime call binds the device's primary context first.
+  if (cudaFree(nullptr) != cudaSuccess) return false;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),

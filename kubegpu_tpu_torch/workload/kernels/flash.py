@@ -14,12 +14,14 @@ with the same ``[B, T, H, D]`` layout, forward and backward:
   ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` and takes
   the lse cotangent, which ring attention's merge needs.
 
-K1 and K3 have two instances, picked by `_instance` from the dtype and
+Each kernel has two instances, picked by `_instance` from the dtype and
 head_dim alone: "sm90" (``csrc/flash_fwd_sm90.cu``,
-``csrc/flash_bwd_dkv_sm90.cu``: wgmma, TMA, a producer warpgroup; bf16 at
-head_dim 64 and 128, the main path) and "mma" (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``: mma.sync for bf16, plain FMAs for float32). K2 has
-the "mma" instance only. A launch the instance refuses raises; no
+``csrc/flash_bwd_dq_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``: wgmma, TMA,
+a producer warpgroup; bf16 at head_dim 64 and 128, the main path) and
+"mma" (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``: mma.sync for bf16,
+plain FMAs for float32). The sm90 K2 also computes the backward's row
+term delta, which K3 reads; before the mma K2 (and on the CPU) `_delta`
+computes it in PyTorch. A launch the instance refuses raises; no
 instance stands in for another.
 
 Dispatch: a tensor on the CPU goes to the plain version
@@ -47,16 +49,18 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 SM90_HEAD_DIMS = (64, 128)
-# instance -> (K1's library, K1's symbol, K3's library, K3's symbol); a
-# library is built from csrc/<library>.cu
-_LIBS = {"sm90": ("flash_fwd_sm90", "kgt_flash_fwd_sm90",
-                  "flash_bwd_dkv_sm90", "kgt_flash_bwd_dkv_sm90"),
-         "mma": ("flash_fwd", "kgt_flash_fwd_mma",
-                 "flash_bwd", "kgt_flash_bwd_dkv_mma")}
+# instance -> kernel -> (library, symbol); a library is built from
+# csrc/<library>.cu
+_LIBS = {"sm90": {"fwd": ("flash_fwd_sm90", "kgt_flash_fwd_sm90"),
+                  "dq": ("flash_bwd_dq_sm90", "kgt_flash_bwd_dq_sm90"),
+                  "dkv": ("flash_bwd_dkv_sm90", "kgt_flash_bwd_dkv_sm90")},
+         "mma": {"fwd": ("flash_fwd", "kgt_flash_fwd_mma"),
+                 "dq": ("flash_bwd", "kgt_flash_bwd_dq_mma"),
+                 "dkv": ("flash_bwd", "kgt_flash_bwd_dkv_mma")}}
 
 
 def _instance(dtype, d: int) -> str:
-    """The kernel instance of K1 and K3 for ``dtype`` and head_dim ``d``:
+    """The kernel instance of K1, K2 and K3 for ``dtype`` and head_dim ``d``:
     "sm90" for bf16 at head_dim 64 or 128, "mma" for bf16 at 32 and for
     float32. Raises ValueError for a head_dim no instance takes."""
     if d not in HEAD_DIMS:
@@ -135,7 +139,7 @@ def _launch(q, k, v, scale, q_offset, kv_offset, causal, window,
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     from kubegpu_tpu_torch.workload.kernels import _build
 
-    lib, symbol = _LIBS[instance][:2]
+    lib, symbol = _LIBS[instance]["fwd"]
     fn = getattr(_build.load(lib), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -216,72 +220,98 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, dlse, scale, *,
             *_dkv_plain(q, k, v, do, p, ds, scale))
 
 
-def _launch_bwd(lib, symbol, q, k, v, do, lse, delta, scale, q_offset,
-                kv_offset, causal, window) -> list:
-    """Launch K2 (``kgt_flash_bwd_dq``: returns ``[dq]``) or K3 (either
-    instance's symbol: returns ``[dk, dv]``) from the library built from
-    ``csrc/<lib>.cu`` on the current stream; raises on any operand the
-    kernels do not take or a refused launch."""
-    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in (k, v, do)):
+def _launch_bwd(kernel, instance, q, k, v, do, lse, scale, q_offset,
+                kv_offset, causal, window, *, delta=None, o=None,
+                dlse=None) -> list:
+    """Launch K2 (``kernel`` "dq") or K3 ("dkv") of ``instance`` on the
+    current stream. K3 and the mma K2 read ``delta`` and return ``[dk,
+    dv]`` and ``[dq]``; the sm90 K2 reads ``o`` and ``dlse`` (None: no lse
+    cotangent) instead and returns ``[dq, delta]``, delta computed in the
+    kernel. Raises on any operand the kernels do not take or a refused
+    launch."""
+    fused = kernel == "dq" and instance == "sm90"
+    rows = (q, k, v, do, o) if fused else (q, k, v, do)
+    if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in rows):
         raise TypeError(f"flash backward kernels take bf16 or float32 "
-                        f"q/k/v/dO of one type, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}, {do.dtype}")
-    if not all(x.device == q.device for x in (k, v, do, lse, delta)):
+                        f"q/k/v/dO{'/O' if fused else ''} of one type, got "
+                        f"{[x.dtype for x in rows]}")
+    stats = (lse, dlse) if fused else (lse, delta)
+    if not all(x.device == q.device for x in rows + stats if x is not None):
         raise ValueError("flash backward operands must be on one device")
     b, tq, h, d = q.shape
     _instance(q.dtype, d)  # raises for a head_dim no kernel takes
-    if lse.shape != (b, h, tq) or delta.shape != (b, h, tq):
-        raise ValueError(f"lse and delta must be [B, H, Tq] = {(b, h, tq)}, "
-                         f"got {tuple(lse.shape)}, {tuple(delta.shape)}")
-    q, k, v, do = (_kernel_operand(x) for x in (q, k, v, do))
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    if any(x.shape != q.shape for x in rows[3:]):
+        raise ValueError(f"dO and O must be shaped like q {tuple(q.shape)}")
+    if any(x is not None and x.shape != (b, h, tq) for x in stats):
+        raise ValueError(f"lse, delta and dlse must be [B, H, Tq] = "
+                         f"{(b, h, tq)}")
+    rows = [_kernel_operand(x) for x in rows]
+    stats = [None if x is None else x.float().contiguous() for x in stats]
+    strides = (ctypes.c_longlong * (3 * len(rows)))(
+        *(st for x in rows for st in x.stride()[:3]))
     outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
-            for x in ((q,) if symbol.endswith("_dq") else (k, v))]
+            for x in (rows[:1] if kernel == "dq" else rows[1:3])]
+    delta_out = [torch.empty((b, h, tq), dtype=torch.float32,
+                             device=q.device)] if fused else []
+    # pointers: q, k, v, dO, lse, then delta (K3, mma K2) or O and dlse
+    # (sm90 K2), then the outputs
+    ptrs = [x.data_ptr() for x in rows[:4]] + [stats[0].data_ptr()]
+    ptrs += [rows[4].data_ptr()] if fused else []
+    ptrs.append(None if stats[1] is None else stats[1].data_ptr())
+    ptrs += [x.data_ptr() for x in outs + delta_out]
     from kubegpu_tpu_torch.workload.kernels import _build
 
+    lib, symbol = _LIBS[instance][kernel]
     fn = getattr(_build.load(lib), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong)]
                    + [ctypes.c_int64] * (3 * len(outs)) + [ctypes.c_float]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(),
-                 *(x.data_ptr() for x in outs), _DTYPES[q.dtype], b, h, tq,
-                 k.shape[1], d, strides,
+        err = fn(*ptrs, _DTYPES[q.dtype], b, h, tq, k.shape[1], d, strides,
                  *(st for x in outs for st in x.stride()[:3]), float(scale),
                  int(q_offset), int(kv_offset), int(bool(causal)),
                  int(window), stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error "
                            f"{err}")
-    return outs
+    return outs + delta_out
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale, *, q_offset=0,
-                 kv_offset=0, causal=True, window=0):
-    """K2: ``dq`` from q, k, v, dO, lse and delta (`_delta`). CUDA tensors
-    launch the kernel (``flash_bwd_dq.launches`` counts it) or raise; CPU
-    tensors take the plain version."""
+def flash_bwd_dq(q, k, v, o, do, lse, dlse, scale, *, q_offset=0,
+                 kv_offset=0, causal=True, window=0, instance=None):
+    """K2: ``(dq, delta)`` from q, k, v, O, dO, lse and the lse cotangent
+    ``dlse`` (None: none); ``delta = rowsum(dO * O) - dlse``, ``[B, H, Tq]``
+    float32, is what K3 reads. The sm90 instance computes delta inside the
+    kernel; the mma instance and CPU tensors take `_delta` first. CUDA
+    tensors launch the kernel (``flash_bwd_dq.launches`` counts it) or
+    raise; CPU tensors take the plain version. ``instance`` None takes
+    `_instance`'s choice; "mma" at bf16 head_dim 64/128 runs the previous
+    design (only ``chip_smoke.py`` asks for it, to time it)."""
+    kw = dict(q_offset=q_offset, kv_offset=kv_offset, causal=causal,
+              window=window)
     if q.device.type == "cpu":
-        _, ds = _p_ds(q, k, v, lse, do, delta, scale, q_offset, kv_offset,
-                      causal, window)
-        return _dq_plain(q, k, ds, scale)
+        delta = _delta(o, do, dlse)
+        _, ds = _p_ds(q, k, v, lse, do, delta, scale, **kw)
+        return _dq_plain(q, k, ds, scale), delta
     _check_device(q)
-    (dq,) = _launch_bwd("flash_bwd", "kgt_flash_bwd_dq", q, k, v, do, lse,
-                        delta, scale, q_offset, kv_offset, causal, window)
+    instance = instance or _instance(q.dtype, q.shape[-1])
+    if instance == "sm90":
+        dq, delta = _launch_bwd("dq", instance, q, k, v, do, lse, scale,
+                                o=o, dlse=dlse, **kw)
+    else:
+        delta = _delta(o, do, dlse)
+        (dq,) = _launch_bwd("dq", instance, q, k, v, do, lse, scale,
+                            delta=delta, **kw)
     flash_bwd_dq.launches += 1
-    flash_bwd_dq.launches_by_instance["mma"] += 1
-    return dq
+    flash_bwd_dq.launches_by_instance[instance] += 1
+    return dq, delta
 
 
 flash_bwd_dq.launches = 0
-flash_bwd_dq.launches_by_instance = {"mma": 0}
+flash_bwd_dq.launches_by_instance = {"sm90": 0, "mma": 0}
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale, *, q_offset=0,
@@ -291,15 +321,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, *, q_offset=0,
     tensors take the plain version. ``instance`` None takes `_instance`'s
     choice; "mma" at bf16 head_dim 64/128 runs the previous design (only
     ``chip_smoke.py`` asks for it, to time it)."""
+    kw = dict(q_offset=q_offset, kv_offset=kv_offset, causal=causal,
+              window=window)
     if q.device.type == "cpu":
-        p, ds = _p_ds(q, k, v, lse, do, delta, scale, q_offset, kv_offset,
-                      causal, window)
+        p, ds = _p_ds(q, k, v, lse, do, delta, scale, **kw)
         return _dkv_plain(q, k, v, do, p, ds, scale)
     _check_device(q)
     instance = instance or _instance(q.dtype, q.shape[-1])
-    lib, symbol = _LIBS[instance][2:]
-    dk, dv = _launch_bwd(lib, symbol, q, k, v, do, lse, delta, scale,
-                         q_offset, kv_offset, causal, window)
+    dk, dv = _launch_bwd("dkv", instance, q, k, v, do, lse, scale,
+                         delta=delta, **kw)
     flash_bwd_dkv.launches += 1
     flash_bwd_dkv.launches_by_instance[instance] += 1
     return dk, dv
@@ -311,14 +341,13 @@ flash_bwd_dkv.launches_by_instance = {"sm90": 0, "mma": 0}
 
 def flash_attention_bwd(q, k, v, o, lse, do, dlse, scale, *, q_offset=0,
                         kv_offset=0, causal=True, window=0):
-    """``(dq, dk, dv)`` of flash attention: the delta pre-pass (a plain
-    PyTorch reduction, as the reference leaves it to XLA), then K2 and K3
-    through their wrappers, which take the plain version on CPU
+    """``(dq, dk, dv)`` of flash attention: K2, which also gives the row
+    term delta (in the sm90 kernel, else by `_delta`), then K3 on that
+    delta, through their wrappers, which take the plain version on CPU
     tensors."""
-    delta = _delta(o, do, dlse)
     kw = dict(q_offset=q_offset, kv_offset=kv_offset, causal=causal,
               window=window)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale, **kw)
+    dq, delta = flash_bwd_dq(q, k, v, o, do, lse, dlse, scale, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale, **kw)
     return dq, dk, dv
 

@@ -175,19 +175,56 @@ def test_cpu_backward_counts_no_launch_and_equals_plain():
             tflash.flash_bwd_dkv.launches) == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    # the per-kernel wrappers take the same plain version on CPU tensors
+    # the per-kernel wrappers take the same plain version on CPU tensors;
+    # K2's also gives the delta K3 reads
     delta = tflash._delta(o, do, None)
-    assert torch.equal(tflash.flash_bwd_dq(q, k, v, do, lse, delta, 0.25),
-                       want[0])
+    dq, dq_delta = tflash.flash_bwd_dq(q, k, v, o, do, lse, None, 0.25)
+    assert torch.equal(dq, want[0])
+    assert torch.equal(dq_delta, delta)
     for g, w in zip(tflash.flash_bwd_dkv(q, k, v, do, lse, delta, 0.25),
                     want[1:]):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["no_dlse", "dlse"])
+def test_delta_route_matches_jax_bwd_delta(with_dlse):
+    """The delta that `flash_attention_bwd` hands K3 on the CPU (K2's
+    ``_delta`` + ``_dq_plain`` pair, the plain version of the sm90 K2 that
+    computes delta itself) equals the JAX ``_bwd``'s formula
+    (flash.py:290-294: rowsum(dO * O) in float32, minus the lse cotangent),
+    and its dq equals the JAX ``_bwd``'s on the same (o, lse, dO, dlse)."""
+    b, t, h, d = 2, 48, 2, 32
+    q, k, v, do = _arrays([(b, t, h, d)] * 4, seed=13)
+    (dlse,) = _arrays([(b, h, t)], seed=14)
+    scale = d ** -0.5
+    cfg = jflash._Cfg(scale=scale, causal=True, block_q=16, block_k=16,
+                      interpret=True, window=0)
+    offsets = jnp.zeros((1, 2), jnp.int32)
+    bhtd = [jnp.asarray(x.transpose(0, 2, 1, 3)) for x in (q, k, v, do)]
+    jo, jlse = jflash._fwd(cfg, offsets, *bhtd[:3])
+    jdlse = jnp.broadcast_to(jnp.asarray(dlse)[..., None], jlse.shape) \
+        if with_dlse else None
+    want = jnp.sum(bhtd[3].astype(jnp.float32) * jo.astype(jnp.float32),
+                   axis=-1)
+    if with_dlse:
+        want = want - jnp.asarray(dlse)
+    jdq = jflash._bwd(cfg, offsets, *bhtd[:3], jo, jlse, bhtd[3], jdlse)[0]
+    to = torch.from_numpy(np.asarray(jo).transpose(0, 2, 1, 3).copy())
+    tlse = torch.from_numpy(np.asarray(jlse)[..., 0].copy())
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    dq, delta = tflash.flash_bwd_dq(
+        tq, tk, tv, to, tdo, tlse,
+        torch.from_numpy(dlse) if with_dlse else None, scale)
+    assert delta.shape == (b, h, t) and delta.dtype == torch.float32
+    _close(delta.numpy(), np.asarray(want))
+    _close(dq.numpy(), np.asarray(jdq).transpose(0, 2, 1, 3))
+
+
 @pytest.mark.cuda
 def test_bwd_kernels_match_plain_on_card():
-    """K2 and K3 against the plain backward on the card: bf16 and float32,
-    causal, windowed, offset and ragged, with an lse cotangent."""
+    """K2 and K3 against the plain backward on the card: bf16 (the sm90
+    instances) and float32 (mma), causal, windowed, offset and ragged, with
+    an lse cotangent."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -1,5 +1,6 @@
 """The Hopper instances of the port's flash kernels (K1 ``flash_fwd_sm90``,
-K3 ``flash_bwd_dkv_sm90``) and the shape rule that picks them.
+K2 ``flash_bwd_dq_sm90``, K3 ``flash_bwd_dkv_sm90``) and the shape rule
+that picks them.
 
 On the CPU the rule, the per-instance launch counts, the operand check
 that lets packed q/k/v views reach the kernels uncopied, and the
@@ -68,11 +69,17 @@ def test_instances_have_counters_and_symbols():
     assert set(tflash.flash_attention_with_lse.launches_by_instance) \
         == {"sm90", "mma"}
     assert set(tflash.flash_bwd_dkv.launches_by_instance) == {"sm90", "mma"}
-    assert set(tflash.flash_bwd_dq.launches_by_instance) == {"mma"}
-    for inst, (fwd_lib, _, dkv_lib, _) in tflash._LIBS.items():
-        for lib in (fwd_lib, dkv_lib):
+    assert set(tflash.flash_bwd_dq.launches_by_instance) == {"sm90", "mma"}
+    assert set(tflash._LIBS) == {"sm90", "mma"}
+    for inst, libs in tflash._LIBS.items():
+        assert set(libs) == {"fwd", "dq", "dkv"}
+        for lib, symbol in libs.values():
             assert (ROOT / "kubegpu_tpu_torch" / "csrc" /
                     f"{lib}.cu").exists()
+            assert symbol.startswith("kgt_flash_") and symbol.endswith(inst)
+    assert tflash._LIBS["sm90"]["dq"][0] == "flash_bwd_dq_sm90"
+    assert (ROOT / "kubegpu_tpu_torch" / "csrc" /
+            "flash_bwd_dq_sm90.cu").exists()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -80,11 +87,17 @@ def test_cpu_tensors_count_no_launch_on_any_instance(dtype):
     q, k, v, do = (torch.from_numpy(x).to(dtype).requires_grad_()
                    for x in _arrays([(1, 32, 2, 128)] * 4, seed=61))
     before = _all_counts()
+    assert all(set(c) == {"sm90", "mma"} for c in before)
     launches = (tflash.flash_attention_with_lse.launches,
                 tflash.flash_bwd_dq.launches, tflash.flash_bwd_dkv.launches)
     o, lse = tflash.flash_attention_with_lse(q, k, v, 128 ** -0.5)
     torch.autograd.grad((o, lse), (q, k, v),
                         (do.detach(), torch.ones_like(lse)))
+    # K2 called directly, with its instance named too
+    for inst in (None, "sm90", "mma"):
+        tflash.flash_bwd_dq(q.detach(), k.detach(), v.detach(), o.detach(),
+                            do.detach(), lse.detach(), None, 128 ** -0.5,
+                            instance=inst)
     assert _all_counts() == before
     assert (tflash.flash_attention_with_lse.launches,
             tflash.flash_bwd_dq.launches,
@@ -127,6 +140,10 @@ def _profile_category():
      "namespace)::BwdParams)", "K3 flash_bwd_dkv"),
     ("void (anonymous namespace)::flash_bwd_dq_bf16<128>((anonymous "
      "namespace)::BwdParams)", "K2 flash_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dq_sm90<128>((anonymous "
+     "namespace)::Params)", "K2 flash_bwd_dq"),
+    ("void (anonymous namespace)::flash_bwd_dq_sm90<64>((anonymous "
+     "namespace)::Params)", "K2 flash_bwd_dq"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
      "gemm"),
 ])
@@ -180,12 +197,40 @@ def test_plain_dkv_matches_jax_grad_at_sm90_head_dims(d):
                                    rtol=GRAD_RTOL)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_plain_dq_matches_jax_grad_at_sm90_head_dims(d):
+    """K2's plain version (through the Function's backward: `_delta`, then
+    dQ) against the gradient of the JAX kernel in interpret mode, with an
+    lse cotangent."""
+    jax, jnp, jflash = _jax()
+    b, t, h = 1, 48, 2
+    q, k, v, w_o = _arrays([(b, t, h, d)] * 4, seed=65)
+    (w_l,) = _arrays([(b, h, t)], seed=66)
+    scale = d ** -0.5
+
+    def jloss(q, k, v):
+        o, lse = jflash.flash_attention_with_lse(
+            q, k, v, scale, block_q=16, block_k=16, interpret=True)
+        return jnp.sum(jnp.sin(o) * w_o) + jnp.sum(lse * w_l)
+
+    want = jax.grad(jloss, argnums=0)(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, lse = tflash.flash_attention_with_lse(tq, tk, tv, scale)
+    loss = (o.sin() * torch.from_numpy(w_o)).sum() \
+        + (lse * torch.from_numpy(w_l)).sum()
+    (got,) = torch.autograd.grad(loss, (tq,))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=GRAD_ATOL,
+                               rtol=GRAD_RTOL)
+
+
 @pytest.mark.cuda
 def test_sm90_kernels_match_plain_on_card():
-    """K1 and K3's sm90 instances against the plain versions on the card at
-    D = 128: causal on one tile and on a ragged multi-stage length,
-    non-causal ragged, and strided views of a packed q/k/v tensor, which
-    reach the kernels uncopied. bf16 tolerances as chip_smoke.py's."""
+    """K1, K2 and K3's sm90 instances against the plain versions on the
+    card at D = 128: causal on one tile and on a ragged multi-stage
+    length, non-causal ragged, and strided views of a packed q/k/v tensor,
+    which reach the kernels uncopied; the delta that the sm90 K2 emits
+    against `_delta`, with and without an lse cotangent. bf16 tolerances
+    as chip_smoke.py's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -212,10 +257,8 @@ def test_sm90_kernels_match_plain_on_card():
         got = torch.autograd.grad(o, (q, k, v), do)
         torch.cuda.synchronize()
         after = _all_counts()
-        assert after[0]["sm90"] == before[0]["sm90"] + 1
-        assert after[2]["sm90"] == before[2]["sm90"] + 1
-        assert after[0]["mma"] == before[0]["mma"]
-        assert after[2]["mma"] == before[2]["mma"]
+        for was, now in zip(before, after):
+            assert now == dict(was, sm90=was["sm90"] + 1)
         ro, rl = tflash.flash_attention_plain(q.detach(), k.detach(),
                                               v.detach(), 0.088, **kw)
         assert (o.float() - ro.float()).abs().max().item() <= 2e-2
@@ -223,6 +266,16 @@ def test_sm90_kernels_match_plain_on_card():
         want = tflash.flash_attention_bwd_plain(
             q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), do,
             None, 0.088, **kw)
-        for g, w in zip(got[1:], want[1:]):
+        for g, w in zip(got, want):
             err = (g.float() - w.float()).abs().max().item()
             assert err <= 1e-2 * w.float().abs().max().item()
+        for dlse in (None, torch.randn(lse.shape, generator=gen,
+                                       device="cuda")):
+            dq, delta = tflash.flash_bwd_dq(
+                q.detach(), k.detach(), v.detach(), o.detach(), do,
+                lse.detach(), dlse, 0.088, **kw)
+            ref = tflash._delta(o.detach(), do, dlse)
+            err = (delta - ref).abs().max().item()
+            assert err <= 1e-4 * ref.abs().max().item()
+            if dlse is None:
+                assert torch.equal(dq, got[0])

@@ -15,8 +15,9 @@ under ``torch.profiler`` (CPU and CUDA activities):
 - ``train``: one full-width AdamW step of ``make_train_step`` at the
   headline training config (chip_smoke's ``TRAIN_MODEL``, batch 4, T =
   2048, after a warm-up step), with the device time split into GEMMs, K1,
-  K2, K3, the optimizer, copies and casts, reductions and other
-  elementwise kernels.
+  K2 (on the sm90 instance with the row term delta it computes, which the
+  mma instance leaves to PyTorch's reductions and copies), K3, the
+  optimizer, copies and casts, reductions and other elementwise kernels.
 
 For each it prints one JSON line: the wall time, the summed device time of
 all kernels, the device's busy share of the wall (kernel time over wall;
