@@ -17,7 +17,8 @@ T = 2048, no remat), random weights from a seed:
 3. kernel: the flash-attention forward against ``flash_attention_plain``
    at the serving shape and at masking edge cases (one tile; several
    stages over a ragged T = 2085), each row naming the kernel instance
-   that ran, with its time, the previous (mma.sync) design's time at the
+   that ran, with its time (and through the ``torch.ops.kgt.flash_fwd``
+   operator the model calls), the previous (mma.sync) design's time at the
    same shape, the plain version's, ``scaled_dot_product_attention``'s (a
    yardstick the port never calls) and the least time the card could
    take;
@@ -44,7 +45,27 @@ T = 2048, no remat), random weights from a seed:
    tokens/s, MFU, losses, kernel launches per step, calls of the
    ``_delta`` pre-pass, which the sm90 K2 leaves none of), then
    ``remat="full"`` against ``remat="none"`` on one batch (loss and
-   per-leaf gradients) and one step with ``remat="full"``.
+   per-leaf gradients) and one step with ``remat="full"``; the batches
+   come from the native token loader (``make_loader``);
+9. train_remat_dots: ``remat="dots"`` against ``remat="none"`` on one
+   batch at the training config (loss and per-leaf gradients, and the
+   flash launches of the dots pass: one K1, K2 and K3 a layer, all sm90,
+   so the recompute never reruns K1), then AdamW steps of each of none,
+   dots and full with their median time and peak memory;
+10. loader: the native token loader's first 8 batches against
+   ``PyTokenLoader``'s, bit for bit;
+11. serve_sampled: the server on the serve phase's traffic, sampling
+   (temperature 0.8, top_k 50, top_p 0.95): the fused streams against the
+   per-token oracle's, against another chunk size and against the reverse
+   admission order, and the key hash's bits on the card against the CPU's;
+12. serve_spec: the speculative server on the same traffic with a 1-layer
+   draft (d_model 512, d_ff 2048, lookahead 4, 4 rounds a dispatch): in
+   float32 its greedy streams against the plain server's and a self-draft
+   (draft = target) sampled run whose acceptance must be 1.0; in bf16 its
+   tokens/s and acceptance, sampled;
+13. serve_prefix: 8 requests sharing a 128-token system prompt with tails
+   of 16..256 tokens, greedy in float32, with ``prefix_cache_size`` 8
+   against no cache: equal streams and 7 prefix hits.
 
 The ``kernels`` line names each kernel's instance on the main path and
 the launches that went to each instance. Every phase prints one JSON line
@@ -115,6 +136,16 @@ TOL_DELTA = 1e-4
 TOL_GRAD_RATIO = 1.25
 TOL_REMAT_LOSS = 1e-3
 TOL_REMAT_GRAD = 1e-2
+# Remat "dots" replays the same operations with the kept outputs returned
+# as they were, so the same tolerances hold for it.
+# The serving phases of this slice: sampling settings, the draft model,
+# and the prefix traffic (a 128-token system prompt, tails of 16..256).
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+DRAFT_MODEL = dict(MODEL, d_model=512, d_ff=2048, n_layers=1)
+SPEC_LOOKAHEAD, SPEC_ROUNDS = 4, 4
+PREFIX_SYSTEM, PREFIX_TAILS, PREFIX_CACHE = 128, (16, 256), 8
+LOADER_BATCHES = 8
+REMAT_STEPS = 3
 
 
 def emit(obj) -> None:
@@ -254,8 +285,13 @@ def kernel_phase(dev) -> dict:
         if name == "slice_causal":
             pairs = visible_pairs(tq, tk, 0, 0, True, 0)
             bound, bound_by = attention_bound_ms(b, tq, tk, h, d, dt, pairs)
+            # the kernel through its wrapper, as K2 and K3 are timed;
+            # "op_ms" adds the operator layer (torch.ops.kgt.flash_fwd)
+            # that the model calls
             row.update(
-                ms=time_ms(lambda: flash_attention_with_lse(q, k, v, scale)),
+                ms=time_ms(lambda: _launch(q, k, v, scale, 0, 0, True, 0)),
+                op_ms=time_ms(lambda: flash_attention_with_lse(q, k, v,
+                                                               scale)),
                 previous_ms=time_ms(lambda: _launch(
                     q, k, v, scale, 0, 0, True, 0, instance="mma")),
                 plain_ms=time_ms(
@@ -362,50 +398,240 @@ def entry_phase() -> None:
         raise AssertionError(f"entry phase failed: {row}")
 
 
-def serve_phase(dev, cfg, params) -> dict:
-    """DecodeServer on the benchmark's traffic; fused against oracle."""
+def _serve_prompts(cfg) -> list:
+    """The serving traffic: 8 prompts of 16..max_seq/2 tokens."""
     import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, cfg.vocab, int(n)).tolist()
+            for n in np.linspace(16, cfg.max_seq // 2, SERVE_REQUESTS)]
+
+
+def _drain(cfg, params, prompts, fused=True, reverse=False, **kw) -> dict:
+    """One drain of ``prompts`` (SERVE_MAX_NEW tokens each) through a
+    fresh server on ``SERVE_SLOTS`` slots: the streams in submission
+    order, the wall time, TTFT and ITL p50 and the server. ``reverse``
+    admits the requests in the reverse of their submission order (each
+    keeps its request id, so its keys)."""
     import torch
 
     from kubegpu_tpu_torch import metrics
     from kubegpu_tpu_torch.workload.serve import DecodeServer
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab, int(n)).tolist()
-               for n in np.linspace(16, cfg.max_seq // 2, SERVE_REQUESTS)]
+    os.environ["KGTPU_FUSED_SERVE"] = "1" if fused else "0"
+    try:
+        srv = DecodeServer(cfg, params, slots=SERVE_SLOTS, **kw)
+    finally:
+        os.environ.pop("KGTPU_FUSED_SERVE", None)
+    assert srv.fused == fused
+    metrics.reset_all()
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+    if reverse:
+        srv._queue.reverse()
+    srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [srv.result(r) for r in rids]
+    n_tok = sum(len(o) for o in outs)
+    return {"outs": outs, "wall_s": wall, "tokens": n_tok,
+            "tokens_per_s": n_tok / wall,
+            "ttft_p50_ms": metrics.SERVE_TTFT_MS.percentile(0.5),
+            "itl_p50_ms": metrics.SERVE_ITL_MS.percentile(0.5), "srv": srv}
 
-    def serve(fused: bool):
-        os.environ["KGTPU_FUSED_SERVE"] = "1" if fused else "0"
-        srv = DecodeServer(cfg, params, slots=SERVE_SLOTS)
-        assert srv.fused == fused
-        metrics.reset_all()
-        t0 = time.perf_counter()
-        rids = [srv.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
-        srv.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        outs = [srv.result(r) for r in rids]
-        return outs, wall, metrics.SERVE_TTFT_MS.percentile(0.5), \
-            metrics.SERVE_ITL_MS.percentile(0.5)
 
-    serve(True)                                  # warm-up pass
-    fused, wall, ttft, itl = serve(True)
-    oracle, wall_o, _, _ = serve(False)
-    os.environ.pop("KGTPU_FUSED_SERVE", None)
-    n_tok = sum(len(o) for o in fused)
+def serve_phase(dev, cfg, params) -> dict:
+    """DecodeServer on the benchmark's traffic; fused against oracle."""
+    prompts = _serve_prompts(cfg)
+    _drain(cfg, params, prompts)                 # warm-up pass
+    fused = _drain(cfg, params, prompts)
+    oracle = _drain(cfg, params, prompts, fused=False)
     row = {"phase": "serve", "slots": SERVE_SLOTS,
            "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
            "prompt_lens": [len(p) for p in prompts],
-           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-           "ttft_p50_ms": ttft, "itl_p50_ms": itl,
-           "oracle_tokens_per_s": sum(len(o) for o in oracle) / wall_o,
-           "all_full_length": all(len(o) == SERVE_MAX_NEW for o in fused),
-           "fused_equals_oracle": fused == oracle,
-           "first_output": fused[0][:8]}
+           "tokens": fused["tokens"], "wall_s": fused["wall_s"],
+           "tokens_per_s": fused["tokens_per_s"],
+           "ttft_p50_ms": fused["ttft_p50_ms"],
+           "itl_p50_ms": fused["itl_p50_ms"],
+           "oracle_tokens_per_s": oracle["tokens_per_s"],
+           "all_full_length": all(len(o) == SERVE_MAX_NEW
+                                  for o in fused["outs"]),
+           "fused_equals_oracle": fused["outs"] == oracle["outs"],
+           "first_output": fused["outs"][0][:8]}
     row["ok"] = row["all_full_length"] and row["fused_equals_oracle"]
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"serve phase failed: {row}")
+    return row
+
+
+def serve_sampled_phase(dev, cfg, params) -> dict:
+    """Sampled serving: fused against the oracle, another chunk size and
+    the reverse admission order (position-keyed draws make all four
+    equal), and the key hash on the card against the CPU."""
+    import torch
+
+    from kubegpu_tpu_torch.workload import keys
+
+    prompts = _serve_prompts(cfg)
+    kw = dict(SAMPLING, rng=7)
+    _drain(cfg, params, prompts, **kw)           # warm-up pass
+    fused = _drain(cfg, params, prompts, **kw)
+    oracle = _drain(cfg, params, prompts, fused=False, **kw)
+    chunk5 = _drain(cfg, params, prompts, chunk=5, **kw)
+    # each request lands in another slot, next to other requests
+    rev = _drain(cfg, params, prompts, reverse=True, **kw)
+    seeds = torch.arange(4096, dtype=torch.int64) * 2654435761
+    cpu_bits = keys.bits(keys.fold(seeds, 12345), 64)
+    dev_bits = keys.bits(keys.fold(seeds.to(dev), 12345), 64).cpu()
+    row = {"phase": "serve_sampled", **SAMPLING,
+           "tokens": fused["tokens"], "wall_s": fused["wall_s"],
+           "tokens_per_s": fused["tokens_per_s"],
+           "ttft_p50_ms": fused["ttft_p50_ms"],
+           "itl_p50_ms": fused["itl_p50_ms"],
+           "oracle_tokens_per_s": oracle["tokens_per_s"],
+           "all_full_length": all(len(o) == SERVE_MAX_NEW
+                                  for o in fused["outs"]),
+           "fused_equals_oracle": fused["outs"] == oracle["outs"],
+           "chunk5_equals_chunk16": chunk5["outs"] == fused["outs"],
+           "reverse_admission_equals": rev["outs"] == fused["outs"],
+           "key_bits_cuda_equal_cpu": bool(torch.equal(cpu_bits, dev_bits)),
+           "first_output": fused["outs"][0][:8]}
+    row["ok"] = all(row[k] for k in (
+        "all_full_length", "fused_equals_oracle", "chunk5_equals_chunk16",
+        "reverse_admission_equals", "key_bits_cuda_equal_cpu"))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"serve_sampled phase failed: {row}")
+    return row
+
+
+def serve_spec_phase(dev, cfg, params) -> dict:
+    """The speculative server on the serving traffic with a 1-layer draft:
+    in float32, greedy streams equal to the plain server's and a
+    self-draft sampled acceptance of 1.0; in bf16, sampled tokens/s and
+    acceptance."""
+    import dataclasses
+
+    import torch
+
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  init_params)
+
+    prompts = _serve_prompts(cfg)
+    dcfg = TransformerConfig(**DRAFT_MODEL)
+    draft = init_params(torch.Generator(device=dev).manual_seed(1), dcfg)
+    spec = dict(lookahead=SPEC_LOOKAHEAD, spec_rounds=SPEC_ROUNDS)
+    f32, df32 = (dataclasses.replace(c, dtype="float32") for c in (cfg, dcfg))
+    plain = _drain(f32, params, prompts)
+    greedy = _drain(f32, params, prompts, draft_params=draft,
+                    draft_cfg=df32, **spec)
+    self_draft = _drain(f32, params, prompts, draft_params=params,
+                        draft_cfg=f32, rng=5, **spec, **SAMPLING)
+    bf16 = dict(draft_params=draft, draft_cfg=dcfg, rng=5, **spec,
+                **SAMPLING)
+    _drain(cfg, params, prompts, **bf16)         # warm-up pass
+    timed = _drain(cfg, params, prompts, **bf16)
+    row = {"phase": "serve_spec", "draft": DRAFT_MODEL, **spec,
+           **SAMPLING,
+           "f32_greedy_equals_plain": greedy["outs"] == plain["outs"],
+           "f32_plain_tokens_per_s": plain["tokens_per_s"],
+           "f32_spec_greedy_tokens_per_s": greedy["tokens_per_s"],
+           "f32_spec_greedy_acceptance": greedy["srv"].spec_acceptance,
+           "f32_self_draft_acceptance": self_draft["srv"].spec_acceptance,
+           "f32_self_draft_proposed": self_draft["srv"].spec_proposed,
+           "bf16_sampled_tokens_per_s": timed["tokens_per_s"],
+           "bf16_sampled_acceptance": timed["srv"].spec_acceptance,
+           "bf16_ttft_p50_ms": timed["ttft_p50_ms"],
+           "bf16_itl_p50_ms": timed["itl_p50_ms"],
+           "all_full_length": all(
+               len(o) == SERVE_MAX_NEW for r in (greedy, self_draft, timed)
+               for o in r["outs"])}
+    row["ok"] = (row["f32_greedy_equals_plain"]
+                 and row["f32_self_draft_acceptance"] == 1.0
+                 and row["f32_self_draft_proposed"] > 0
+                 and row["all_full_length"])
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"serve_spec phase failed: {row}")
+    return row
+
+
+def serve_prefix_phase(dev, cfg, params) -> dict:
+    """Requests sharing a system prompt, greedy in float32, through the
+    server with a prefix cache and without: equal streams, 7 hits."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    system = rng.integers(1, cfg.vocab, PREFIX_SYSTEM).tolist()
+    prompts = [system + rng.integers(1, cfg.vocab, int(n)).tolist()
+               for n in np.linspace(*PREFIX_TAILS, SERVE_REQUESTS)]
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    cold = _drain(f32, params, prompts)
+    warm = _drain(f32, params, prompts, prefix_cache_size=PREFIX_CACHE)
+    srv = warm["srv"]
+    row = {"phase": "serve_prefix", "system_tokens": PREFIX_SYSTEM,
+           "prompt_lens": [len(p) for p in prompts],
+           "prefix_cache_size": PREFIX_CACHE,
+           "prefix_hits": srv.prefix_hits,
+           "prefix_misses": srv.prefix_misses,
+           "streams_equal_uncached": warm["outs"] == cold["outs"],
+           "tokens_per_s": warm["tokens_per_s"],
+           "ttft_p50_ms": warm["ttft_p50_ms"],
+           "uncached_tokens_per_s": cold["tokens_per_s"],
+           "uncached_ttft_p50_ms": cold["ttft_p50_ms"]}
+    row["ok"] = (row["streams_equal_uncached"]
+                 and (srv.prefix_hits, srv.prefix_misses)
+                 == (SERVE_REQUESTS - 1, 1))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"serve_prefix phase failed: {row}")
+    return row
+
+
+def _token_shards(vocab: int, tmp: str) -> list:
+    """Two shards of a seeded bigram chain in ``tmp``."""
+    from kubegpu_tpu_torch.workload.data import write_token_shard
+
+    return [write_token_shard(os.path.join(tmp, f"shard{i}.kgtd"),
+                              bigram_tokens(vocab, 100_000, seed=i))
+            for i in range(2)]
+
+
+def loader_phase(cfg) -> dict:
+    """The native loader (built at first use) against PyTokenLoader."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from kubegpu_tpu_torch.workload.data import (NativeTokenLoader,
+                                                 PyTokenLoader, make_loader)
+
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-loader-")
+    try:
+        paths = _token_shards(cfg.vocab, tmp)
+        t0 = time.perf_counter()
+        native = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=11)
+        build_s = time.perf_counter() - t0
+        py = PyTokenLoader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=11)
+        try:
+            same = [np.array_equal(next(native), next(py))
+                    for _ in range(LOADER_BATCHES)]
+        finally:
+            native.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "loader", "loader": type(native).__name__,
+           "batches": LOADER_BATCHES, "batch_shape": [TRAIN_BATCH,
+                                                      TRAIN_SEQ + 1],
+           "first_use_seconds": build_s, "bit_identical": all(same)}
+    row["ok"] = isinstance(native, NativeTokenLoader) and all(same)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"loader phase failed: {row}")
     return row
 
 
@@ -579,8 +805,8 @@ def kernel_bwd_phase(dev) -> dict:
                 dkv_previous_ms=time_ms(lambda: flash_bwd_dkv(
                     qd, kd, vd, do, lsed, delta, scale, instance="mma")),
                 delta_ms=time_ms(lambda: _delta(od, do, None)),
-                fwd_ms=time_ms(lambda: flash_attention_with_lse(
-                    qd, kd, vd, scale)),
+                fwd_ms=time_ms(lambda: _launch(qd, kd, vd, scale, 0, 0,
+                                               True, 0)),
                 fwd_previous_ms=time_ms(lambda: _launch(
                     qd, kd, vd, scale, 0, 0, True, 0, instance="mma")),
                 dq_plain_ms=time_ms(lambda: _dq_plain(qd, kd, _p_ds(
@@ -679,7 +905,7 @@ def train_phase(dev) -> dict:
     import numpy as np
     import torch
 
-    from kubegpu_tpu_torch.workload.data import make_loader, write_token_shard
+    from kubegpu_tpu_torch.workload.data import make_loader
     from kubegpu_tpu_torch.workload.model import TransformerConfig
     from kubegpu_tpu_torch.workload.train import (init_sharded,
                                                   make_train_step,
@@ -725,9 +951,7 @@ def train_phase(dev) -> dict:
 
     # -- AdamW steps through the user's entry points
     tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-tokens-")
-    paths = [write_token_shard(os.path.join(tmp, f"shard{i}.kgtd"),
-                               bigram_tokens(cfg.vocab, 100_000, seed=i))
-             for i in range(2)]
+    paths = _token_shards(cfg.vocab, tmp)
     loader = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=0)
     params, opt_state, optimizer = init_sharded(
         torch.Generator(device=dev).manual_seed(0), cfg)
@@ -775,6 +999,7 @@ def train_phase(dev) -> dict:
     n = cfg.n_layers
     row = {"phase": "train", "model": TRAIN_MODEL, "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "remat": cfg.remat, "steps": TRAIN_STEPS,
+           "loader": type(loader).__name__,
            "losses": losses, "step_ms_each": [t * 1e3 for t in step_s],
            "step_ms": step_ms,
            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
@@ -790,6 +1015,7 @@ def train_phase(dev) -> dict:
            "remat_full_vs_none_grad_rel_l2_max": max(remat_err)}
     row["ok"] = (
         all(np.isfinite(losses)) and losses[-1] < losses[0]
+        and row["loader"] == "NativeTokenLoader"
         and all(x == [n, n, n] for x in launches)
         and all(c["sm90"] == TRAIN_STEPS * n for c in run_by_instance)
         and delta_calls[0] == 0
@@ -803,6 +1029,74 @@ def train_phase(dev) -> dict:
         raise AssertionError(f"train phase failed: {row}")
     row["run_launches"] = run_launches
     row["run_by_instance"] = run_by_instance
+    return row
+
+
+def train_remat_dots_phase(dev) -> dict:
+    """Remat "dots" at the training config: loss and gradients against
+    remat "none" on one batch, the flash launches of the dots pass (a
+    rerun K1 would show 2 a layer), then AdamW steps of each mode: the
+    median time of REMAT_STEPS after a warm-up step, and their peak
+    memory."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.workload.model import TransformerConfig
+    from kubegpu_tpu_torch.workload.train import (init_sharded,
+                                                  make_train_step)
+
+    cfg = TransformerConfig(**TRAIN_MODEL)
+    params, opt_state, optimizer = init_sharded(
+        torch.Generator(device=dev).manual_seed(5), cfg)
+    batch = torch.from_numpy(bigram_tokens(
+        cfg.vocab, TRAIN_BATCH * (TRAIN_SEQ + 1), seed=7).astype(
+            np.int64).reshape(TRAIN_BATCH, -1)).to(dev)
+    mode = {r: dataclasses.replace(cfg, remat=r)
+            for r in ("none", "dots", "full")}
+    loss_none, g_none = _loss_and_grads(mode["none"], params, batch)
+    _zero_launch_counts()
+    loss_dots, g_dots = _loss_and_grads(mode["dots"], params, batch)
+    launches = list(_launch_counts())
+    by_instance = _instance_counts()
+    err = _grad_errors(g_dots, g_none)
+    del g_none, g_dots
+    step_ms, peak_gb = {}, {}
+    for r, c in mode.items():
+        step = make_train_step(c, optimizer=optimizer)
+        params, opt_state, loss = step(params, opt_state, batch)
+        loss.item()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[r] = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, batch)
+            loss.item()                          # waits for the step
+            step_ms[r].append((time.perf_counter() - t0) * 1e3)
+        peak_gb[r] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt_state, optimizer
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    row = {"phase": "train_remat_dots", "model": TRAIN_MODEL,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "loss_none": loss_none, "loss_dots": loss_dots,
+           "dots_vs_none_grad_rel_l2_max": max(err),
+           "launches_fwd_dq_dkv": launches,
+           "launches_by_instance_fwd_dq_dkv": by_instance,
+           "step_ms": {r: statistics.median(t) for r, t in step_ms.items()},
+           "step_ms_each": step_ms, "peak_memory_gb": peak_gb}
+    row["ok"] = (
+        launches == [n, n, n]
+        and all(c["sm90"] == n for c in by_instance)
+        and abs(loss_dots - loss_none) <= TOL_REMAT_LOSS * abs(loss_none)
+        and all(np.isfinite(err)) and max(err) <= TOL_REMAT_GRAD
+        and peak_gb["dots"] <= peak_gb["none"])
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"train_remat_dots phase failed: {row}")
     return row
 
 
@@ -839,11 +1133,16 @@ def main() -> int:
     fwd = forward_phase(dev, cfg, params)
     entry_phase()
     serve_phase(dev, cfg, params)
+    serve_sampled_phase(dev, cfg, params)
+    serve_spec_phase(dev, cfg, params)
+    serve_prefix_phase(dev, cfg, params)
     del params                      # the training phases need the memory
     torch.cuda.empty_cache()
 
     kb = kernel_bwd_phase(dev)
+    loader_phase(cfg)
     train = train_phase(dev)
+    dots = train_remat_dots_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's
     # each kernel's instance is the main path's (bf16, head_dim 128: sm90);
@@ -861,8 +1160,9 @@ def main() -> int:
         "launches_by_instance": fwd["kernel_launches_by_instance"],
         "launches_train_run": run[0],
         "launches_train_run_by_instance": k1_run,
+        "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][0],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
-        "previous_ms": k1["previous_ms"],
+        "op_ms": k1["op_ms"], "previous_ms": k1["previous_ms"],
         "serve_shape_previous_ms": k1["previous_ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
@@ -877,6 +1177,7 @@ def main() -> int:
         "replaces": "kubegpu_tpu/workload/kernels/flash.py:213",
         "launches": run[1], "launches_train_run": run[1],
         "launches_train_run_by_instance": k2_run,
+        "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][1],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
         "delta_max_abs_err": kb["delta_max_abs_err"], "ms": kb["dq_ms"],
         "previous_ms": kb["dq_previous_ms"], "delta_ms": kb["delta_ms"],
@@ -891,6 +1192,7 @@ def main() -> int:
         "replaces": "kubegpu_tpu/workload/kernels/flash.py:244",
         "launches": run[2], "launches_train_run": run[2],
         "launches_train_run_by_instance": k3_run,
+        "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][2],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
         "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
         "plain_ms": kb["dkv_plain_ms"],

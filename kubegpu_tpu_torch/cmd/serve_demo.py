@@ -1,14 +1,20 @@
-"""Serving demo binary: continuous-batching greedy decode over synthetic
+"""Serving demo binary: continuous-batching decode over synthetic
 requests, on one device.
 
 The port's counterpart of ``kubegpu_tpu/cmd/serve_demo.py``: builds a
 model from --seed, submits requests with mixed prompt lengths, drives the
-slot-based `DecodeServer`, and prints one JSON line of stats. Runs on
-CUDA unless --device says otherwise. Speculative decoding, sampling, the
-prefix cache and checkpoints come with later slices and are refused.
+slot-based `DecodeServer`, and prints one JSON line of stats with the
+reference's keys. With --speculative the requests run one at a time
+through speculative decoding with a smaller draft model built from
+--seed + 1; with --spec-server the server itself decodes speculatively.
+--temperature samples (truncated by --top-k/--top-p); --prefix-cache N
+keeps the K/V of served prompts. Runs on CUDA unless --device says
+otherwise. Checkpoints come with slice 5 of the port and are refused.
 
 Examples:
     python -m kubegpu_tpu_torch.cmd.serve_demo --requests 8 --slots 4
+    python -m kubegpu_tpu_torch.cmd.serve_demo --temperature 0.8 --top-p 0.9
+    python -m kubegpu_tpu_torch.cmd.serve_demo --speculative --draft-layers 1
     python -m kubegpu_tpu_torch.cmd.serve_demo --device cpu --d-model 32
 """
 
@@ -33,12 +39,22 @@ def main(argv=None) -> int:
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--checkpoint-dir", default=None)
-    ap.add_argument("--speculative", action="store_true")
-    ap.add_argument("--spec-server", action="store_true")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="refused: checkpoints come with slice 5")
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculative decoding with a draft model "
+                         "(greedy, or sampled when --temperature is set)")
+    ap.add_argument("--spec-server", action="store_true",
+                    help="speculative mode inside the continuous-batching "
+                         "server: per-slot draft proposals, one batched "
+                         "verify")
     ap.add_argument("--draft-layers", type=int, default=1)
-    ap.add_argument("--lookahead", type=int, default=4)
-    ap.add_argument("--prefix-cache", type=int, default=0, metavar="N")
+    ap.add_argument("--lookahead", type=int, default=4,
+                    help="draft tokens per speculative round (k)")
+    ap.add_argument("--prefix-cache", type=int, default=0, metavar="N",
+                    help="retain K/V of the last N served prompts; "
+                         "requests extending one prefill only the "
+                         "remainder")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -46,16 +62,13 @@ def main(argv=None) -> int:
         ap.error("--requests must be >= 1")
     if args.prefix_cache < 0:
         ap.error("--prefix-cache must be >= 0")
-    later = [flag for flag, on in (
-        ("--speculative", args.speculative),
-        ("--spec-server", args.spec_server),
-        ("--prefix-cache", args.prefix_cache > 0),
-        ("--checkpoint-dir", args.checkpoint_dir is not None),
-        ("--temperature > 0", args.temperature > 0)) if on]
-    if later:
-        ap.error(f"{', '.join(later)}: not in this slice of the port "
-                 "(sampling, speculation and the prefix cache come with "
-                 "slice 4, checkpoints with slice 5)")
+    if args.prefix_cache and args.speculative:
+        ap.error("--prefix-cache applies to the server modes only "
+                 "(plain or --spec-server); --speculative is the "
+                 "single-stream path with no admission cache")
+    if args.checkpoint_dir is not None:
+        ap.error("--checkpoint-dir: not in this slice of the port "
+                 "(checkpoints come with slice 5)")
 
     import numpy as np
     import torch
@@ -76,23 +89,60 @@ def main(argv=None) -> int:
                                              int(rng.integers(4, 24)))]
                for _ in range(args.requests)]
 
+    draft_cfg = draft = None
+    if args.speculative or args.spec_server:
+        draft_cfg = TransformerConfig(
+            vocab=args.vocab, d_model=max(32, args.d_model // 4),
+            n_heads=args.n_heads, n_layers=args.draft_layers,
+            d_ff=args.d_model, max_seq=args.seq)
+        draft = init_params(
+            torch.Generator(device=dev).manual_seed(args.seed + 1),
+            draft_cfg)
+
     t0 = time.perf_counter()
-    srv = DecodeServer(cfg, params, slots=args.slots,
-                       temperature=args.temperature, top_k=args.top_k,
-                       top_p=args.top_p)
-    rids = [srv.submit(p, max_new=args.max_new) for p in prompts]
-    srv.run()
-    outs = [srv.result(r) for r in rids]
+    if args.speculative:
+        from kubegpu_tpu_torch.workload.speculative import \
+            make_speculative_generate
+
+        gen = make_speculative_generate(cfg, draft_cfg, k=args.lookahead,
+                                        temperature=args.temperature,
+                                        top_k=args.top_k, top_p=args.top_p)
+        outs, calls = [], 0
+        for i, p in enumerate(prompts):
+            out, c = gen(params, draft, p, args.max_new,
+                         rng=args.seed + 100 + i)
+            outs.append(out)
+            calls += c
+        stats = {"mode": "speculative", "target_calls": calls,
+                 "tokens": sum(len(o) for o in outs)}
+    else:
+        srv = DecodeServer(cfg, params, slots=args.slots,
+                           temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p, rng=args.seed,
+                           draft_params=draft, draft_cfg=draft_cfg,
+                           lookahead=args.lookahead,
+                           prefix_cache_size=args.prefix_cache)
+        rids = [srv.submit(p, max_new=args.max_new) for p in prompts]
+        srv.run()
+        outs = [srv.result(r) for r in rids]
+        stats = {"mode": "spec-serve" if args.spec_server else "serve",
+                 "slots": args.slots,
+                 # which data plane served: the fused chunk (default) or
+                 # the per-token oracle (KGTPU_FUSED_SERVE=0)
+                 "data_plane": "fused" if srv.fused else "hostloop",
+                 "chunk": srv.chunk,
+                 "tokens": sum(len(o) for o in outs)}
+        if args.prefix_cache:
+            stats["prefix_hits"] = srv.prefix_hits
+            stats["prefix_misses"] = srv.prefix_misses
+        if metrics.SERVE_TTFT_MS.n:
+            stats["ttft_p50_ms"] = round(
+                metrics.SERVE_TTFT_MS.percentile(0.5), 3)
+            stats["itl_p50_ms"] = round(
+                metrics.SERVE_ITL_MS.percentile(0.5), 3)
     wall = time.perf_counter() - t0
-    stats = {"mode": "serve", "slots": args.slots,
-             "data_plane": "fused" if srv.fused else "hostloop",
-             "chunk": srv.chunk,
-             "tokens": sum(len(o) for o in outs),
-             "device": str(dev) if dev.type == "cpu"
-             else torch.cuda.get_device_name(dev)}
-    if metrics.SERVE_TTFT_MS.n:
-        stats["ttft_p50_ms"] = round(metrics.SERVE_TTFT_MS.percentile(0.5), 3)
-        stats["itl_p50_ms"] = round(metrics.SERVE_ITL_MS.percentile(0.5), 3)
+    stats["device"] = str(dev) if dev.type == "cpu" \
+        else torch.cuda.get_device_name(dev)
     stats.update({
         "requests": args.requests,
         "wall_s": round(wall, 2),

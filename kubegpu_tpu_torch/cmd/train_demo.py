@@ -4,9 +4,11 @@ single-device train step, on one device.
 The port's counterpart of ``kubegpu_tpu/cmd/train_demo.py``: builds a
 model from --seed (or a --preset), generates synthetic shards when --data
 is absent, runs --steps AdamW steps and prints one JSON line with the same
-keys as the reference. Runs on CUDA unless --device says otherwise.
-Sampled generation comes with slice 4, LoRA and checkpoints with slice 5,
-meshes with slice 6; their flags are refused.
+keys as the reference. Batches come from the native token loader, built
+at first use. --generate decodes after training, greedily or sampled
+(--temperature/--top-k/--top-p, keyed by --seed). Runs on CUDA unless
+--device says otherwise. LoRA and checkpoints come with slice 5, meshes
+with slice 6; their flags are refused.
 
 Examples:
     python -m kubegpu_tpu_torch.cmd.train_demo --steps 4 --d-model 128
@@ -54,27 +56,24 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--generate", type=int, default=0, metavar="N",
-                    help="after training, decode N tokens greedily from a "
-                         "prompt drawn from the data stream")
-    ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--top-p", type=float, default=1.0)
+                    help="after training, decode N tokens from a prompt "
+                         "drawn from the data stream")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy (default); >0 samples")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample from the k highest-logit tokens")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (0, 1]")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.steps < 1:
         ap.error("--steps must be >= 1")
-    if args.temperature != 0.0 or args.top_k or args.top_p != 1.0:
-        ap.error("--temperature/--top-k/--top-p: sampled generation comes "
-                 "with slice 4 of the port; --generate decodes greedily")
     if args.lora_rank > 0 or args.checkpoint_dir is not None:
         ap.error("--lora-rank/--checkpoint-dir: LoRA and checkpoints come "
                  "with slice 5 of the port")
     if args.dp or args.sp or args.tp:
         ap.error("--dp/--sp/--tp: meshes come with slice 6 of the port")
-    if args.remat == "dots":
-        ap.error("--remat dots comes with slice 3 of the port; use none or "
-                 "full")
 
     import numpy as np
     import torch
@@ -117,7 +116,8 @@ def main(argv=None) -> int:
                      f"exceeds the model's max_seq {cfg.max_seq}")
         from kubegpu_tpu_torch.workload.decode import make_generate
 
-        gen = make_generate(cfg)
+        gen = make_generate(cfg, temperature=args.temperature,
+                            top_k=args.top_k, top_p=args.top_p)
 
     tmp = None
     paths = args.data
@@ -161,7 +161,8 @@ def main(argv=None) -> int:
         else torch.cuda.get_device_name(dev),
     }
     if gen is not None:
-        toks = gen(params, tokens[:, :prompt_len], args.generate)
+        toks = gen(params, tokens[:, :prompt_len], args.generate,
+                   rng=args.seed)
         out["generated"] = toks[0].tolist()
     print(json.dumps(out))
     return 0 if all(math.isfinite(x) for x in losses) else 1

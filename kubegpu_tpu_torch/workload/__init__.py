@@ -1,3 +1,4 @@
-"""The workload layer of the port: the flagship transformer's forward
-pass, KV-cache decoding and the continuous-batching server, in PyTorch,
-with the attention forward as a hand-written CUDA kernel."""
+"""The workload layer of the port: the flagship transformer's forward and
+backward passes and training step, KV-cache decoding (greedy, sampled,
+speculative) and the continuous-batching server, in PyTorch, with the
+attention as hand-written CUDA kernels."""

@@ -1,18 +1,20 @@
-"""Input pipeline: token shards and a loader, the port's own copy of
-``kubegpu_tpu/workload/data.py``'s Python half.
+"""Input pipeline: token shards and loaders, the port's own copy of
+``kubegpu_tpu/workload/data.py``.
 
 Shard format: 8-byte magic ``KGTDSH01``, uint64 LE token count, then
 uint32 LE tokens. Sampling: splitmix64 from ``seed``; per sample
 ``shard = next() % n_shards`` then ``start = next() % (len - seq1 + 1)``;
-``batch`` samples per batch, row order. The stream equals the reference's
-bit for bit (tests/test_torch_train.py). The reference's C++ loader
-(``native/dataloader.cpp``) is bound through the JAX package, so
-`make_loader` returns `PyTokenLoader`; a binding of its own is queued in
-ROADMAP.md.
+``batch`` samples per batch, row order. `NativeTokenLoader` (the C++
+loader of ``native/dataloader.cpp``: mmap and a prefetch thread, built at
+first use by `kubegpu_tpu_torch.native`) and `PyTokenLoader` (the Python
+reference) give the reference's stream bit for bit
+(tests/test_torch_loader.py). `make_loader` returns the native loader and
+raises when it cannot be built; it never falls back to the Python one.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 
 import numpy as np
@@ -87,7 +89,51 @@ class PyTokenLoader:
         pass
 
 
+class NativeTokenLoader:
+    """The C++ loader: mmap'd shards and a producer thread filling a ring
+    of ``prefetch`` ready batches (``native/dataloader.cpp``)."""
+
+    def __init__(self, paths: list, batch: int, seq_len: int, seed: int = 0,
+                 prefetch: int = 2):
+        from kubegpu_tpu_torch import native
+
+        self._lib = native.load()
+        self.batch = int(batch)
+        self.seq1 = int(seq_len) + 1
+        self._handle = self._lib.dl_open("\n".join(paths).encode(),
+                                         self.batch, self.seq1,
+                                         seed & _MASK, prefetch)
+        if not self._handle:
+            raise RuntimeError(
+                f"dl_open: {self._lib.dl_last_error().decode()}")
+        self._buf = np.empty(self.batch * self.seq1, np.int32)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> np.ndarray:
+        if not self._handle:
+            raise RuntimeError("loader is closed")
+        n = self._lib.dl_next(
+            self._handle,
+            self._buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            self._buf.size)
+        if n < 0:
+            raise RuntimeError(
+                f"dl_next: {self._lib.dl_last_error().decode()}")
+        return self._buf[:n].reshape(self.batch, self.seq1).copy()
+
+    def close(self) -> None:
+        if getattr(self, "_handle", None):
+            self._lib.dl_close(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        self.close()
+
+
 def make_loader(paths: list, batch: int, seq_len: int, seed: int = 0):
-    """The loader of this package: `PyTokenLoader` (the same stream as the
-    reference's native loader)."""
-    return PyTokenLoader(paths, batch, seq_len, seed)
+    """The native loader; raises (with the compiler's message when the
+    build failed) rather than fall back to `PyTokenLoader`, which stays
+    for explicit use and as the tests' reference."""
+    return NativeTokenLoader(paths, batch, seq_len, seed)

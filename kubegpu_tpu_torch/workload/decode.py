@@ -1,7 +1,7 @@
-"""Autoregressive inference: KV-cache prefill and greedy decode.
+"""Autoregressive inference: KV-cache prefill and decode, greedy or
+sampled.
 
-The counterpart of ``kubegpu_tpu/workload/decode.py``, single device and
-greedy:
+The counterpart of ``kubegpu_tpu/workload/decode.py``, single device:
 
 - the KV cache is allocated at a fixed length up front and every step
   attends the whole cache under a position mask, so each step has the
@@ -20,8 +20,11 @@ Unlike ``lax.dynamic_update_slice``, a tensor write does not clamp an
 out-of-range start: callers refuse such writes up front (`make_generate`,
 `serve.DecodeServer.submit`).
 
-Sampling (temperature > 0, top-k, top-p) comes with a later slice and
-raises `NotImplementedError`.
+Sampling (temperature > 0, truncated by top-k and the top-p nucleus)
+has the reference's semantics (`_truncate_logits`); its randomness is the
+port's own counter-based keys (`keys`), since threefry's bits cannot be
+matched: each draw is Gumbel-max over the truncated logits, keyed by its
+lineage alone.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from kubegpu_tpu_torch._device import resolve_device
+from kubegpu_tpu_torch.workload import keys
 from kubegpu_tpu_torch.workload.model import (TransformerConfig,
                                               _check_in_slice, _rmsnorm,
                                               _rope)
@@ -153,40 +157,106 @@ def validate_sampling(cfg: TransformerConfig, temperature: float,
     return min(top_k, cfg.vocab)
 
 
-def _greedy_only(temperature: float) -> None:
-    if temperature != 0.0:
-        raise NotImplementedError(
-            "sampled decoding (temperature > 0) comes with the sampling "
-            "slice (slice 4); this slice decodes greedily")
+def _truncate_logits(z, top_k: int, top_p: float):
+    """Top-k and nucleus truncation of scaled logits ``z [..., V]``
+    (masked tokens go to NEG_INF), shared by direct sampling and
+    speculative decoding so both see the same support. Ties at the k-th
+    largest logit are all kept. The nucleus keeps a token while the mass
+    of the strictly better tokens (the exclusive cumulative sum) is below
+    ``top_p``, so the token that crosses ``top_p`` stays and the top-1 is
+    never dropped."""
+    if top_k:
+        kth = torch.topk(z, top_k, dim=-1).values[..., -1:]
+        z = torch.where(z < kth, NEG_INF, z)
+    if top_p < 1.0:
+        z_sorted = torch.sort(z, dim=-1, descending=True).values
+        probs = torch.softmax(z_sorted, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p
+        # the threshold is the smallest kept logit
+        thr = torch.where(keep, z_sorted, torch.inf).amin(-1, keepdim=True)
+        z = torch.where(z < thr, NEG_INF, z)
+    return z
+
+
+def truncated_probs(logits, temperature: float, top_k: int, top_p: float):
+    """The distribution `_select_token_rows` samples from: the
+    temperature-scaled softmax truncated to the top-k/nucleus support and
+    renormalised, per row. Speculative sampling runs its acceptance rule
+    on these for both target and draft."""
+    z = _truncate_logits(logits.float() / temperature, top_k, top_p)
+    return torch.softmax(z, dim=-1)
+
+
+def _select_token_rows(logits, rkeys, temperature: float, top_k: int,
+                       top_p: float):
+    """The next token of each row of ``logits [B, V]``: argmax when
+    greedy (the keys unread), else Gumbel-max over the truncated scaled
+    logits with row ``i``'s own key ``rkeys[i]``, so a row's draw depends
+    on its key alone."""
+    if temperature == 0.0:
+        return logits.argmax(-1)
+    z = _truncate_logits(logits.float() / temperature, top_k, top_p)
+    return (z + keys.gumbel(rkeys, z.shape[-1])).argmax(-1)
+
+
+def _pick_rows(logits, rkeys, temperature: float, top_k: int,
+               top_p: float):
+    """The speculative paths' selection: the next token of each row of
+    ``logits [B, V]`` and, when sampling, the truncated row
+    (`truncated_probs`) it was drawn from, by Gumbel-max over its log with
+    ``rkeys`` (None when greedy)."""
+    if temperature == 0.0:
+        return logits.argmax(-1), None
+    p = truncated_probs(logits, temperature, top_k, top_p)
+    return (torch.log(p.clamp_min(1e-30))
+            + keys.gumbel(rkeys, p.shape[-1])).argmax(-1), p
+
+
+def _select_token(logits, key, temperature: float, top_k: int,
+                  top_p: float):
+    """`_select_token_rows` with one key for the whole batch: row ``i``
+    draws with ``fold(key, i)``."""
+    if temperature == 0.0:
+        return logits.argmax(-1)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return _select_token_rows(logits, keys.fold(key, rows), temperature,
+                              top_k, top_p)
 
 
 def make_decode_chunk(cfg: TransformerConfig, mesh=None, chunk: int = 16,
                       temperature: float = 0.0, top_k: int = 0,
                       top_p: float = 1.0, eos_id: int | None = None):
     """Build the fused decode chunk the server dispatches:
-    ``chunk_step(params, cache, tok, pos, active, budget) -> (cache, toks
-    [B, chunk], n_emit [B], tok, pos, active)``.
+    ``chunk_step(params, cache, tok, pos, active, budget, skeys=None) ->
+    (cache, toks [B, chunk], n_emit [B], tok, pos, active)``.
 
     ``tok``/``pos`` are each row's last emitted token and its position;
     ``active [B] bool`` masks the rows that emit (inactive rows ride
     along frozen, rewriting the same K/V position with the same values);
     ``budget [B]`` is each row's remaining quota. A row that emits EOS or
     its budget-th token freezes for the rest of the chunk, so its tokens
-    are a clean prefix of ``toks[b]`` of length ``n_emit[b]``. The loop
-    stays on the device: no value is read back inside it."""
+    are a clean prefix of ``toks[b]`` of length ``n_emit[b]``. When
+    sampling, ``skeys [B]`` are the rows' key roots: the selection fed by
+    the token at position ``p`` uses ``keys.fold(skeys[b], p)``, so the
+    fused chunk and the server's per-token oracle draw the same tokens.
+    The loop stays on the device: no value is read back inside it."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    validate_sampling(cfg, temperature, top_k, top_p)
-    _greedy_only(temperature)
+    top_k = validate_sampling(cfg, temperature, top_k, top_p)
+    sampling = temperature != 0.0
     step = make_forward_step(cfg, mesh)
 
     @torch.no_grad()
-    def chunk_step(params, cache, tok, pos, active, budget):
+    def chunk_step(params, cache, tok, pos, active, budget, skeys=None):
+        if sampling and skeys is None:
+            raise ValueError("a sampling decode chunk needs skeys")
         emitted = torch.zeros_like(pos)
         toks = []
         for _ in range(chunk):
             logits, cache = step(params, cache, tok[:, None], pos)
-            nxt = logits[:, -1, :].argmax(-1).to(tok.dtype)
+            rkeys = keys.fold(skeys, pos) if sampling else None
+            nxt = _select_token_rows(logits[:, -1, :], rkeys, temperature,
+                                     top_k, top_p).to(tok.dtype)
             emit = active
             nxt = torch.where(emit, nxt, tok)        # frozen rows hold
             pos = torch.where(emit, pos + 1, pos)
@@ -205,17 +275,28 @@ def make_decode_chunk(cfg: TransformerConfig, mesh=None, chunk: int = 16,
 def make_generate(cfg: TransformerConfig, mesh=None,
                   max_seq: int | None = None, temperature: float = 0.0,
                   top_k: int = 0, top_p: float = 1.0):
-    """Build ``generate(params, prompt, n_new) -> tokens [B, n_new]``:
-    greedy prefill plus ``n_new - 1`` decode steps over a cache sized to
-    the call's 128-aligned horizon."""
+    """Build ``generate(params, prompt, n_new, rng=None) -> tokens [B,
+    n_new]``: prefill plus ``n_new - 1`` decode steps over a cache sized to
+    the call's 128-aligned horizon. ``temperature`` 0 is greedy; above 0 it
+    samples, truncated by ``top_k``/``top_p``, and ``generate`` then needs
+    ``rng``, an integer seed: selection ``i`` (0 after the prefill) draws
+    with ``keys.fold(rng, i)``, row ``b`` with ``fold(fold(rng, i), b)``."""
     max_seq = max_seq or cfg.max_seq
-    validate_sampling(cfg, temperature, top_k, top_p)
-    _greedy_only(temperature)
+    top_k = validate_sampling(cfg, temperature, top_k, top_p)
+    sampling = temperature != 0.0
     step = make_forward_step(cfg, mesh)
 
     @torch.no_grad()
-    def generate(params, prompt, n_new: int):
+    def generate(params, prompt, n_new: int, rng=None):
+        if sampling and rng is None:
+            raise ValueError("sampling decode needs an rng key")
         dev = params["embed"].device
+        root = keys.as_key(0 if rng is None else rng, dev)
+
+        def select(logits, i):
+            return _select_token(logits[:, -1, :], keys.fold(root, i),
+                                 temperature, top_k, top_p)
+
         prompt = torch.as_tensor(prompt, device=dev).long()
         b, t0 = prompt.shape
         if t0 + n_new > max_seq:
@@ -227,11 +308,11 @@ def make_generate(cfg: TransformerConfig, mesh=None,
         horizon = min(max_seq, -(-(t0 + n_new) // 128) * 128)
         cache = init_cache(cfg, b, horizon, dev)
         logits, cache = step(params, cache, prompt, 0)
-        tok = logits[:, -1, :].argmax(-1)
+        tok = select(logits, 0)
         out = [tok]
         for i in range(1, n_new):
             logits, cache = step(params, cache, tok[:, None], t0 + i - 1)
-            tok = logits[:, -1, :].argmax(-1)
+            tok = select(logits, i)
             out.append(tok)
         return torch.stack(out, 1)
 

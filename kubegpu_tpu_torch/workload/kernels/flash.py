@@ -10,9 +10,14 @@ with the same ``[B, T, H, D]`` layout, forward and backward:
   hides skipped, the ``[B, T, H, D]`` strides read directly (no
   transposes);
 - the two backward kernels (``_dq_kernel``, ``_dkv_kernel``) become K2
-  (dQ over k-tiles) and K3 (dK and dV over q-tiles), behind a
-  ``torch.autograd.Function`` that saves ``(q, k, v, o, lse)`` and takes
-  the lse cotangent, which ring attention's merge needs.
+  (dQ over k-tiles) and K3 (dK and dV over q-tiles).
+
+The forward and the backward are registered as operators,
+``torch.ops.kgt.flash_fwd`` and ``torch.ops.kgt.flash_bwd``
+(`flash_fwd_op`, `flash_bwd_op`), with the forward's autograd formula
+saving ``(q, k, v, o, lse)`` and taking the lse cotangent, which ring
+attention's merge needs. As one operator the forward is visible to a
+selective-checkpoint policy, which keeps its outputs (remat "dots").
 
 Each kernel has two instances, picked by `_instance` from the dtype and
 head_dim alone: "sm90" (``csrc/flash_fwd_sm90.cu``,
@@ -352,35 +357,66 @@ def flash_attention_bwd(q, k, v, o, lse, do, dlse, scale, *, q_offset=0,
     return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K2+K3 backward (the plain versions on CPU tensors).
-    Saves ``(q, k, v, o, lse)``; no gradient for scale, offsets or mask."""
+@torch.library.custom_op("kgt::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, q_offset: int, kv_offset: int, causal: bool,
+                 window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator, ``torch.ops.kgt.flash_fwd``: K1 on
+    CUDA tensors, the plain version on CPU tensors. Being one operator is
+    what lets a selective-checkpoint policy keep its ``(o, lse)`` instead
+    of launching K1 again in the recompute (``model.py``, remat "dots")."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale, q_offset=q_offset,
+                                     kv_offset=kv_offset, causal=causal,
+                                     window=window)
+    return _launch(q, k, v, scale, q_offset, kv_offset, causal, window)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale, q_offset, kv_offset, causal, window):
-        if q.device.type == "cpu":
-            o, lse = flash_attention_plain(q, k, v, scale, q_offset=q_offset,
-                                           kv_offset=kv_offset,
-                                           causal=causal, window=window)
-        else:
-            o, lse = _launch(q, k, v, scale, q_offset, kv_offset, causal,
-                             window)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mask = (scale, q_offset, kv_offset, causal, window)
-        ctx.set_materialize_grads(False)
-        return o, lse
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
-        scale, q_offset, kv_offset, causal, window = ctx.mask
-        if do is None:
-            do = torch.zeros_like(o)
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, lse, do, dlse, scale, q_offset=q_offset,
-            kv_offset=kv_offset, causal=causal, window=window)
-        return dq, dk, dv, None, None, None, None, None
+@flash_fwd_op.register_fake
+def _(q, k, v, scale, q_offset, kv_offset, causal, window):
+    b, tq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, tq), dtype=torch.float32))
+
+
+@torch.library.custom_op("kgt::flash_bwd", mutates_args=())
+def flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 dlse: torch.Tensor | None, scale: float, q_offset: int,
+                 kv_offset: int, causal: bool, window: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward as one operator, ``torch.ops.kgt.flash_bwd``:
+    `flash_attention_bwd` (K2 then K3 on CUDA tensors)."""
+    return flash_attention_bwd(q, k, v, o, lse, do, dlse, scale,
+                               q_offset=q_offset, kv_offset=kv_offset,
+                               causal=causal, window=window)
+
+
+@flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, dlse, scale, q_offset, kv_offset, causal,
+      window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    q, k, v, scale, q_offset, kv_offset, causal, window = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.mask = (scale, q_offset, kv_offset, causal, window)
+    # an output that no loss reaches keeps a None cotangent: no dlse
+    # unless lse is used
+    ctx.set_materialize_grads(False)
+
+
+def _fwd_backward(ctx, do, dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    if do is None:
+        do = torch.zeros_like(o)
+    dq, dk, dv = flash_bwd_op(q, k, v, o, lse, do, dlse, *ctx.mask)
+    return dq, dk, dv, None, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_fwd_backward,
+                               setup_context=_fwd_setup_context)
 
 
 def flash_attention_with_lse(q, k, v, scale, *, q_offset=0, kv_offset=0,
@@ -405,8 +441,8 @@ def flash_attention_with_lse(q, k, v, scale, *, q_offset=0, kv_offset=0,
         raise ValueError(f"seq lens ({tq}, {tk}) not divisible by blocks "
                          f"({block_q}, {block_k})")
     _check_device(q)
-    return _FlashAttention.apply(q, k, v, float(scale), int(q_offset),
-                                 int(kv_offset), bool(causal), int(window))
+    return flash_fwd_op(q, k, v, float(scale), int(q_offset),
+                        int(kv_offset), bool(causal), int(window))
 
 
 flash_attention_with_lse.launches = 0

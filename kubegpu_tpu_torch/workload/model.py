@@ -15,26 +15,43 @@ logits:
 - logits leave as float32.
 
 Training: `make_loss_fn` (next-token cross entropy) and per-layer
-rematerialisation, ``remat="none"`` (keep every activation) or ``"full"``
-(keep each layer's input and recompute the layer in the backward pass,
-through ``torch.utils.checkpoint``). Gradients of the flash kernel are its
-own backward kernels (`kernels.flash`).
+rematerialisation through ``torch.utils.checkpoint``, one region a layer:
+``remat="none"`` keeps every activation; ``"full"`` keeps each layer's
+input and recomputes the layer in the backward pass; ``"dots"`` is the
+reference's policy (``kubegpu_tpu/workload/model.py:295-306``) as a
+selective checkpoint: the outputs of the products with a weight
+(``aten.mm``; ``x @ W`` with a 2-D weight reaches it) and of the flash
+forward operator (``torch.ops.kgt.flash_fwd``: ``attn_out`` and
+``attn_lse``) are kept, everything else is recomputed, so K1 never runs
+again in the backward. The reference also keeps the plain ("xla")
+attention's output by name; here nothing of it is kept, because the
+recompute is a replay of the layer in order and must run the attention's
+products (which have batch dimensions, so the policy recomputes them in
+the reference too) to rebuild the probabilities their backward needs:
+keeping the output as well would add memory and save no work. Gradients
+of the flash kernel are its own backward kernels (`kernels.flash`).
 
 Single device, eager. Mixture-of-experts layers and sequence parallelism
-over a mesh belong to later slices and raise `NotImplementedError`, as
-does ``remat="dots"``.
+over a mesh belong to later slices and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from kubegpu_tpu_torch._device import resolve_device
+from kubegpu_tpu_torch.workload.kernels.flash import flash_attention
+
+# remat "dots": the operators whose outputs the checkpoint keeps
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.kgt.flash_fwd.default]
 
 
 @dataclass(frozen=True)
@@ -58,8 +75,8 @@ class TransformerConfig:
     moe_top_k: int = 1
     moe_aux_weight: float = 0.01
     # Rematerialisation per layer in training: "none" keeps every
-    # activation, "full" recomputes each layer in the backward pass;
-    # "dots" (keep matmul outputs and the flash residuals) raises.
+    # activation, "full" recomputes each layer in the backward pass,
+    # "dots" keeps the matmul outputs and the flash residuals.
     remat: str = "none"
     # Sliding window: each position attends the newest ``attn_window``
     # positions (0 = full causal).
@@ -216,19 +233,16 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
     _check_in_slice(cfg, mesh)
     if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat mode {cfg.remat!r}")
+    # keyword arguments of each layer's checkpoint (None: no checkpoint)
+    remat_kw = None if cfg.remat == "none" else {}
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (a selective-checkpoint policy that keeps matmul "
-            "outputs and the flash residuals) comes with slice 3; use "
-            "'none' or 'full'")
+        remat_kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS_SAVED)
     scale = cfg.head_dim ** -0.5
 
     def attention_fn(t: int, device: torch.device):
         impl = _resolve_attn_impl(cfg, t, device)
         if impl == "flash":
-            from kubegpu_tpu_torch.workload.kernels.flash import \
-                flash_attention
-
             return lambda q, k, v: flash_attention(
                 q, k, v, scale, window=cfg.attn_window)
         if impl != "xla":
@@ -263,9 +277,9 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
         positions = torch.arange(t, device=dev).expand(b, t)
         attend = attention_fn(t, dev)
         for layer in params["layers"]:
-            if cfg.remat == "full" and torch.is_grad_enabled():
+            if remat_kw is not None and torch.is_grad_enabled():
                 x = checkpoint(block, layer, x, positions, attend,
-                               use_reentrant=False)
+                               use_reentrant=False, **remat_kw)
             else:
                 x = block(layer, x, positions, attend)
         x = _rmsnorm(x, params["final_norm"])

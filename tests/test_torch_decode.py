@@ -2,7 +2,13 @@
 against the JAX package's: step logits equal the full forward, greedy
 ``make_generate`` tokens equal JAX's exactly, per-row ``start_pos`` works,
 and the fused decode chunk freezes rows on the device without reading a
-value back. float32, parameters carried across from JAX ``init_params``."""
+value back. float32, parameters carried across from JAX ``init_params``.
+
+Sampling: `_truncate_logits` and `truncated_probs` equal JAX's on the same
+logits (1e-6), ties at the top-k and top-p boundaries included; the draws
+(the port's keys, not threefry) follow the truncated distribution by a
+chi-square test at a fixed seed (p > 1e-3 on its support, nothing drawn
+outside it) and are a function of their keys alone."""
 
 import numpy as np
 import pytest
@@ -11,10 +17,12 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
+from scipy import stats  # noqa: E402
 
 from kubegpu_tpu.workload import decode as jdecode  # noqa: E402
 from kubegpu_tpu.workload import model as jmodel  # noqa: E402
 from kubegpu_tpu_torch.workload import decode as tdecode  # noqa: E402
+from kubegpu_tpu_torch.workload import keys  # noqa: E402
 from kubegpu_tpu_torch.workload import model as tmodel  # noqa: E402
 
 SMALL = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
@@ -175,7 +183,9 @@ def test_decode_chunk_reads_nothing_back(dense, monkeypatch):
 
 
 def test_sampling_is_out_of_slice_and_validation_matches(dense):
-    jcfg, tcfg, _, _ = dense
+    """Validation matches the reference's; sampling (in slice since the
+    sampling slice) builds, and a sampled generate needs its seed."""
+    jcfg, tcfg, _, tp = dense
     for args in ((-1.0, 0, 1.0), (0.0, 0, 0.0), (1.0, -1, 1.0),
                  (0.0, 3, 1.0)):
         with pytest.raises(ValueError):
@@ -183,12 +193,124 @@ def test_sampling_is_out_of_slice_and_validation_matches(dense):
         with pytest.raises(ValueError):
             tdecode.validate_sampling(tcfg, *args)
     assert tdecode.validate_sampling(tcfg, 1.0, 1000, 1.0) == 64
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tdecode.make_generate(tcfg, temperature=0.8)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tdecode.make_decode_chunk(tcfg, temperature=0.8)
+    gen = tdecode.make_generate(tcfg, temperature=0.8)
+    with pytest.raises(ValueError, match="rng"):
+        gen(tp, torch.tensor([[1, 2]]), 3)
+    assert gen(tp, torch.tensor([[1, 2]]), 3, rng=4).shape == (1, 3)
+    chunk = tdecode.make_decode_chunk(tcfg, temperature=0.8)
+    with pytest.raises(ValueError, match="skeys"):
+        chunk(tp, tdecode.init_cache(tcfg, 1, 8, device="cpu"),
+              torch.tensor([1]), torch.tensor([0]), torch.tensor([True]),
+              torch.tensor([2]))
     with pytest.raises(ValueError, match="chunk"):
         tdecode.make_decode_chunk(tcfg, chunk=0)
+
+
+def _tied_logits():
+    """Rows of logits with ties at the top-k and top-p boundaries: row 0
+    has its 3rd..5th largest equal (top_k 3, 4 or 5 keeps all three);
+    row 1 has two equal logits where the nucleus mass crosses 0.5 and
+    0.9; row 2 is random."""
+    z = np.full((3, 16), -2.0, np.float32)
+    z[0, :6] = [4.0, 3.0, 2.0, 2.0, 2.0, 1.0]
+    z[1, :5] = [np.log(4.0), 0.0, 0.0, -1.0, -1.0]
+    z[2] = np.random.default_rng(5).normal(size=16) * 2
+    return z
+
+
+@pytest.mark.parametrize("top_k,top_p", [
+    (3, 1.0), (4, 1.0), (1, 1.0), (0, 0.5), (0, 0.9), (0, 1e-6),
+    (5, 0.8), (16, 0.95)])
+def test_truncation_equals_jax(top_k, top_p):
+    z = _tied_logits()
+    want = np.asarray(jdecode._truncate_logits(jnp.asarray(z), top_k,
+                                               top_p))
+    got = tdecode._truncate_logits(torch.from_numpy(z), top_k, top_p)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    for temp in (0.7, 1.0):
+        want = np.asarray(jdecode.truncated_probs(jnp.asarray(z), temp,
+                                                  top_k, top_p))
+        got = tdecode.truncated_probs(torch.from_numpy(z), temp, top_k,
+                                      top_p)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
+    # the top-1 is never dropped and ties at the k-th logit are all kept
+    kept = got.numpy() > 0
+    assert kept[np.arange(3), z.argmax(1)].all()
+    if (top_k, top_p) == (3, 1.0):
+        assert kept[0, :5].all() and not kept[0, 5:].any()
+
+
+def test_sampled_rows_follow_truncated_distribution():
+    """4000 keyed draws of one row of logits: chi-square against
+    `truncated_probs`, nothing outside the support; a row's draw depends
+    on its key alone, not on the rows beside it."""
+    z = torch.from_numpy(_tied_logits()[2:3].repeat(4000, 0))
+    rkeys = keys.fold(7, torch.arange(4000))
+    got = tdecode._select_token_rows(z, rkeys, 0.8, 6, 0.9)
+    probs = tdecode.truncated_probs(z[:1], 0.8, 6, 0.9)[0].numpy()
+    counts = np.bincount(got.numpy(), minlength=16)
+    assert counts[probs == 0].sum() == 0
+    sup = probs > 0
+    expected = probs[sup].astype(np.float64)
+    expected *= 4000 / expected.sum()
+    assert stats.chisquare(counts[sup], expected).pvalue > 1e-3
+    alone = tdecode._select_token_rows(z[:5], rkeys[:5], 0.8, 6, 0.9)
+    assert torch.equal(alone, got[:5])
+    assert torch.equal(tdecode._select_token_rows(z[:3], None, 0.0, 0, 1.0),
+                       z[:3].argmax(-1))
+
+
+def test_sampled_generate_is_keyed(dense):
+    """The same seed gives the same tokens; selection ``i`` of row ``b``
+    draws with ``fold(fold(rng, i), b)``; truncation to the argmax
+    reproduces JAX's greedy tokens."""
+    jcfg, tcfg, jp, tp = dense
+    prompt = torch.from_numpy(_prompt(2, 5))
+    gen = tdecode.make_generate(tcfg, temperature=0.9, top_p=0.9)
+    a = gen(tp, prompt, 12, rng=3)
+    assert torch.equal(a, gen(tp, prompt, 12, rng=3))
+    assert not torch.equal(a, gen(tp, prompt, 12, rng=4))
+    logits = tmodel.make_forward(tcfg)(tp, prompt)[:, -1]
+    first = tdecode._select_token_rows(
+        logits, keys.fold(keys.fold(3, 0), torch.arange(2)), 0.9, 0, 0.9)
+    assert torch.equal(a[:, 0], first)
+    want = np.asarray(jax.jit(jdecode.make_generate(jcfg),
+                              static_argnums=(2,))(jp, jnp.asarray(
+                                  prompt.numpy()), 12))
+    for trunc in (dict(top_k=1), dict(top_p=1e-6)):
+        got = tdecode.make_generate(tcfg, temperature=1.0, **trunc)(
+            tp, prompt, 12, rng=9)
+        assert got.numpy().tolist() == want.tolist()
+
+
+def test_sampled_decode_chunk_equals_keyed_steps(dense):
+    """Each row of a sampled chunk draws at position ``p`` with
+    ``fold(skeys[b], p)``: the same tokens as stepping one token at a
+    time, whatever the chunk length."""
+    _, tcfg, _, tp = dense
+    prompts = [[1, 2, 3], [9, 8, 7, 6]]
+    skeys = keys.fold(5, torch.tensor([0, 1]))
+    kw = dict(temperature=1.0, top_k=10)
+    cache, tok, pos = _chunk_inputs(tcfg, tp, prompts)
+    step = tdecode.make_forward_step(tcfg)
+    want, t, p = [], tok.clone(), pos.clone()
+    for _ in range(6):
+        logits, cache = step(tp, cache, t[:, None], p)
+        t = tdecode._select_token_rows(logits[:, -1], keys.fold(skeys, p),
+                                       1.0, 10, 1.0)
+        p = p + 1
+        want.append(t)
+    want = torch.stack(want, 1)
+    for n in (6, 2):
+        cache, tok0, pos0 = _chunk_inputs(tcfg, tp, prompts)
+        chunk = tdecode.make_decode_chunk(tcfg, chunk=n, **kw)
+        got = []
+        for _ in range(6 // n):
+            cache, toks, _, tok0, pos0, _ = chunk(
+                tp, cache, tok0, pos0, torch.tensor([True, True]),
+                torch.tensor([6, 6]), skeys)
+            got.append(toks)
+        assert torch.equal(torch.cat(got, 1), want)
 
 
 def test_init_cache_is_narrow_under_gqa():

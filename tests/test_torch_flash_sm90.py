@@ -279,3 +279,42 @@ def test_sm90_kernels_match_plain_on_card():
             assert err <= 1e-4 * ref.abs().max().item()
             if dlse is None:
                 assert torch.equal(dq, got[0])
+
+
+@pytest.mark.cuda
+def test_remat_dots_step_keeps_k1_outputs_on_card():
+    """A remat "dots" step through autograd on the card: one K1, K2 and K3
+    launch a layer, all on the sm90 instance (the recompute returns the
+    kept outputs of K1 instead of launching it again, which "full" does),
+    and the gradients of "none"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    import dataclasses
+
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  init_params, make_loss_fn)
+    from kubegpu_tpu_torch.workload.train import param_leaves
+
+    cfg = TransformerConfig(vocab=256, d_model=256, n_heads=2, n_layers=2,
+                            d_ff=512, max_seq=256, attn_impl="flash")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    leaves = param_leaves(params)
+    for x in leaves:
+        x.requires_grad_(True)
+    tokens = torch.randint(0, 256, (2, 257), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    grads, counts = {}, {}
+    for remat in ("none", "dots", "full"):
+        before = _all_counts()
+        loss = make_loss_fn(dataclasses.replace(cfg, remat=remat))(params,
+                                                                    tokens)
+        grads[remat] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        counts[remat] = [now["sm90"] - was["sm90"]
+                         for was, now in zip(before, _all_counts())]
+    assert counts == {"none": [2, 2, 2], "dots": [2, 2, 2],
+                      "full": [4, 2, 2]}
+    for g, w in zip(grads["dots"], grads["none"]):
+        err = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        assert err <= 1e-2

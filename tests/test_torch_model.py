@@ -183,7 +183,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 mods.append(rel.replace(os.sep, ".").removesuffix(
                     ".__init__"))
     for name in ("workload.serve", "workload.train", "workload.data",
-                 "cmd.train_demo", "workload.kernels.flash"):
+                 "cmd.train_demo", "workload.kernels.flash",
+                 "workload.speculative", "workload.keys", "native"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -13,7 +13,9 @@ Tolerances, and why:
   1e-5 over three steps;
 - accumulation and remat against the full step, through plain SGD with
   lr 1 (so the parameter change is the gradient itself), 1e-6: the same
-  float32 sums split or recomputed.
+  float32 sums split or recomputed;
+- remat "dots" against the JAX package's "dots": the AdamW-step
+  tolerances above.
 """
 
 import functools
@@ -137,21 +139,82 @@ def test_accum_steps_errors_match_reference():
 
 
 def test_remat_full_equals_none_and_dots_raises():
+    """Remat "full" and "dots" give the step of remat "none"; an unknown
+    mode raises (nothing of this slice's modes does any more)."""
     jcfg, tcfg = _configs("dense")
     _, a = _params(jcfg)
-    _, b = _params(jcfg)
-    tok = torch.from_numpy(_tokens())
-    _, _, la = ttrain.make_train_step(tcfg, optimizer=_sgd())(a, None, tok)
-    full = tmodel.TransformerConfig(**{**SMALL, "remat": "full"})
-    _, _, lb = ttrain.make_train_step(full, optimizer=_sgd())(b, None, tok)
-    assert abs(la.item() - lb.item()) <= 1e-6
-    for x, y in zip(ttrain.param_leaves(a), ttrain.param_leaves(b)):
-        torch.testing.assert_close(x, y, atol=1e-6, rtol=0)
-    dots = tmodel.TransformerConfig(**{**SMALL, "remat": "dots"})
-    with pytest.raises(NotImplementedError, match="slice"):
-        tmodel.make_loss_fn(dots)
+    _, _, la = ttrain.make_train_step(tcfg, optimizer=_sgd())(
+        a, None, torch.from_numpy(_tokens()))
+    for remat in ("full", "dots"):
+        _, b = _params(jcfg)
+        cfg = tmodel.TransformerConfig(**{**SMALL, "remat": remat})
+        _, _, lb = ttrain.make_train_step(cfg, optimizer=_sgd())(
+            b, None, torch.from_numpy(_tokens()))
+        assert abs(la.item() - lb.item()) <= 1e-6
+        for x, y in zip(ttrain.param_leaves(a), ttrain.param_leaves(b)):
+            torch.testing.assert_close(x, y, atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="remat"):
         tmodel.make_loss_fn(tmodel.TransformerConfig(remat="some"))
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_remat_dots_keeps_the_flash_outputs(attn_impl, monkeypatch):
+    """Remat "dots" keeps the products' and the flash operator's outputs:
+    its backward calls the attention forward (here the kernel's plain
+    version, the CPU's K1) no more, where "full" calls it once a layer
+    again, and its gradients are "none"'s (1e-5)."""
+    from kubegpu_tpu_torch.workload.kernels import flash
+
+    jcfg, _ = _configs("dense")
+    _, tp = _params(jcfg)
+    leaves = ttrain.param_leaves(tp)
+    for x in leaves:
+        x.requires_grad_(True)
+    calls = [0]
+    plain = flash.flash_attention_plain
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return plain(*a, **k)
+
+    monkeypatch.setattr(flash, "flash_attention_plain", counted)
+    tok = torch.from_numpy(_tokens())
+    grads, in_backward = {}, {}
+    for remat in ("none", "dots", "full"):
+        cfg = tmodel.TransformerConfig(**{**SMALL, "attn_impl": attn_impl,
+                                          "remat": remat})
+        loss = tmodel.make_loss_fn(cfg)(tp, tok)
+        before = calls[0]
+        grads[remat] = torch.autograd.grad(loss, leaves)
+        in_backward[remat] = calls[0] - before
+    n = SMALL["n_layers"] if attn_impl == "flash" else 0
+    assert in_backward == {"none": 0, "dots": 0, "full": n}
+    for remat in ("dots", "full"):
+        for g, w in zip(grads[remat], grads["none"]):
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+def test_remat_dots_matches_jax_dots():
+    """Three AdamW steps with remat "dots" against the JAX package's
+    "dots" train step: losses within 1e-5, parameters atol 1e-5 / rtol
+    1e-4 (the AdamW-step tolerances above)."""
+    jcfg, tcfg = _configs("dense", remat="dots")
+    jp, tp = _params(jcfg)
+    jopt = jtrain.default_optimizer()
+    jstate = jopt.init(jp)
+    jstep = jtrain.make_train_step(jcfg, None, jopt)
+    tstate, tstep = None, ttrain.make_train_step(tcfg)
+    for i in range(3):
+        tok = _tokens(seed=20 + i)
+        jp, jstate, jloss = jstep(jp, jstate, jnp.asarray(tok))
+        tp, tstate, tloss = tstep(tp, tstate, torch.from_numpy(tok))
+        assert abs(tloss.item() - float(jloss)) <= 1e-5, i
+    for j, t in zip(jp["layers"] + [jp], tp["layers"] + [tp]):
+        for name in t:
+            if name != "layers":
+                np.testing.assert_allclose(
+                    t[name].detach().numpy(), np.asarray(j[name]),
+                    atol=1e-5, rtol=1e-4, err_msg=name)
 
 
 def test_remat_full_recomputes_through_the_flash_function():
@@ -217,7 +280,7 @@ def test_loader_stream_equals_reference_bit_for_bit(tmp_path, writer):
                               jdata.read_token_shard(p))
     ours = tdata.make_loader(paths, batch=4, seq_len=32, seed=3)
     ref = jdata.PyTokenLoader(paths, batch=4, seq_len=32, seed=3)
-    assert isinstance(ours, tdata.PyTokenLoader)
+    assert isinstance(ours, tdata.NativeTokenLoader)
     for _ in range(6):
         a, b = next(ours), next(ref)
         assert a.dtype == b.dtype == np.int32 and a.shape == (4, 33)
@@ -259,14 +322,32 @@ def test_train_demo_on_cpu_prints_its_json_line(capsys):
         assert key in out
     assert out["steps"] == 3 and len(out["losses_full"]) == 3
     assert np.isfinite(out["losses_full"]).all()
-    assert out["loader"] == "PyTokenLoader" and out["devices"] == 1
+    assert out["loader"] == "NativeTokenLoader" and out["devices"] == 1
     assert len(out["generated"]) == 4
 
 
+def test_train_demo_remat_dots_and_sampled_generate(capsys):
+    """--remat dots trains; --generate samples with --temperature/--top-k/
+    --top-p, keyed by --seed, so two runs draw the same tokens."""
+    from kubegpu_tpu_torch.cmd import train_demo
+
+    argv = ["--device", "cpu", "--steps", "2", "--batch", "2", "--seq",
+            "32", "--d-model", "32", "--n-layers", "1", "--vocab", "64",
+            "--remat", "dots", "--generate", "5", "--temperature", "0.8",
+            "--top-k", "10", "--top-p", "0.9", "--seed", "7"]
+    outs = []
+    for _ in range(2):
+        assert train_demo.main(argv) == 0
+        outs.append(json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1]))
+    assert len(outs[0]["generated"]) == 5
+    assert outs[0]["generated"] == outs[1]["generated"]
+    assert np.isfinite(outs[0]["losses_full"]).all()
+
+
 @pytest.mark.parametrize("flags,slice_no", [
-    (["--temperature", "0.8"], 4), (["--top-k", "5"], 4),
     (["--lora-rank", "2"], 5), (["--checkpoint-dir", "x"], 5),
-    (["--dp", "1", "--sp", "1", "--tp", "1"], 6), (["--remat", "dots"], 3)])
+    (["--dp", "1", "--sp", "1", "--tp", "1"], 6)])
 def test_train_demo_refuses_later_slices(capsys, flags, slice_no):
     from kubegpu_tpu_torch.cmd import train_demo
 

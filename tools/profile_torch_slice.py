@@ -3,6 +3,7 @@
 paths, on one GPU.
 
     python3 tools/profile_torch_slice.py [--out DIR] [--sections LIST]
+        [--temperature T] [--spec] [--remat MODE]
 
 Builds the models of chip_smoke.py (random weights from a seed) and runs,
 under ``torch.profiler`` (CPU and CUDA activities):
@@ -11,10 +12,14 @@ under ``torch.profiler`` (CPU and CUDA activities):
   (attention through the flash kernel);
 - ``serve``: one drain of the benchmark's traffic through the fused
   ``DecodeServer`` (after a warm-up drain), with the admit prefills and the
-  decode chunks labelled;
+  decode chunks (or speculative rounds) labelled; ``--temperature`` > 0
+  samples with chip_smoke's top-k and top-p, ``--spec`` decodes
+  speculatively with chip_smoke's 1-layer draft (``DRAFT_MODEL``,
+  lookahead 4, 4 rounds a dispatch);
 - ``train``: one full-width AdamW step of ``make_train_step`` at the
   headline training config (chip_smoke's ``TRAIN_MODEL``, batch 4, T =
-  2048, after a warm-up step), with the device time split into GEMMs, K1,
+  2048, after a warm-up step; ``--remat`` none, dots or full), with the
+  device time split into GEMMs, K1,
   K2 (on the sm90 instance with the row term delta it computes, which the
   mma instance leaves to PyTorch's reductions and copies), K3, the
   optimizer, copies and casts, reductions and other elementwise kernels.
@@ -101,6 +106,13 @@ def main(argv=None) -> int:
         help="where the Chrome traces go")
     ap.add_argument("--sections", default="forward,serve,train",
                     help="comma-separated subset of forward,serve,train")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="serve: > 0 samples (top-k/top-p of chip_smoke)")
+    ap.add_argument("--spec", action="store_true",
+                    help="serve: speculative with chip_smoke's draft")
+    ap.add_argument("--remat", default="none",
+                    choices=["none", "dots", "full"],
+                    help="train: the rematerialisation mode")
     args = ap.parse_args(argv)
     sections = set(args.sections.split(","))
     import torch
@@ -124,11 +136,11 @@ def main(argv=None) -> int:
     if "forward" in sections:
         _forward(cfg, params, dev, acts, args.out)
     if "serve" in sections:
-        _serve(cfg, params, acts)
+        _serve(cfg, params, acts, args.temperature, args.spec)
     del params
     torch.cuda.empty_cache()
     if "train" in sections:
-        _train(dev, acts, args.out)
+        _train(dev, acts, args.out, args.remat)
     return 0
 
 
@@ -156,18 +168,25 @@ def _forward(cfg, params, dev, acts, out) -> None:
     print(json.dumps(_summary(prof, wall, "forward")), flush=True)
 
 
-def _serve(cfg, params, acts) -> None:
-    import numpy as np
+def _serve(cfg, params, acts, temperature: float, spec: bool) -> None:
     import torch
     from torch.profiler import profile, record_function
 
     import chip_smoke as cs
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  init_params)
     from kubegpu_tpu_torch.workload.serve import DecodeServer
 
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, cfg.vocab, int(n)).tolist()
-               for n in np.linspace(16, cfg.max_seq // 2,
-                                    cs.SERVE_REQUESTS)]
+    prompts = cs._serve_prompts(cfg)
+    kw = {}
+    if temperature > 0:
+        kw.update(cs.SAMPLING, temperature=temperature)
+    if spec:
+        dcfg = TransformerConfig(**cs.DRAFT_MODEL)
+        kw.update(draft_cfg=dcfg, lookahead=cs.SPEC_LOOKAHEAD,
+                  spec_rounds=cs.SPEC_ROUNDS, draft_params=init_params(
+                      torch.Generator(device=params["embed"].device)
+                      .manual_seed(1), dcfg))
 
     class Labelled(DecodeServer):
         def _admit(self, slot, req):
@@ -178,8 +197,12 @@ def _serve(cfg, params, acts) -> None:
             with record_function("decode_chunk"):
                 return super()._fused_step(active)
 
+        def _spec_fused_step(self, active):
+            with record_function("spec_rounds"):
+                return super()._spec_fused_step(active)
+
     def drain():
-        srv = Labelled(cfg, params, slots=cs.SERVE_SLOTS)
+        srv = Labelled(cfg, params, slots=cs.SERVE_SLOTS, **kw)
         rids = [srv.submit(p, max_new=cs.SERVE_MAX_NEW) for p in prompts]
         srv.run()
         torch.cuda.synchronize()
@@ -190,12 +213,13 @@ def _serve(cfg, params, acts) -> None:
         t0 = time.perf_counter()
         n_tok = drain()
         wall = time.perf_counter() - t0
-    row = _summary(prof, wall, "serve", ("admit_prefill", "decode_chunk"))
-    row["tokens"] = n_tok
+    row = _summary(prof, wall, "serve", ("admit_prefill", "decode_chunk",
+                                         "spec_rounds"))
+    row.update(tokens=n_tok, temperature=temperature, spec=spec)
     print(json.dumps(row), flush=True)
 
 
-def _train(dev, acts, out) -> None:
+def _train(dev, acts, out, remat: str) -> None:
     import numpy as np
     import torch
     from torch.profiler import profile
@@ -205,7 +229,7 @@ def _train(dev, acts, out) -> None:
     from kubegpu_tpu_torch.workload.train import (init_sharded,
                                                   make_train_step)
 
-    cfg = TransformerConfig(**cs.TRAIN_MODEL)
+    cfg = TransformerConfig(**cs.TRAIN_MODEL, remat=remat)
     params, opt_state, optimizer = init_sharded(
         torch.Generator(device=dev).manual_seed(0), cfg)
     step = make_train_step(cfg, optimizer=optimizer)
@@ -221,10 +245,10 @@ def _train(dev, acts, out) -> None:
         loss.item()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    prof.export_chrome_trace(os.path.join(out, "train_step.json"))
+    prof.export_chrome_trace(os.path.join(out, f"train_step_{remat}.json"))
     row = _summary(prof, wall, "train")
     row.update(model=cs.TRAIN_MODEL, batch=cs.TRAIN_BATCH,
-               seq=cs.TRAIN_SEQ, loss=loss.item())
+               seq=cs.TRAIN_SEQ, remat=remat, loss=loss.item())
     print(json.dumps(row), flush=True)
 
 
