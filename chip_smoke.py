@@ -15,7 +15,8 @@ T = 2048, no remat), random weights from a seed:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the nvcc build and its seconds;
 3. kernel: the flash-attention forward against ``flash_attention_plain``
-   at the serving shape and at masking edge cases (one tile; several
+   at the shape of every path that launches it (serving, training, MoE
+   training, the entry) and at masking edge cases (one tile; several
    stages over a ragged T = 2085), each row naming the kernel instance
    that ran, with its time (and through the ``torch.ops.kgt.flash_fwd``
    operator the model calls), the previous (mma.sync) design's time at the
@@ -31,10 +32,10 @@ T = 2048, no remat), random weights from a seed:
    fused data plane's streams against the per-token oracle's;
 7. kernel_bwd: the flash backward (K2 dQ with the row term delta, K3
    dK/dV) through the autograd Function against
-   ``flash_attention_bwd_plain`` at the training shape and at masking
-   edge cases (the same new ones as the forward's), each row naming K2's
-   and K3's instances and holding the delta K2 hands K3 against
-   ``_delta``; with K2's, K3's and K1's times there, their previous
+   ``flash_attention_bwd_plain`` at the training and MoE training shapes
+   and at masking edge cases (the same new ones as the forward's), each
+   row naming K2's and K3's instances and holding the delta K2 hands K3
+   against ``_delta``; with K2's, K3's and K1's times there, their previous
    designs' (K2's with the ``_delta`` pre-pass it needs), the pre-pass's
    alone, their plain versions', ``scaled_dot_product_attention``'s
    backward (a yardstick the port never calls; it includes its own
@@ -65,7 +66,23 @@ T = 2048, no remat), random weights from a seed:
    tokens/s and acceptance, sampled;
 13. serve_prefix: 8 requests sharing a 128-token system prompt with tails
    of 16..256 tokens, greedy in float32, with ``prefix_cache_size`` 8
-   against no cache: equal streams and 7 prefix hits.
+   against no cache: equal streams and 7 prefix hits;
+14. train_lora: LoRA fine-tuning at the training config (rank 16 on wq and
+   wv, ``make_lora_train_step``, batches from the native loader), 5 steps:
+   falling finite losses, 6 K1, K2 and K3 sm90 launches a step, every base
+   leaf without a gradient and with its bits unchanged, step ms and peak
+   memory beside the train phase's (remat none);
+15. checkpoint: the LoRA state saved after 2 of 4 steps and resumed (the
+   resumed losses equal the uninterrupted run's, bit for bit), and the
+   training config's full ``{params, opt_state}`` (8.1 GB) saved and
+   restored as serve_demo restores it (params only, the AdamW moments as
+   shapes), with the seconds of each: the leaves' bits and the greedy
+   streams served from the restored params equal the in-memory ones;
+16. moe: the ``moe`` preset's routing (4 experts, top-2) at the serving
+   width: a forward at [4, 1024] (6 K1 launches), 3 AdamW steps at B 4,
+   T = 2048 (6 K1, K2 and K3 sm90 launches each, falling finite losses, the
+   aux term at least 1 a layer, step ms and peak memory), and a float32
+   greedy drain whose fused streams equal the per-token oracle's.
 
 The ``kernels`` line names each kernel's instance on the main path and
 the launches that went to each instance. Every phase prints one JSON line
@@ -146,6 +163,26 @@ SPEC_LOOKAHEAD, SPEC_ROUNDS = 4, 4
 PREFIX_SYSTEM, PREFIX_TAILS, PREFIX_CACHE = 128, (16, 256), 8
 LOADER_BATCHES = 8
 REMAT_STEPS = 3
+# LoRA: rank 16 on the default targets (wq, wv), alpha = rank. The
+# optimizer is AdamW at lr 1e-2, the rate of the reference's own LoRA test
+# (tests/test_lora.py): at the full-tuning rate of 3e-4 five steps move a
+# zero-initialised B too little to lower the loss beyond batch-to-batch
+# noise.
+LORA_RANK, LORA_STEPS, LORA_LR = 16, 5, 1e-2
+# checkpoint: the LoRA run saves after CKPT_SAVE_AT of CKPT_STEPS steps; the
+# full train state's round trip is the training config's (675M parameters,
+# an 8.1 GB file with the AdamW moments) after CKPT_FULL_STEPS steps
+CKPT_SAVE_AT, CKPT_STEPS, CKPT_FULL_STEPS = 2, 4, 2
+# moe: the moe preset's routing at the serving width
+MOE_MODEL = dict(MODEL, n_experts=4, moe_top_k=2)
+MOE_STEPS = 3
+# (B, T, H, D) of the MoE steps: the kernel phases hold K1-K3 against their
+# plain versions at the shape of every path that launches them (forward
+# and serving: SLICE_SHAPE; training, LoRA, checkpoint: TRAIN_SHAPE; moe:
+# SLICE_SHAPE and MOE_TRAIN_SHAPE; entry: ENTRY_SHAPE)
+MOE_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, MOE_MODEL["n_heads"],
+                   MOE_MODEL["d_model"] // MOE_MODEL["n_heads"])
+ENTRY_SHAPE = (2, 128, 8, 32)
 
 
 def emit(obj) -> None:
@@ -225,7 +262,8 @@ def case_qkv(gen, dev, b, tq, tk, h, d, dt, strided=False):
 
 
 def kernel_phase(dev) -> dict:
-    """K1 against its plain version at the serving shape and edge cases."""
+    """K1 against its plain version at the shapes of the paths and edge
+    cases; times at the serving shape."""
     import torch
 
     from kubegpu_tpu_torch.workload.kernels.flash import (
@@ -233,10 +271,12 @@ def kernel_phase(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
-    b0, t0, h0, d0 = SLICE_SHAPE
     cases = [
         # name, (B, Tq, Tk, H, D), dtype, kwargs
-        ("slice_causal", (b0, t0, t0, h0, d0), bf16, {}),
+        *((name, (b, t, t, h, d), bf16, {}) for name, (b, t, h, d) in (
+            ("slice_causal", SLICE_SHAPE), ("train_causal", TRAIN_SHAPE),
+            ("moe_train_causal", MOE_TRAIN_SHAPE),
+            ("entry_causal", ENTRY_SHAPE))),
         ("single_tile", (1, 64, 64, 1, 128), bf16, {}),
         ("ragged_multistage", (1, 2085, 2085, 2, 128), bf16, {}),
         ("non_causal", (2, 256, 256, 4, 128), bf16, dict(causal=False)),
@@ -695,7 +735,8 @@ def _ran(before) -> tuple:
 
 def kernel_bwd_phase(dev) -> dict:
     """K2 and K3 through the autograd Function against the plain backward,
-    at the training shape and edge cases, and the delta K2 gives K3 against
+    at the training and MoE training shapes and edge cases, and the delta
+    K2 gives K3 against
     `_delta`; times at the training shape."""
     import torch
 
@@ -706,9 +747,10 @@ def kernel_bwd_phase(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16, f32 = torch.bfloat16, torch.float32
-    b0, t0, h0, d0 = TRAIN_SHAPE
     cases = [
-        ("train_causal", (b0, t0, t0, h0, d0), bf16, {}),
+        *((name, (b, t, t, h, d), bf16, {}) for name, (b, t, h, d) in (
+            ("train_causal", TRAIN_SHAPE),
+            ("moe_train_causal", MOE_TRAIN_SHAPE))),
         ("single_tile", (1, 64, 64, 1, 128), bf16, {}),
         ("ragged_multistage", (1, 2085, 2085, 2, 128), bf16, {}),
         ("non_causal", (2, 256, 256, 4, 128), bf16, dict(causal=False)),
@@ -1100,6 +1142,334 @@ def train_remat_dots_phase(dev) -> dict:
     return row
 
 
+def _lora_optimizer():
+    from kubegpu_tpu_torch.workload.train import default_optimizer
+
+    return default_optimizer(lr=LORA_LR)
+
+
+def train_lora_phase(dev, train) -> tuple:
+    """LoRA at the training config: 5 steps from the native loader, the
+    base frozen (no gradient, bits unchanged), 6 sm90 K1, K2 and K3
+    launches a step, step ms and peak memory beside remat none's from the
+    ``train`` row. Returns the row and the base params (the checkpoint
+    phase resumes LoRA runs over them)."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.workload.data import make_loader
+    from kubegpu_tpu_torch.workload.lora import (count_params, init_lora,
+                                                 make_lora_train_step,
+                                                 merge_lora)
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  make_loss_fn)
+    from kubegpu_tpu_torch.workload.train import init_sharded, param_leaves
+
+    cfg = TransformerConfig(**TRAIN_MODEL)
+    params, _, _ = init_sharded(torch.Generator(device=dev).manual_seed(0),
+                                cfg, init_optimizer=False)
+    base = param_leaves(params)
+    base_bits = [x.detach().cpu() for x in base]
+    lora = init_lora(torch.Generator(device=dev).manual_seed(1), params,
+                     LORA_RANK)
+    adapter_params = count_params(lora)
+    optimizer = _lora_optimizer()
+    opt_state = optimizer(param_leaves(lora))
+    step = make_lora_train_step(cfg, None, LORA_RANK, optimizer)
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-lora-")
+    paths = _token_shards(cfg.vocab, tmp)
+    loader = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    losses, step_s, launches, instances = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(LORA_STEPS):
+            batch = torch.from_numpy(next(loader)).to(dev)
+            if i == 0:
+                first = batch
+            _zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lora, opt_state, loss = step(lora, opt_state, params, batch)
+            losses.append(loss.item())              # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            launches.append(list(_launch_counts()))
+            instances.append(_instance_counts())
+    finally:
+        loader.close()
+        for path in paths:
+            os.remove(path)
+        os.rmdir(tmp)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        first_after = make_loss_fn(cfg)(merge_lora(params, lora, 1.0),
+                                        first).item()
+    frozen = all(not x.requires_grad and x.grad is None for x in base)
+    unchanged = all(torch.equal(x.detach().cpu(), b)
+                    for x, b in zip(base, base_bits))
+    del base_bits, opt_state, lora
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    row = {"phase": "train_lora", "model": TRAIN_MODEL,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "rank": LORA_RANK,
+           "targets": ["wq", "wv"], "lr": LORA_LR,
+           "adapter_params": adapter_params,
+           "base_params": count_params(params),
+           "losses": losses, "first_batch_loss_after": first_after,
+           "step_ms_each": [t * 1e3 for t in step_s], "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_memory_gb": peak_gb,
+           "remat_none_step_ms": train["step_ms"],
+           "remat_none_peak_memory_gb": train["peak_memory_gb"],
+           "launches_fwd_dq_dkv_per_step": launches,
+           "base_grads_none": frozen, "base_bits_unchanged": unchanged}
+    row["ok"] = (
+        all(np.isfinite(losses)) and losses[-1] < losses[0]
+        and first_after < losses[0]
+        and all(x == [n, n, n] for x in launches)
+        and all(c["sm90"] == n for ins in instances for c in ins)
+        and frozen and unchanged)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"train_lora phase failed: {row}")
+    return row, params
+
+
+def checkpoint_phase(dev, params) -> dict:
+    """A LoRA run over ``params`` saved after CKPT_SAVE_AT of CKPT_STEPS
+    steps and resumed: equal losses. Then the training config's full train
+    state saved after CKPT_FULL_STEPS AdamW steps and restored as
+    serve_demo restores it: equal bits, equal greedy streams, and the
+    seconds of each."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kubegpu_tpu_torch.workload.checkpoint import (
+        adamw_state, adamw_template, load_train_state, restore_checkpoint,
+        save_checkpoint, tree_map)
+    from kubegpu_tpu_torch.workload.data import make_loader
+    from kubegpu_tpu_torch.workload.lora import (init_lora,
+                                                 make_lora_train_step)
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  init_params)
+    from kubegpu_tpu_torch.workload.train import (init_sharded,
+                                                  make_train_step,
+                                                  param_leaves)
+
+    cfg = TransformerConfig(**TRAIN_MODEL)
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-ckpt-")
+    try:
+        paths = _token_shards(cfg.vocab, tmp)
+        lora_dir = os.path.join(tmp, "lora")
+
+        def lora_run(resume: bool) -> tuple:
+            """train_demo's loop: resume from ``lora_dir`` or start fresh
+            and save after CKPT_SAVE_AT steps; the losses and the start."""
+            optimizer = _lora_optimizer()
+            lora = init_lora(torch.Generator(device=dev).manual_seed(1),
+                             params, LORA_RANK)
+            opt_state = optimizer(param_leaves(lora))
+            step = make_lora_train_step(cfg, None, LORA_RANK, optimizer)
+            start = 0
+            if resume:
+                state, start = restore_checkpoint(
+                    lora_dir, {"params": lora,
+                               "opt_state": adamw_template(lora)})
+                load_train_state(opt_state, lora, state)
+            loader = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+            losses = []
+            try:
+                for _ in range(start):
+                    next(loader)
+                for i in range(start, CKPT_STEPS):
+                    batch = torch.from_numpy(next(loader)).to(dev)
+                    lora, opt_state, loss = step(lora, opt_state, params,
+                                                 batch)
+                    losses.append(loss.item())
+                    if i + 1 == CKPT_SAVE_AT and not resume:
+                        save_checkpoint(lora_dir, {
+                            "params": lora,
+                            "opt_state": adamw_state(opt_state, lora)},
+                            step=i + 1)
+            finally:
+                loader.close()
+            return losses, start
+
+        whole, _ = lora_run(resume=False)
+        resumed, start = lora_run(resume=True)
+
+        # the training config's full train state after CKPT_FULL_STEPS
+        # AdamW steps at the training shape: save, then restore the params
+        # only against a shape-only optimizer template, as serve_demo does
+        p, opt_state, optimizer = init_sharded(
+            torch.Generator(device=dev).manual_seed(4), cfg)
+        step = make_train_step(cfg, optimizer=optimizer)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        for _ in range(CKPT_FULL_STEPS):
+            batch = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                  generator=gen, device=dev)
+            p, opt_state, loss = step(p, opt_state, batch)
+        for x in param_leaves(p):
+            x.grad = None
+        p = tree_map(lambda x: x.detach(), p)
+        saved = {"params": p, "opt_state": adamw_state(opt_state, p)}
+        full_dir = os.path.join(tmp, "full")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(full_dir, saved, step=CKPT_FULL_STEPS)
+        save_s = time.perf_counter() - t0
+        file_gb = os.path.getsize(os.path.join(path, "leaves.npz")) / 1e9
+        fresh = init_params(torch.Generator(device=dev).manual_seed(6), cfg)
+        t0 = time.perf_counter()
+        state, at = restore_checkpoint(
+            full_dir, {"params": fresh, "opt_state": adamw_template(fresh)})
+        restored = tree_map(lambda x: x.to(dev), state["params"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bits_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+            param_leaves(saved), param_leaves(state)))
+        del state, saved, opt_state, optimizer, fresh
+        torch.cuda.empty_cache()
+        prompts = _serve_prompts(cfg)
+        want = _drain(cfg, p, prompts)["outs"]
+        got = _drain(cfg, restored, prompts)["outs"]
+        del p, restored
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = {"phase": "checkpoint", "lora_steps": CKPT_STEPS,
+           "lora_saved_at": CKPT_SAVE_AT, "lora_resumed_from": start,
+           "lora_losses_uninterrupted": whole, "lora_losses_resumed": resumed,
+           "lora_resumed_equal": resumed == whole[CKPT_SAVE_AT:],
+           "full_model": TRAIN_MODEL, "full_steps": CKPT_FULL_STEPS,
+           "full_restored_step": at,
+           "full_file_gb": file_gb, "full_save_s": save_s,
+           "full_restore_s": restore_s, "full_leaves_bit_equal": bits_equal,
+           "full_streams_equal": got == want,
+           "full_tokens": sum(len(o) for o in got),
+           "temp_dir_removed": not os.path.exists(tmp)}
+    row["ok"] = (start == CKPT_SAVE_AT and row["lora_resumed_equal"]
+                 and at == CKPT_FULL_STEPS and bits_equal
+                 and row["full_streams_equal"]
+                 and row["full_tokens"] == SERVE_REQUESTS * SERVE_MAX_NEW
+                 and row["temp_dir_removed"])
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"checkpoint phase failed: {row}")
+    return row
+
+
+def moe_phase(dev) -> dict:
+    """The moe preset's routing at the serving width: a forward through K1,
+    AdamW steps through K1-K3, a float32 greedy drain against the oracle."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  init_params,
+                                                  make_forward_with_aux)
+    from kubegpu_tpu_torch.workload.train import (make_train_step,
+                                                  param_leaves)
+
+    cfg = TransformerConfig(**MOE_MODEL)
+    n, n_exp = cfg.n_layers, cfg.n_experts
+    params = init_params(torch.Generator(device=dev).manual_seed(6), cfg)
+    n_params = sum(x.numel() for x in param_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab, FORWARD_TOKENS, generator=gen,
+                           device=dev)
+    fwd = make_forward_with_aux(cfg)
+    with torch.no_grad():
+        _zero_launch_counts()
+        logits, aux = fwd(params, tokens)
+        torch.cuda.synchronize()
+        fwd_launches = list(_launch_counts())
+        fwd_by_instance = _instance_counts()[0]
+        fwd_ms = time_ms(lambda: fwd(params, tokens), runs=5, batch=1,
+                         warmup=1)
+    fwd_ok = (fwd_launches == [n, 0, 0] and fwd_by_instance["sm90"] == n
+              and bool(torch.isfinite(logits).all())
+              and tuple(logits.shape) == FORWARD_TOKENS + (cfg.vocab,)
+              and n <= aux.item() <= n * n_exp)
+    fwd_aux = aux.item()
+    del logits
+
+    # AdamW steps at the training shape (max_seq is the serving cache's
+    # length; the forward itself takes any T)
+    tcfg = dataclasses.replace(cfg, max_seq=TRAIN_SEQ)
+    step = make_train_step(tcfg)
+    chain = bigram_tokens(cfg.vocab, MOE_STEPS * TRAIN_BATCH
+                          * (TRAIN_SEQ + 1), seed=8)
+    batches = torch.from_numpy(chain.astype(np.int64)).reshape(
+        MOE_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1).to(dev)
+    train_fwd = make_forward_with_aux(tcfg)
+    opt_state, losses, auxes, step_s, launches, instances = \
+        None, [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        with torch.no_grad():                    # this step's aux term
+            auxes.append(train_fwd(params, batch[:, :-1])[1].item())
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss.item())                  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        launches.append(list(_launch_counts()))
+        instances.append(_instance_counts())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for x in param_leaves(params):
+        x.grad = None
+    del opt_state, batches
+    torch.cuda.empty_cache()
+
+    # float32 greedy serving: fused streams against the per-token oracle
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    prompts = _serve_prompts(cfg)
+    fused = _drain(f32, params, prompts)
+    oracle = _drain(f32, params, prompts, fused=False)
+    del params
+    torch.cuda.empty_cache()
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    row = {"phase": "moe", "model": MOE_MODEL, "params": n_params,
+           "forward_tokens": list(FORWARD_TOKENS),
+           "forward_launches_fwd_dq_dkv": fwd_launches,
+           "forward_ms": fwd_ms, "forward_aux": fwd_aux,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+           "aux_per_step": auxes,
+           "step_ms_each": [t * 1e3 for t in step_s], "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "peak_memory_gb": peak_gb,
+           "launches_fwd_dq_dkv_per_step": launches,
+           "f32_fused_equals_oracle": fused["outs"] == oracle["outs"],
+           "f32_all_full_length": all(len(o) == SERVE_MAX_NEW
+                                      for o in fused["outs"]),
+           "f32_tokens_per_s": fused["tokens_per_s"],
+           "f32_oracle_tokens_per_s": oracle["tokens_per_s"],
+           "f32_ttft_p50_ms": fused["ttft_p50_ms"],
+           "f32_itl_p50_ms": fused["itl_p50_ms"]}
+    row["ok"] = (
+        fwd_ok and all(np.isfinite(losses)) and losses[-1] < losses[0]
+        and all(n <= a <= n * n_exp for a in auxes)
+        and all(x == [n, n, n] for x in launches)
+        and all(c["sm90"] == n for ins in instances for c in ins)
+        and row["f32_fused_equals_oracle"] and row["f32_all_full_length"])
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"moe phase failed: {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1143,12 +1513,20 @@ def main() -> int:
     loader_phase(cfg)
     train = train_phase(dev)
     dots = train_remat_dots_phase(dev)
+    lora, base = train_lora_phase(dev, train)
+    checkpoint_phase(dev, base)
+    del base
+    torch.cuda.empty_cache()
+    moe = moe_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
-    # forward path's (slice 1), K2's and K3's the training run's
+    # forward path's (slice 1), K2's and K3's the training run's; the LoRA
+    # and MoE steps' are their last step's
     # each kernel's instance is the main path's (bf16, head_dim 128: sm90);
     # "previous_ms" times their mma.sync instance at the same shape, K2's
     # with the `_delta` pre-pass it needs ("delta_ms" alone)
     run = train["run_launches"]
+    lora_step = lora["launches_fwd_dq_dkv_per_step"][-1]
+    moe_step = moe["launches_fwd_dq_dkv_per_step"][-1]
     k1_run, k2_run, k3_run = train["run_by_instance"]
     src = "kubegpu_tpu_torch/csrc/"
     emit({"kernels": [{
@@ -1161,6 +1539,8 @@ def main() -> int:
         "launches_train_run": run[0],
         "launches_train_run_by_instance": k1_run,
         "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][0],
+        "launches_lora_step": lora_step[0], "launches_moe_step": moe_step[0],
+        "launches_moe_forward": moe["forward_launches_fwd_dq_dkv"][0],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
         "op_ms": k1["op_ms"], "previous_ms": k1["previous_ms"],
         "serve_shape_previous_ms": k1["previous_ms"],
@@ -1178,6 +1558,7 @@ def main() -> int:
         "launches": run[1], "launches_train_run": run[1],
         "launches_train_run_by_instance": k2_run,
         "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][1],
+        "launches_lora_step": lora_step[1], "launches_moe_step": moe_step[1],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
         "delta_max_abs_err": kb["delta_max_abs_err"], "ms": kb["dq_ms"],
         "previous_ms": kb["dq_previous_ms"], "delta_ms": kb["delta_ms"],
@@ -1193,6 +1574,7 @@ def main() -> int:
         "launches": run[2], "launches_train_run": run[2],
         "launches_train_run_by_instance": k3_run,
         "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][2],
+        "launches_lora_step": lora_step[2], "launches_moe_step": moe_step[2],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
         "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
         "plain_ms": kb["dkv_plain_ms"],

@@ -2,14 +2,15 @@
 requests, on one device.
 
 The port's counterpart of ``kubegpu_tpu/cmd/serve_demo.py``: builds a
-model from --seed, submits requests with mixed prompt lengths, drives the
+model from --seed (or restores its params from a train_demo
+--checkpoint-dir), submits requests with mixed prompt lengths, drives the
 slot-based `DecodeServer`, and prints one JSON line of stats with the
 reference's keys. With --speculative the requests run one at a time
 through speculative decoding with a smaller draft model built from
 --seed + 1; with --spec-server the server itself decodes speculatively.
 --temperature samples (truncated by --top-k/--top-p); --prefix-cache N
 keeps the K/V of served prompts. Runs on CUDA unless --device says
-otherwise. Checkpoints come with slice 5 of the port and are refused.
+otherwise.
 
 Examples:
     python -m kubegpu_tpu_torch.cmd.serve_demo --requests 8 --slots 4
@@ -40,7 +41,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="refused: checkpoints come with slice 5")
+                    help="restore params saved by train_demo (full "
+                         "fine-tune checkpoints only)")
     ap.add_argument("--speculative", action="store_true",
                     help="speculative decoding with a draft model "
                          "(greedy, or sampled when --temperature is set)")
@@ -66,9 +68,6 @@ def main(argv=None) -> int:
         ap.error("--prefix-cache applies to the server modes only "
                  "(plain or --spec-server); --speculative is the "
                  "single-stream path with no admission cache")
-    if args.checkpoint_dir is not None:
-        ap.error("--checkpoint-dir: not in this slice of the port "
-                 "(checkpoints come with slice 5)")
 
     import numpy as np
     import torch
@@ -84,6 +83,23 @@ def main(argv=None) -> int:
                             d_ff=4 * args.d_model, max_seq=args.seq)
     params = init_params(torch.Generator(device=dev).manual_seed(args.seed),
                          cfg)
+    restored_step = None
+    if args.checkpoint_dir:
+        from kubegpu_tpu_torch.workload.checkpoint import (
+            adamw_template, restore_checkpoint, tree_map)
+
+        # train_demo saves {params, opt_state}: the template matches it
+        # leaf for leaf, with the AdamW moments as shapes only
+        state, at = restore_checkpoint(
+            args.checkpoint_dir,
+            {"params": params, "opt_state": adamw_template(params)})
+        if state is None:
+            ap.error(f"no readable checkpoint in {args.checkpoint_dir} "
+                     "(serve_demo restores full fine-tune checkpoints "
+                     "saved by train_demo)")
+        params = tree_map(lambda x: x.to(dev), state["params"])
+        restored_step = at
+        del state                    # drop the restored AdamW moments
     rng = np.random.default_rng(args.seed)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab,
                                              int(rng.integers(4, 24)))]
@@ -141,6 +157,8 @@ def main(argv=None) -> int:
             stats["itl_p50_ms"] = round(
                 metrics.SERVE_ITL_MS.percentile(0.5), 3)
     wall = time.perf_counter() - t0
+    if restored_step is not None:
+        stats["restored_step"] = restored_step
     stats["device"] = str(dev) if dev.type == "cpu" \
         else torch.cuda.get_device_name(dev)
     stats.update({

@@ -6,9 +6,11 @@ model from --seed (or a --preset), generates synthetic shards when --data
 is absent, runs --steps AdamW steps and prints one JSON line with the same
 keys as the reference. Batches come from the native token loader, built
 at first use. --generate decodes after training, greedily or sampled
-(--temperature/--top-k/--top-p, keyed by --seed). Runs on CUDA unless
---device says otherwise. LoRA and checkpoints come with slice 5, meshes
-with slice 6; their flags are refused.
+(--temperature/--top-k/--top-p, keyed by --seed). --lora-rank trains
+rank-r adapters over a frozen base; --checkpoint-dir saves the train state
+every --checkpoint-every steps and resumes from its newest readable step.
+Runs on CUDA unless --device says otherwise. Meshes come with slice 6;
+their flags are refused.
 
 Examples:
     python -m kubegpu_tpu_torch.cmd.train_demo --steps 4 --d-model 128
@@ -50,11 +52,16 @@ def main(argv=None) -> int:
     ap.add_argument("--tp", type=int, default=None)
     ap.add_argument("--accum-steps", type=int, default=1,
                     help="gradient-accumulation microbatches per step")
-    ap.add_argument("--lora-rank", type=int, default=0)
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="train rank-r LoRA adapters instead of the "
+                         "full model (0 = full fine-tune)")
     ap.add_argument("--remat", default="none",
                     choices=["none", "dots", "full"])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the train state here and resume from the "
+                         "newest readable step on start")
+    ap.add_argument("--checkpoint-every", type=int, default=2)
     ap.add_argument("--generate", type=int, default=0, metavar="N",
                     help="after training, decode N tokens from a prompt "
                          "drawn from the data stream")
@@ -69,9 +76,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.steps < 1:
         ap.error("--steps must be >= 1")
-    if args.lora_rank > 0 or args.checkpoint_dir is not None:
-        ap.error("--lora-rank/--checkpoint-dir: LoRA and checkpoints come "
-                 "with slice 5 of the port")
+    if args.checkpoint_every < 1:
+        ap.error("--checkpoint-every must be >= 1")
+    if args.lora_rank > 0 and args.accum_steps != 1:
+        ap.error("--accum-steps is not supported with --lora-rank")
     if args.dp or args.sp or args.tp:
         ap.error("--dp/--sp/--tp: meshes come with slice 6 of the port")
 
@@ -82,7 +90,8 @@ def main(argv=None) -> int:
     from kubegpu_tpu_torch.workload.data import make_loader, write_token_shard
     from kubegpu_tpu_torch.workload.model import TransformerConfig
     from kubegpu_tpu_torch.workload.train import (init_sharded,
-                                                  make_train_step)
+                                                  make_train_step,
+                                                  param_leaves)
 
     dev = resolve_device(args.device)
     explicit = {"remat": args.remat}
@@ -129,18 +138,69 @@ def main(argv=None) -> int:
             rng.integers(0, cfg.vocab, size=50_000, dtype=np.uint32))
             for i in range(2)]
     try:
-        params, opt_state, optimizer = init_sharded(
-            torch.Generator(device=dev).manual_seed(args.seed), cfg)
-        step = make_train_step(cfg, optimizer=optimizer,
-                               accum_steps=args.accum_steps)
+        lora = None
+        if args.lora_rank > 0:
+            # adapters train over a frozen base reproducible from --seed
+            # (the step turns its gradients off); the optimizer state is
+            # adapter-sized from the start
+            from kubegpu_tpu_torch.workload.lora import (init_lora,
+                                                         make_lora_train_step)
+
+            params, _, optimizer = init_sharded(
+                torch.Generator(device=dev).manual_seed(args.seed), cfg,
+                init_optimizer=False)
+            lora = init_lora(
+                torch.Generator(device=dev).manual_seed(args.seed + 1),
+                params, rank=args.lora_rank)
+            opt_state = optimizer(param_leaves(lora))
+            lora_step = make_lora_train_step(cfg, None, args.lora_rank,
+                                             optimizer)
+        else:
+            params, opt_state, optimizer = init_sharded(
+                torch.Generator(device=dev).manual_seed(args.seed), cfg)
+            step = make_train_step(cfg, optimizer=optimizer,
+                                   accum_steps=args.accum_steps)
+
+        # resume from the newest readable step; in LoRA mode the
+        # checkpoint holds the adapters (the base comes from --seed)
+        trained = lora if lora is not None else params
+        start_step = 0
+        if args.checkpoint_dir:
+            from kubegpu_tpu_torch.workload.checkpoint import (
+                adamw_state, adamw_template, load_train_state,
+                restore_checkpoint, save_checkpoint)
+
+            state, at = restore_checkpoint(
+                args.checkpoint_dir,
+                {"params": trained, "opt_state": adamw_template(trained)})
+            if state is not None:
+                load_train_state(opt_state, trained, state)
+                start_step = at
+
         loader = make_loader(paths, args.batch, seq_len, seed=args.seed)
         losses = []
         t0 = time.perf_counter()
         try:
-            for _ in range(args.steps):
+            # the stream is deterministic from --seed: skip the batches
+            # the checkpointed steps consumed
+            for _ in range(start_step):
+                next(loader)
+            for i in range(start_step, start_step + args.steps):
                 tokens = torch.from_numpy(next(loader)).to(dev)
-                params, opt_state, loss = step(params, opt_state, tokens)
+                if lora is not None:
+                    lora, opt_state, loss = lora_step(lora, opt_state,
+                                                      params, tokens)
+                else:
+                    params, opt_state, loss = step(params, opt_state,
+                                                   tokens)
                 losses.append(float(loss))       # waits for the step
+                if args.checkpoint_dir and \
+                        (i + 1) % args.checkpoint_every == 0:
+                    save_checkpoint(
+                        args.checkpoint_dir,
+                        {"params": trained,
+                         "opt_state": adamw_state(opt_state, trained)},
+                        step=i + 1)
         finally:
             loader.close()
         wall = time.perf_counter() - t0
@@ -151,7 +211,7 @@ def main(argv=None) -> int:
     out = {
         "loader": type(loader).__name__,
         "devices": 1,
-        "resumed_from_step": 0,
+        "resumed_from_step": start_step,
         "steps": args.steps,
         "first_loss": round(losses[0], 4),
         "last_loss": round(losses[-1], 4),
@@ -161,6 +221,11 @@ def main(argv=None) -> int:
         else torch.cuda.get_device_name(dev),
     }
     if gen is not None:
+        if lora is not None:
+            from kubegpu_tpu_torch.workload.lora import merge_lora
+
+            # the step's alpha / rank is 1
+            params = merge_lora(params, lora, 1.0)
         toks = gen(params, tokens[:, :prompt_len], args.generate,
                    rng=args.seed)
         out["generated"] = toks[0].tolist()

@@ -30,13 +30,12 @@ lineage alone.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from kubegpu_tpu_torch._device import resolve_device
 from kubegpu_tpu_torch.workload import keys
 from kubegpu_tpu_torch.workload.model import (TransformerConfig,
-                                              _check_in_slice, _rmsnorm,
-                                              _rope)
+                                              _check_in_slice, _ffn,
+                                              _rmsnorm, _rope)
 
 NEG_INF = -1e30
 
@@ -127,10 +126,7 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
                 attn = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), cv)
             x = x + attn.to(dt).reshape(b, t, -1) @ layer["wo"].to(dt)
 
-            h = _rmsnorm(x, layer["ln2"])
-            up = h @ layer["w_up"].to(dt)
-            gate = F.silu(h @ layer["w_gate"].to(dt))
-            x = x + (up * gate) @ layer["w_down"].to(dt)
+            x = x + _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg)[0]
 
         x = _rmsnorm(x, params["final_norm"])
         logits = x @ params["unembed"].to(dt)

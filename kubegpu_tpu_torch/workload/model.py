@@ -31,8 +31,12 @@ the reference too) to rebuild the probabilities their backward needs:
 keeping the output as well would add memory and save no work. Gradients
 of the flash kernel are its own backward kernels (`kernels.flash`).
 
-Single device, eager. Mixture-of-experts layers and sequence parallelism
-over a mesh belong to later slices and raise `NotImplementedError`.
+Mixture-of-experts layers (``n_experts > 0``) replace each layer's dense
+FFN with `moe.moe_ffn`, dense over experts; the forward returns their
+load-balancing term beside the logits.
+
+Single device, eager. Sequence parallelism over a mesh belongs to a later
+slice and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from kubegpu_tpu_torch._device import resolve_device
 from kubegpu_tpu_torch.workload.kernels.flash import flash_attention
+from kubegpu_tpu_torch.workload.moe import init_moe_params, moe_ffn
 
 # remat "dots": the operators whose outputs the checkpoint keeps
 _DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -115,10 +120,6 @@ class TransformerConfig:
 
 def _check_in_slice(cfg: TransformerConfig, mesh=None) -> None:
     """Refuse what later slices of the port bring."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "mixture-of-experts layers come with the multi-GPU slice "
-            "(slice 6)")
     if mesh is not None:
         raise NotImplementedError(
             "meshes and sequence parallelism (ring, Ulysses) come with the "
@@ -129,8 +130,9 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> dict:
     """Parameter dict with the reference's names and ``(in, out)`` shapes,
     drawn from ``generator`` on the generator's device. The numbers differ
     from ``jax.random``'s; tests carry JAX parameters across with
-    `params_from_jax` instead."""
-    _check_in_slice(cfg)
+    `params_from_jax` instead. With ``n_experts > 0`` a layer's dense FFN
+    (``w_up``, ``w_gate``, ``w_down``) gives way to ``moe``
+    (`moe.init_moe_params`)."""
     dev = generator.device
     d, h, f = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
     kv = cfg.kv_heads * cfg.head_dim
@@ -145,10 +147,16 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> dict:
     def ones():
         return torch.ones(d, device=dev, dtype=torch.float32)
 
-    layers = [{"ln1": ones(), "wq": dense((d, h)), "wk": dense((d, kv)),
-               "wv": dense((d, kv)), "wo": dense((h, d)), "ln2": ones(),
-               "w_up": dense((d, f)), "w_gate": dense((d, f)),
-               "w_down": dense((f, d))} for _ in range(cfg.n_layers)]
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {"ln1": ones(), "wq": dense((d, h)), "wk": dense((d, kv)),
+                 "wv": dense((d, kv)), "wo": dense((h, d)), "ln2": ones()}
+        if cfg.n_experts > 0:
+            layer["moe"] = init_moe_params(generator, d, f, cfg.n_experts)
+        else:
+            layer.update(w_up=dense((d, f)), w_gate=dense((d, f)),
+                         w_down=dense((f, d)))
+        layers.append(layer)
     return {"embed": normal((cfg.vocab, d), 0.02),
             "unembed": dense((d, cfg.vocab)),
             "final_norm": ones(),
@@ -217,6 +225,17 @@ def _expand_kv(cfg: TransformerConfig, k, v):
     return (k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2))
 
 
+def _ffn(layer: dict, h: torch.Tensor, dt: torch.dtype,
+         cfg: TransformerConfig) -> tuple:
+    """A layer's FFN on the normed ``h``: ``(out, aux)``, the SwiGLU FFN
+    with aux None, or `moe.moe_ffn` when the layer holds ``moe``."""
+    if "moe" in layer:
+        return moe_ffn(layer["moe"], h, dt, top_k=cfg.moe_top_k)
+    up = h @ layer["w_up"].to(dt)
+    gate = F.silu(h @ layer["w_gate"].to(dt))
+    return (up * gate) @ layer["w_down"].to(dt), None
+
+
 def _resolve_attn_impl(cfg: TransformerConfig, seq_len: int,
                        device: torch.device) -> str:
     """"auto" is the flash kernel on CUDA tensors when the sequence is a
@@ -228,8 +247,9 @@ def _resolve_attn_impl(cfg: TransformerConfig, seq_len: int,
 
 
 def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
-    """Build ``forward(params, tokens) -> (logits, aux_loss)``; ``aux_loss``
-    is 0.0 (no mixture-of-experts in this slice)."""
+    """Build ``forward(params, tokens) -> (logits, aux_loss)``;
+    ``aux_loss`` is the mixture-of-experts load-balancing term summed over
+    the layers (0.0 for dense configs)."""
     _check_in_slice(cfg, mesh)
     if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat mode {cfg.remat!r}")
@@ -251,6 +271,7 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
                                                  window=cfg.attn_window)
 
     def block(layer, x, positions, attend):
+        """One layer: ``(x, aux)``, aux None for a dense FFN."""
         dt = cfg.compute_dtype()
         b, t = x.shape[:2]
         h = _rmsnorm(x, layer["ln1"])
@@ -263,10 +284,8 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
         k = _rope(k, positions, cfg.rope_theta)
         k, v = _expand_kv(cfg, k, v)
         x = x + attend(q, k, v).reshape(b, t, -1) @ layer["wo"].to(dt)
-        h = _rmsnorm(x, layer["ln2"])
-        up = h @ layer["w_up"].to(dt)
-        gate = F.silu(h @ layer["w_gate"].to(dt))
-        return x + (up * gate) @ layer["w_down"].to(dt)
+        out, aux = _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg)
+        return x + out, aux
 
     def forward(params, tokens):
         dt = cfg.compute_dtype()
@@ -276,15 +295,18 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
         x = params["embed"].to(dt)[tokens]
         positions = torch.arange(t, device=dev).expand(b, t)
         attend = attention_fn(t, dev)
+        aux_total = torch.zeros((), device=dev)
         for layer in params["layers"]:
             if remat_kw is not None and torch.is_grad_enabled():
-                x = checkpoint(block, layer, x, positions, attend,
-                               use_reentrant=False, **remat_kw)
+                x, aux = checkpoint(block, layer, x, positions, attend,
+                                    use_reentrant=False, **remat_kw)
             else:
-                x = block(layer, x, positions, attend)
+                x, aux = block(layer, x, positions, attend)
+            if aux is not None:
+                aux_total = aux_total + aux
         x = _rmsnorm(x, params["final_norm"])
         logits = x @ params["unembed"].to(dt)
-        return logits.float(), torch.zeros((), device=dev)
+        return logits.float(), aux_total
 
     return forward
 

@@ -2,9 +2,9 @@
 ``kubegpu_tpu/workload/presets.py``.
 
 The dictionary is the reference's, entry for entry (a test holds the two
-equal). Every family builds a `TransformerConfig`; ``moe``,
-``long-ring`` and ``long-ulysses`` need paths of later slices and raise
-`NotImplementedError` where the model is built, not here.
+equal). Every family builds a `TransformerConfig`; ``long-ring`` and
+``long-ulysses`` name sequence parallelism over a mesh, which comes with
+the multi-GPU slice: on one device they run as ``dense``.
 """
 
 from __future__ import annotations

@@ -29,9 +29,12 @@ def default_optimizer(lr: float = 3e-4):
 
 
 def param_leaves(params) -> list:
-    """The parameter tensors of a parameter dict, in a fixed order."""
+    """The leaves of a tree of dicts, lists and tuples in
+    ``jax.tree.flatten`` order (dict keys sorted, lists and tuples in
+    order): the reference's order, which checkpoints number leaves by."""
     if isinstance(params, dict):
-        return [x for key in params for x in param_leaves(params[key])]
+        return [x for key in sorted(params)
+                for x in param_leaves(params[key])]
     if isinstance(params, (list, tuple)):
         return [x for item in params for x in param_leaves(item)]
     return [params]

@@ -136,12 +136,14 @@ def test_auto_resolves_to_plain_attention_on_cpu():
 
 
 def test_out_of_slice_paths_raise():
-    with pytest.raises(NotImplementedError, match="slice"):
-        tmodel.make_forward(tpresets.make_config("moe"))
-    with pytest.raises(NotImplementedError, match="slice"):
+    """Only a mesh (slice 6) is refused now; the ``moe`` preset builds."""
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        tmodel.make_forward(tpresets.make_config("moe"), mesh=object())
+    with pytest.raises(NotImplementedError, match="slice 6"):
         tmodel.make_forward(tmodel.TransformerConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice"):
-        tmodel.init_params(torch.Generator(), tpresets.make_config("moe"))
+    params = tmodel.init_params(torch.Generator(),
+                                tpresets.make_config("moe"))
+    assert "moe" in params["layers"][0]
 
 
 def test_cuda_is_the_default_device():
@@ -184,7 +186,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                     ".__init__"))
     for name in ("workload.serve", "workload.train", "workload.data",
                  "cmd.train_demo", "workload.kernels.flash",
-                 "workload.speculative", "workload.keys", "native"):
+                 "workload.speculative", "workload.keys", "native",
+                 "workload.lora", "workload.checkpoint", "workload.moe"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -92,10 +92,11 @@ def test_adamw_steps_match_jax_train_step():
     assert isinstance(tstate, torch.optim.AdamW)
     jleaves = jax.tree.leaves(jax.tree.map(np.asarray, jp))
     tleaves = ttrain.param_leaves(tparams)
-    # same leaf order: jax sorts dict keys, the port keeps insertion order
+    # same leaf order: jax and param_leaves both sort dict keys
     jflat = {tuple(str(k) for k in path): np.asarray(x) for path, x in
              jax.tree_util.tree_flatten_with_path(jp)[0]}
     assert len(jleaves) == len(tleaves) == len(jflat)
+    assert [tuple(x.shape) for x in tleaves] == [x.shape for x in jleaves]
 
     def walk(tree, prefix=()):
         if isinstance(tree, dict):
@@ -345,13 +346,19 @@ def test_train_demo_remat_dots_and_sampled_generate(capsys):
     assert np.isfinite(outs[0]["losses_full"]).all()
 
 
-@pytest.mark.parametrize("flags,slice_no", [
-    (["--lora-rank", "2"], 5), (["--checkpoint-dir", "x"], 5),
-    (["--dp", "1", "--sp", "1", "--tp", "1"], 6)])
-def test_train_demo_refuses_later_slices(capsys, flags, slice_no):
+@pytest.mark.parametrize("flags,message", [
+    (["--lora-rank", "2", "--accum-steps", "2"],
+     "--accum-steps is not supported with --lora-rank"),
+    (["--checkpoint-dir", "x", "--checkpoint-every", "0"],
+     "--checkpoint-every must be >= 1"),
+    (["--dp", "1", "--sp", "1", "--tp", "1"], "slice 6")],
+    ids=["lora-accum", "checkpoint-every", "mesh"])
+def test_train_demo_refuses_later_slices(capsys, flags, message):
+    """Meshes (slice 6) are refused; LoRA and checkpoints are in, and
+    refuse what the reference refuses."""
     from kubegpu_tpu_torch.cmd import train_demo
 
     with pytest.raises(SystemExit) as exc:
         train_demo.main(["--device", "cpu", *flags])
     assert exc.value.code == 2
-    assert f"slice {slice_no}" in capsys.readouterr().err
+    assert message in capsys.readouterr().err

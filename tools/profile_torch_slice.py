@@ -22,7 +22,12 @@ under ``torch.profiler`` (CPU and CUDA activities):
   device time split into GEMMs, K1,
   K2 (on the sm90 instance with the row term delta it computes, which the
   mma instance leaves to PyTorch's reductions and copies), K3, the
-  optimizer, copies and casts, reductions and other elementwise kernels.
+  optimizer, copies and casts, reductions and other elementwise kernels;
+- ``lora``: the same for one LoRA step (``make_lora_train_step``, rank 16
+  on wq and wv, the base frozen; chip_smoke's ``train_lora`` phase);
+- ``moe``: the same for one AdamW step of chip_smoke's ``MOE_MODEL`` (the
+  ``moe`` preset's 4 experts, top-2, at the serving width) at batch 4,
+  T = 2048.
 
 For each it prints one JSON line: the wall time, the summed device time of
 all kernels, the device's busy share of the wall (kernel time over wall;
@@ -105,7 +110,8 @@ def main(argv=None) -> int:
         ROOT, "build", "kubegpu_tpu_torch", "profile"),
         help="where the Chrome traces go")
     ap.add_argument("--sections", default="forward,serve,train",
-                    help="comma-separated subset of forward,serve,train")
+                    help="comma-separated subset of forward,serve,train,"
+                         "lora,moe")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="serve: > 0 samples (top-k/top-p of chip_smoke)")
     ap.add_argument("--spec", action="store_true",
@@ -141,6 +147,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if "train" in sections:
         _train(dev, acts, args.out, args.remat)
+    if "lora" in sections:
+        _lora(dev, acts, args.out)
+    if "moe" in sections:
+        _moe(dev, acts, args.out)
     return 0
 
 
@@ -219,10 +229,41 @@ def _serve(cfg, params, acts, temperature: float, spec: bool) -> None:
     print(json.dumps(row), flush=True)
 
 
-def _train(dev, acts, out, remat: str) -> None:
+def _batches(dev, vocab: int, n: int = 2) -> list:
+    """``n`` training batches [B, T + 1] of chip_smoke's bigram chain."""
     import numpy as np
     import torch
+
+    import chip_smoke as cs
+
+    return [torch.from_numpy(cs.bigram_tokens(
+        vocab, cs.TRAIN_BATCH * (cs.TRAIN_SEQ + 1), seed=i).astype(
+            np.int64).reshape(cs.TRAIN_BATCH, -1)).to(dev) for i in range(n)]
+
+
+def _profile_step(step, batches, acts, out, name, **info) -> None:
+    """One step on ``batches[1]`` under the profiler after a warm-up step
+    on ``batches[0]``; ``step(batch)`` returns the loss."""
+    import torch
     from torch.profiler import profile
+
+    import chip_smoke as cs
+
+    step(batches[0]).item()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        loss = step(batches[1]).item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(os.path.join(out, f"{name}.json"))
+    row = _summary(prof, wall, name.split("_step")[0])
+    row.update(batch=cs.TRAIN_BATCH, seq=cs.TRAIN_SEQ, loss=loss, **info)
+    print(json.dumps(row), flush=True)
+
+
+def _train(dev, acts, out, remat: str) -> None:
+    import torch
 
     import chip_smoke as cs
     from kubegpu_tpu_torch.workload.model import TransformerConfig
@@ -233,23 +274,51 @@ def _train(dev, acts, out, remat: str) -> None:
     params, opt_state, optimizer = init_sharded(
         torch.Generator(device=dev).manual_seed(0), cfg)
     step = make_train_step(cfg, optimizer=optimizer)
-    batches = [torch.from_numpy(cs.bigram_tokens(
-        cfg.vocab, cs.TRAIN_BATCH * (cs.TRAIN_SEQ + 1), seed=i).astype(
-            np.int64).reshape(cs.TRAIN_BATCH, -1)).to(dev) for i in range(2)]
-    params, opt_state, loss = step(params, opt_state, batches[0])
-    loss.item()
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        params, opt_state, loss = step(params, opt_state, batches[1])
-        loss.item()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    prof.export_chrome_trace(os.path.join(out, f"train_step_{remat}.json"))
-    row = _summary(prof, wall, "train")
-    row.update(model=cs.TRAIN_MODEL, batch=cs.TRAIN_BATCH,
-               seq=cs.TRAIN_SEQ, remat=remat, loss=loss.item())
-    print(json.dumps(row), flush=True)
+    _profile_step(lambda b: step(params, opt_state, b)[2],
+                  _batches(dev, cfg.vocab), acts, out, f"train_step_{remat}",
+                  model=cs.TRAIN_MODEL, remat=remat)
+
+
+def _lora(dev, acts, out) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from kubegpu_tpu_torch.workload.lora import (init_lora,
+                                                 make_lora_train_step)
+    from kubegpu_tpu_torch.workload.model import TransformerConfig
+    from kubegpu_tpu_torch.workload.train import init_sharded, param_leaves
+
+    cfg = TransformerConfig(**cs.TRAIN_MODEL)
+    params, _, _ = init_sharded(torch.Generator(device=dev).manual_seed(0),
+                                cfg, init_optimizer=False)
+    lora = init_lora(torch.Generator(device=dev).manual_seed(1), params,
+                     cs.LORA_RANK)
+    optimizer = cs._lora_optimizer()
+    opt_state = optimizer(param_leaves(lora))
+    step = make_lora_train_step(cfg, None, cs.LORA_RANK, optimizer)
+    _profile_step(lambda b: step(lora, opt_state, params, b)[2],
+                  _batches(dev, cfg.vocab), acts, out, "lora_step",
+                  model=cs.TRAIN_MODEL, rank=cs.LORA_RANK)
+
+
+def _moe(dev, acts, out) -> None:
+    import torch
+
+    import chip_smoke as cs
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  init_params)
+    from kubegpu_tpu_torch.workload.train import make_train_step
+
+    cfg = TransformerConfig(**{**cs.MOE_MODEL, "max_seq": cs.TRAIN_SEQ})
+    params = init_params(torch.Generator(device=dev).manual_seed(6), cfg)
+    step, state = make_train_step(cfg), [None]
+
+    def run(batch):
+        _, state[0], loss = step(params, state[0], batch)
+        return loss
+
+    _profile_step(run, _batches(dev, cfg.vocab), acts, out, "moe_step",
+                  model=cs.MOE_MODEL)
 
 
 if __name__ == "__main__":
