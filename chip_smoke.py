@@ -82,7 +82,25 @@ T = 2048, no remat), random weights from a seed:
    width: a forward at [4, 1024] (6 K1 launches), 3 AdamW steps at B 4,
    T = 2048 (6 K1, K2 and K3 sm90 launches each, falling finite losses, the
    aux term at least 1 a layer, step ms and peak memory), and a float32
-   greedy drain whose fused streams equal the per-token oracle's.
+   greedy drain whose fused streams equal the per-token oracle's;
+17. ring_kernels: K1, K2 and K3 as ring attention runs them, at the
+   training shape (B 4, T 2048, 18 heads, head_dim 128, bf16, causal) with
+   sp = 4 and sp = 2 through the in-process seq axis
+   (``ring.InProcessSeqAxis``): every (q_offset, kv_offset) pair the ring
+   gives, with a random lse cotangent, against the plain versions (the
+   blocks of the future give O = 0, lse <= -1e20 and zero gradients);
+   then the merged ring (sp^2 sm90 launches of each kernel a pass) and its
+   q/k/v gradients against a float32 plain reference of the whole
+   sequence: the output within 1.25x (mean) and 2x (max) of the
+   single-shard kernels' error, the gradients within the same ratios of
+   the same ring run through the plain versions; its forward + backward
+   ms beside the single-shard kernels';
+18. train_mesh: a world-size-1 NCCL process group (a ``file://`` store
+   in a temporary directory), ``dryrun_multichip`` over the card, then the
+   sharded train step at the training config (dp = sp = tp = 1): its loss
+   and per-leaf gradients on one batch against the single-device step's
+   (the remat tolerances), 6 K1, K2 and K3 sm90 launches, and 5 AdamW
+   steps from the native loader, median step ms beside the train phase's.
 
 The ``kernels`` line names each kernel's instance on the main path and
 the launches that went to each instance. Every phase prints one JSON line
@@ -1470,6 +1488,311 @@ def moe_phase(dev) -> dict:
     return row
 
 
+# ring_kernels: the ring's sequence-parallel degrees at the training shape
+RING_SPS = (4, 2)
+
+
+def _plain_flash_with_lse(q, k, v, scale, **kw):
+    """The flash attention's plain versions as one autograd Function on
+    the card (``flash_attention_plain`` forward, ``flash_attention_bwd_plain``
+    backward, with the lse cotangent): it stands in for the kernels'
+    operator inside the ring, so the ring runs through the plain versions,
+    rounding where the kernels round."""
+    import torch
+
+    from kubegpu_tpu_torch.workload.kernels.flash import (
+        flash_attention_bwd_plain, flash_attention_plain)
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = flash_attention_plain(q, k, v, scale, **kw)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o, lse
+
+        @staticmethod
+        def backward(ctx, do, dlse):
+            return flash_attention_bwd_plain(*ctx.saved_tensors, do, dlse,
+                                             scale, **kw)
+
+    return Fn.apply(q, k, v)
+
+
+def ring_pass(leaves, do, sp: int, scale: float) -> list:
+    """One pass of ring attention over every virtual rank of a ring of
+    ``sp`` in this process (``ring.InProcessSeqAxis``), on the whole
+    sequence's q, k, v (``leaves``): ``[o, dq, dk, dv]``, the gradients of
+    ``o`` against the cotangent ``do``."""
+    import torch
+
+    from kubegpu_tpu_torch.workload import ring
+
+    qs, ks, vs = (x.chunk(sp, 1) for x in leaves)
+    o = torch.cat([ring.ring_flash_attention(
+        qs[i], ks[i], vs[i], ring.InProcessSeqAxis(i, ks, vs), scale)
+        for i in range(sp)], 1)
+    return [o, *torch.autograd.grad(o, leaves, do)]
+
+
+def _errors(got, ref) -> list:
+    """[mean, max] absolute error of ``got`` against ``ref``."""
+    e = (got.float() - ref.float()).abs()
+    return [e.mean().item(), e.max().item()]
+
+
+def ring_kernels_phase(dev) -> dict:
+    """K1, K2 and K3 as the ring runs them, at the training shape with sp
+    = 4 and 2 through the in-process seq axis: every (q_offset, kv_offset)
+    pair of the ring against the plain versions (blocks of the future: O =
+    0, lse <= -1e20, zero gradients), then the merged ring against a
+    float32 plain reference of the whole sequence, with its launches and
+    times beside the single-shard kernels'."""
+    import torch
+
+    from kubegpu_tpu_torch.workload import ring
+    from kubegpu_tpu_torch.workload.kernels.flash import (
+        flash_attention_bwd_plain, flash_attention_plain,
+        flash_attention_with_lse, flash_bwd_dkv, flash_bwd_dq, merge_partials)
+
+    b, t_all, h, d = TRAIN_SHAPE
+    bf16, f32 = torch.bfloat16, torch.float32
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = case_qkv(gen, dev, b, t_all, t_all, h, d, bf16)
+    do = torch.randn((b, t_all, h, d), generator=gen, device=dev,
+                     dtype=f32).to(bf16)
+
+    # the float32 plain reference of the whole sequence, and the single-
+    # shard kernels (K1, then K2 and K3 through autograd)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o_ref, lse_ref = flash_attention_plain(qf, kf, vf, scale)
+    refs = [o_ref, *flash_attention_bwd_plain(qf, kf, vf, o_ref, lse_ref,
+                                              do.float(), None, scale)]
+    del qf, kf, vf, lse_ref
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def single():
+        o = flash_attention_with_lse(*leaves, scale)[0]
+        return [o, *torch.autograd.grad(o, leaves, do)]
+
+    err_single = [_errors(g, r) for g, r in zip(single(), refs)]
+    single_ms = time_ms(single, runs=10, batch=2)
+    out = {}
+    for sp in RING_SPS:
+        t = t_all // sp
+        pairs, pairs_ok = [], True
+        # every pair the ring gives: rank i attends the block of src at
+        # some step, src > i a block of the future
+        for i in range(sp):
+            for src in range(sp):
+                kw = dict(q_offset=i * t, kv_offset=src * t)
+                qb, dob = (x[:, i * t:(i + 1) * t] for x in (q, do))
+                kb, vb = (x[:, src * t:(src + 1) * t] for x in (k, v))
+                dlse = torch.randn((b, h, t), generator=gen, device=dev)
+                before = _instance_counts()
+                o, lse = flash_attention_with_lse(qb, kb, vb, scale, **kw)
+                dq, delta = flash_bwd_dq(qb, kb, vb, o, dob, lse, dlse,
+                                         scale, **kw)
+                dk, dv = flash_bwd_dkv(qb, kb, vb, dob, lse, delta, scale,
+                                       **kw)
+                torch.cuda.synchronize()
+                ran = _ran(before)
+                ro, rl = flash_attention_plain(qb, kb, vb, scale, **kw)
+                want = flash_attention_bwd_plain(qb, kb, vb, o, lse, dob,
+                                                 dlse, scale, **kw)
+                grads = (dq, dk, dv)
+                errs = [(g.float() - w.float()).abs().max().item()
+                        for g, w in zip(grads, want)]
+                tops = [w.float().abs().max().item() for w in want]
+                finite = all(bool(torch.isfinite(x).all())
+                             for x in (o, lse, *grads))
+                if src > i:
+                    ok = (o.abs().max().item() == 0.0
+                          and lse.max().item() <= -1e20
+                          and all(not g.any() for g in grads))
+                else:
+                    ok = ((o.float() - ro.float()).abs().max().item()
+                          <= TOL_BF16_O
+                          and (lse - rl).abs().max().item() <= TOL_BF16_LSE
+                          and all(e <= TOL_BWD_BF16 * top
+                                  for e, top in zip(errs, tops)))
+                ok = ok and finite and ran == ("sm90",) * 3
+                pairs.append({"q_offset": i * t, "kv_offset": src * t,
+                              "future": src > i, "max_abs_err_dq_dk_dv":
+                              errs, "ok": ok})
+                pairs_ok = pairs_ok and ok
+
+        # the merged ring through the kernels, counted from zero; then the
+        # same ring through the plain versions
+        _zero_launch_counts()
+        got = ring_pass(leaves, do, sp, scale)
+        torch.cuda.synchronize()
+        launches = list(_launch_counts())
+        by_instance = _instance_counts()
+        err_ring = [_errors(g, r) for g, r in zip(got, refs)]
+        kernel_attend = ring.flash_attention_with_lse
+        ring.flash_attention_with_lse = _plain_flash_with_lse
+        try:
+            err_plain = [_errors(g, r) for g, r in
+                         zip(ring_pass(leaves, do, sp, scale), refs)]
+        finally:
+            ring.flash_attention_with_lse = kernel_attend
+        ring_ms = time_ms(lambda: ring_pass(leaves, do, sp, scale), runs=10,
+                          batch=2)
+        # one merge of a step's partial into the float32 carry (the ring
+        # runs sp per virtual rank, sp^2 a pass, and their backward)
+        o_r, lse_r = flash_attention_with_lse(q[:, :t], k[:, :t], v[:, :t],
+                                              scale)
+        carry = (o_r.float(), lse_r.clone())
+        merge_ms = time_ms(lambda: merge_partials(*carry, o_r, lse_r))
+        # forward: the single-shard path's rule; gradients: the plain
+        # ring's (each step rounds its partial dK/dV, and the dO the merge
+        # hands back, to bf16, so no block-wise bf16 ring keeps within
+        # 1.25x of the single-shard path's mean gradient error)
+        base = [err_single[0]] + err_plain[1:]
+        merged_ok = all(
+            r[0] <= TOL_FWD_MEAN_RATIO * s[0]
+            and r[1] <= TOL_FWD_MAX_RATIO * s[1]
+            for r, s in zip(err_ring, base))
+        n2 = sp * sp
+        row = {"phase": "ring_kernels", "sp": sp,
+               "shape": [b, t_all, h, d], "block": t, "dtype": "bfloat16",
+               "pairs": len(pairs), "future_pairs": sum(
+                   p["future"] for p in pairs),
+               "pair_max_abs_err_dq_dk_dv_max": [
+                   max(p["max_abs_err_dq_dk_dv"][j] for p in pairs)
+                   for j in range(3)],
+               "pairs_ok": pairs_ok,
+               "err_mean_max_o_dq_dk_dv": {
+                   "ring": err_ring, "plain_ring": err_plain,
+                   "single_shard": err_single},
+               "ratio_to_single_mean_o_dq_dk_dv": [
+                   r[0] / s[0] for r, s in zip(err_ring, err_single)],
+               "launches_fwd_dq_dkv_per_pass": launches,
+               "launches_by_instance": by_instance,
+               "ring_fwd_bwd_ms": ring_ms, "single_fwd_bwd_ms": single_ms,
+               "merge_ms": merge_ms}
+        row["ok"] = (pairs_ok and merged_ok and launches == [n2] * 3
+                     and all(c["sm90"] == n2 for c in by_instance))
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"ring kernels failed at sp={sp}: {row}")
+        out[sp] = row
+        del got
+    return out
+
+
+def train_mesh_phase(dev, train) -> dict:
+    """The sharded training path on the card at world size 1 (NCCL): the
+    multi-device dry run, then the sharded step at the training config (dp
+    = sp = tp = 1) against the single-device step on one batch (loss and
+    per-leaf gradients, 6 K1, K2 and K3 sm90 launches), and its AdamW
+    steps' median ms beside the ``train`` phase's."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kubegpu_tpu_torch.entry import dryrun_multichip
+    from kubegpu_tpu_torch.workload import spmd
+    from kubegpu_tpu_torch.workload.data import make_loader
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  make_loss_fn)
+    from kubegpu_tpu_torch.workload.train import (init_sharded,
+                                                  make_train_step,
+                                                  param_leaves)
+
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-mesh-")
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    dist.init_process_group(spmd.backend_for(dev),
+                            init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0)
+    try:
+        backend = dist.get_backend()
+        t0 = time.perf_counter()
+        dryrun_multichip(n_dev, device=dev)
+        dryrun_s = time.perf_counter() - t0
+
+        cfg = TransformerConfig(**TRAIN_MODEL)
+        mesh = spmd.make_mesh(1, 1, 1, 1, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        params, _, _ = init_sharded(
+            torch.Generator(device=dev).manual_seed(2), cfg,
+            init_optimizer=False)
+        tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                               generator=gen, device=dev)
+        loss_one, g_one = _loss_and_grads(cfg, params, tokens)
+        local = spmd.shard_params(params, cfg, mesh)
+        del params
+        leaves = param_leaves(local)
+        for x in leaves:
+            x.requires_grad_(True)
+        _zero_launch_counts()
+        loss = make_loss_fn(cfg, mesh)(local, spmd.global_batch(mesh,
+                                                                tokens))
+        loss.backward()
+        spmd.all_reduce_grads(leaves, mesh)
+        torch.cuda.synchronize()
+        grad_launches = list(_launch_counts())
+        grad_by_instance = _instance_counts()
+        loss_mesh = loss.item()
+        grad_err = _grad_errors([x.grad for x in leaves], g_one)
+        del g_one, local, leaves, loss
+        torch.cuda.empty_cache()
+
+        # AdamW steps through the user's entry points, from the loader
+        paths = _token_shards(cfg.vocab, tmp)
+        loader = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        params, opt_state, optimizer = init_sharded(
+            torch.Generator(device=dev).manual_seed(0), cfg, mesh)
+        step = make_train_step(cfg, mesh, optimizer)
+        losses, step_s, launches = [], [], []
+        for _ in range(TRAIN_STEPS):
+            batch = next(loader)                 # the global batch, numpy
+            _zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, batch)
+            losses.append(loss.item())              # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            launches.append(list(_launch_counts()))
+        by_instance = _instance_counts()
+        loader.close()
+        del params, opt_state, optimizer, step
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    n = cfg.n_layers
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    row = {"phase": "train_mesh", "backend": backend, "world_size": 1,
+           "mesh": [1, 1, 1], "dryrun_devices": n_dev,
+           "dryrun_s": dryrun_s, "model": TRAIN_MODEL,
+           "loss_single": loss_one, "loss_mesh": loss_mesh,
+           "grad_rel_l2_max": max(grad_err),
+           "grad_launches_fwd_dq_dkv": grad_launches,
+           "losses": losses, "step_ms_each": [x * 1e3 for x in step_s],
+           "step_ms": step_ms, "train_step_ms": train["step_ms"],
+           "launches_fwd_dq_dkv_per_step": launches}
+    row["ok"] = (
+        backend == spmd.backend_for(dev)
+        and abs(loss_mesh - loss_one) <= TOL_REMAT_LOSS * abs(loss_one)
+        and all(np.isfinite(grad_err)) and max(grad_err) <= TOL_REMAT_GRAD
+        and grad_launches == [n] * 3
+        and all(c["sm90"] == n for c in grad_by_instance)
+        and all(np.isfinite(losses)) and losses[-1] < losses[0]
+        and all(x == [n] * 3 for x in launches)
+        and all(c["sm90"] == n for c in by_instance))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"train_mesh phase failed: {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1518,15 +1841,23 @@ def main() -> int:
     del base
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
+    ring_rows = ring_kernels_phase(dev)
+    mesh = train_mesh_phase(dev, train)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
-    # and MoE steps' are their last step's
+    # and MoE steps' are their last step's; the ring's its kernel pass at
+    # sp = 4 (and 2), the sharded step's its last step's
     # each kernel's instance is the main path's (bf16, head_dim 128: sm90);
     # "previous_ms" times their mma.sync instance at the same shape, K2's
     # with the `_delta` pre-pass it needs ("delta_ms" alone)
     run = train["run_launches"]
     lora_step = lora["launches_fwd_dq_dkv_per_step"][-1]
     moe_step = moe["launches_fwd_dq_dkv_per_step"][-1]
+    # the ring's pass over every virtual rank (sp^2 launches of each), and
+    # the last sharded step's
+    ring_pass = ring_rows[4]["launches_fwd_dq_dkv_per_pass"]
+    ring_pass_sp2 = ring_rows[2]["launches_fwd_dq_dkv_per_pass"]
+    mesh_step = mesh["launches_fwd_dq_dkv_per_step"][-1]
     k1_run, k2_run, k3_run = train["run_by_instance"]
     src = "kubegpu_tpu_torch/csrc/"
     emit({"kernels": [{
@@ -1541,6 +1872,9 @@ def main() -> int:
         "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][0],
         "launches_lora_step": lora_step[0], "launches_moe_step": moe_step[0],
         "launches_moe_forward": moe["forward_launches_fwd_dq_dkv"][0],
+        "launches_ring_pass": ring_pass[0],
+        "launches_ring_pass_sp2": ring_pass_sp2[0],
+        "launches_train_mesh_step": mesh_step[0],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
         "op_ms": k1["op_ms"], "previous_ms": k1["previous_ms"],
         "serve_shape_previous_ms": k1["previous_ms"],
@@ -1559,6 +1893,9 @@ def main() -> int:
         "launches_train_run_by_instance": k2_run,
         "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][1],
         "launches_lora_step": lora_step[1], "launches_moe_step": moe_step[1],
+        "launches_ring_pass": ring_pass[1],
+        "launches_ring_pass_sp2": ring_pass_sp2[1],
+        "launches_train_mesh_step": mesh_step[1],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
         "delta_max_abs_err": kb["delta_max_abs_err"], "ms": kb["dq_ms"],
         "previous_ms": kb["dq_previous_ms"], "delta_ms": kb["delta_ms"],
@@ -1575,6 +1912,9 @@ def main() -> int:
         "launches_train_run_by_instance": k3_run,
         "launches_remat_dots_step": dots["launches_fwd_dq_dkv"][2],
         "launches_lora_step": lora_step[2], "launches_moe_step": moe_step[2],
+        "launches_ring_pass": ring_pass[2],
+        "launches_ring_pass_sp2": ring_pass_sp2[2],
+        "launches_train_mesh_step": mesh_step[2],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
         "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
         "plain_ms": kb["dkv_plain_ms"],

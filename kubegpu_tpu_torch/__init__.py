@@ -3,7 +3,9 @@
 The JAX package ``kubegpu_tpu`` stays the reference; this package mirrors
 its paths (``workload/model.py``, ``workload/decode.py``,
 ``workload/speculative.py``, ``workload/serve.py``, ``workload/train.py``,
-``workload/data.py``, ``workload/kernels/flash.py``,
+``workload/data.py``, ``workload/spmd.py``, ``workload/ring.py``,
+``workload/ulysses.py``, ``workload/pipeline.py``,
+``workload/kernels/flash.py``,
 ``cmd/serve_demo.py``, ``cmd/train_demo.py``) so each module has an
 obvious counterpart. It
 imports torch and numpy, never JAX and nothing of ``kubegpu_tpu``: what it

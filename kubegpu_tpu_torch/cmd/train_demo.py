@@ -1,5 +1,5 @@
 """Training demo binary: stream batches from token shards and run the
-single-device train step, on one device.
+train step, on one device or over a dp x sp x tp mesh.
 
 The port's counterpart of ``kubegpu_tpu/cmd/train_demo.py``: builds a
 model from --seed (or a --preset), generates synthetic shards when --data
@@ -9,12 +9,20 @@ at first use. --generate decodes after training, greedily or sampled
 (--temperature/--top-k/--top-p, keyed by --seed). --lora-rank trains
 rank-r adapters over a frozen base; --checkpoint-dir saves the train state
 every --checkpoint-every steps and resumes from its newest readable step.
-Runs on CUDA unless --device says otherwise. Meshes come with slice 6;
-their flags are refused.
+Runs on CUDA unless --device says otherwise.
+
+Under torchrun every rank joins one process group (NCCL on CUDA, gloo on
+the CPU) and trains its shards of a (data, seq, model) mesh: --dp, --sp
+and --tp together, their product the world size, or the world size
+factored when they are absent. Every rank reads the same loader stream
+and keeps its rows of each batch; rank 0 prints the JSON line.
+--checkpoint-dir and --generate over a mesh come with slice 6, part 2.
 
 Examples:
     python -m kubegpu_tpu_torch.cmd.train_demo --steps 4 --d-model 128
     python -m kubegpu_tpu_torch.cmd.train_demo --device cpu --d-model 32
+    torchrun --nproc-per-node 4 -m kubegpu_tpu_torch.cmd.train_demo \
+        --dp 2 --sp 2 --tp 1 --device cpu --d-model 32
 """
 
 from __future__ import annotations
@@ -47,7 +55,9 @@ def main(argv=None) -> int:
                     help="default 128 (d_ff follows at 4x)")
     ap.add_argument("--n-layers", type=int, default=None, help="default 2")
     ap.add_argument("--n-heads", type=int, default=None, help="default 4")
-    ap.add_argument("--dp", type=int, default=None)
+    ap.add_argument("--dp", type=int, default=None,
+                    help="mesh data-parallel extent (with --sp/--tp; "
+                         "default: factor the torchrun world)")
     ap.add_argument("--sp", type=int, default=None)
     ap.add_argument("--tp", type=int, default=None)
     ap.add_argument("--accum-steps", type=int, default=1,
@@ -57,6 +67,10 @@ def main(argv=None) -> int:
                          "full model (0 = full fine-tune)")
     ap.add_argument("--remat", default="none",
                     choices=["none", "dots", "full"])
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="compute dtype; float32 makes a sharded run's "
+                         "losses comparable to one device's")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None,
                     help="save the train state here and resume from the "
@@ -80,13 +94,21 @@ def main(argv=None) -> int:
         ap.error("--checkpoint-every must be >= 1")
     if args.lora_rank > 0 and args.accum_steps != 1:
         ap.error("--accum-steps is not supported with --lora-rank")
-    if args.dp or args.sp or args.tp:
-        ap.error("--dp/--sp/--tp: meshes come with slice 6 of the port")
+    flags = (args.dp, args.sp, args.tp)
+    if any(flags) and not all(flags):
+        ap.error("--dp/--sp/--tp must be given together")
+    # a mesh: the flags, or a torchrun world without them
+    if (all(flags) or "WORLD_SIZE" in os.environ) and \
+            (args.checkpoint_dir or args.generate):
+        ap.error("--checkpoint-dir and --generate over a mesh (sharded "
+                 "checkpoints and decoding) come with slice 6, part 2")
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from kubegpu_tpu_torch._device import resolve_device
+    from kubegpu_tpu_torch.workload import spmd
     from kubegpu_tpu_torch.workload.data import make_loader, write_token_shard
     from kubegpu_tpu_torch.workload.model import TransformerConfig
     from kubegpu_tpu_torch.workload.train import (init_sharded,
@@ -94,7 +116,24 @@ def main(argv=None) -> int:
                                                   param_leaves)
 
     dev = resolve_device(args.device)
-    explicit = {"remat": args.remat}
+    # torchrun's ranks join one process group first (no-op without it)
+    multiproc = spmd.distributed_init_from_env(device=dev)
+    mesh = None
+    if all(flags):
+        if not dist.is_initialized():
+            ap.error("--dp/--sp/--tp need a process group: run under "
+                     "torchrun --nproc-per-node N")
+        want = args.dp * args.sp * args.tp
+        if want != dist.get_world_size():
+            ap.error(f"--dp*--sp*--tp = {want} but the process group has "
+                     f"{dist.get_world_size()} ranks")
+        mesh = spmd.make_mesh(want, dp=args.dp, sp=args.sp, tp=args.tp,
+                              device=dev)
+    elif multiproc:
+        mesh = spmd.mesh_from_env(device=dev)
+    if mesh is not None:
+        dev = spmd.mesh_device(mesh)
+    explicit = {"remat": args.remat, "dtype": args.dtype}
     if args.vocab is not None:
         explicit["vocab"] = args.vocab
     if args.d_model is not None:
@@ -144,6 +183,7 @@ def main(argv=None) -> int:
             # (the step turns its gradients off); the optimizer state is
             # adapter-sized from the start
             from kubegpu_tpu_torch.workload.lora import (init_lora,
+                                                         lora_pspecs,
                                                          make_lora_train_step)
 
             params, _, optimizer = init_sharded(
@@ -152,13 +192,18 @@ def main(argv=None) -> int:
             lora = init_lora(
                 torch.Generator(device=dev).manual_seed(args.seed + 1),
                 params, rank=args.lora_rank)
+            if mesh is not None:
+                # every rank drew the whole trees alike; keep its shards
+                params = spmd.shard_params(params, cfg, mesh)
+                lora = spmd.shard_tree(lora, lora_pspecs(cfg), mesh)
             opt_state = optimizer(param_leaves(lora))
-            lora_step = make_lora_train_step(cfg, None, args.lora_rank,
+            lora_step = make_lora_train_step(cfg, mesh, args.lora_rank,
                                              optimizer)
         else:
             params, opt_state, optimizer = init_sharded(
-                torch.Generator(device=dev).manual_seed(args.seed), cfg)
-            step = make_train_step(cfg, optimizer=optimizer,
+                torch.Generator(device=dev).manual_seed(args.seed), cfg,
+                mesh)
+            step = make_train_step(cfg, mesh, optimizer=optimizer,
                                    accum_steps=args.accum_steps)
 
         # resume from the newest readable step; in LoRA mode the
@@ -186,7 +231,11 @@ def main(argv=None) -> int:
             for _ in range(start_step):
                 next(loader)
             for i in range(start_step, start_step + args.steps):
-                tokens = torch.from_numpy(next(loader)).to(dev)
+                # over a mesh the step takes the global batch and keeps
+                # this rank's rows of it (spmd.global_batch)
+                tokens = next(loader)
+                if mesh is None:
+                    tokens = torch.from_numpy(tokens).to(dev)
                 if lora is not None:
                     lora, opt_state, loss = lora_step(lora, opt_state,
                                                       params, tokens)
@@ -210,7 +259,7 @@ def main(argv=None) -> int:
 
     out = {
         "loader": type(loader).__name__,
-        "devices": 1,
+        "devices": 1 if mesh is None else dist.get_world_size(),
         "resumed_from_step": start_step,
         "steps": args.steps,
         "first_loss": round(losses[0], 4),
@@ -229,7 +278,10 @@ def main(argv=None) -> int:
         toks = gen(params, tokens[:, :prompt_len], args.generate,
                    rng=args.seed)
         out["generated"] = toks[0].tolist()
-    print(json.dumps(out))
+    if mesh is None or dist.get_rank() == 0:
+        print(json.dumps(out))
+    if multiproc:
+        dist.destroy_process_group()
     return 0 if all(math.isfinite(x) for x in losses) else 1
 
 

@@ -35,8 +35,22 @@ Mixture-of-experts layers (``n_experts > 0``) replace each layer's dense
 FFN with `moe.moe_ffn`, dense over experts; the forward returns their
 load-balancing term beside the logits.
 
-Single device, eager. Sequence parallelism over a mesh belongs to a later
-slice and raises `NotImplementedError`.
+Over a mesh (`spmd.make_mesh`, reference ``model.py:210-329``) every rank
+runs the same eager program on its own shards (`spmd.shard_params`) and
+calls the collectives GSPMD would insert:
+
+- tensor parallelism over ``model``: each rank holds ``H/tp`` heads and
+  ``d_ff/tp`` FFN columns (or ``E/tp`` experts); a column-parallel input
+  passes `spmd.copy_to` (identity forward, all-reduce backward), a
+  row-parallel output (``wo``, ``w_down``) `spmd.reduce_from` (all-reduce
+  forward, identity backward); the vocabulary-split logits are gathered
+  over ``model`` before the loss;
+- sequence parallelism over ``seq``: each rank takes its ``T/sp`` block of
+  the tokens at global positions, and attention runs as ring attention
+  (`ring`) or Ulysses (`ulysses`) by ``seq_impl`` when ``sp > 1``;
+- the loss is a token mean over the global batch (the local sum over the
+  global count, summed over ``data`` and ``seq``), and the MoE aux loss a
+  product of global means.
 """
 
 from __future__ import annotations
@@ -51,8 +65,11 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from kubegpu_tpu_torch._device import resolve_device
+from kubegpu_tpu_torch.workload import spmd
 from kubegpu_tpu_torch.workload.kernels.flash import flash_attention
 from kubegpu_tpu_torch.workload.moe import init_moe_params, moe_ffn
+from kubegpu_tpu_torch.workload.ring import make_sharded_ring_attention
+from kubegpu_tpu_torch.workload.ulysses import make_sharded_ulysses_attention
 
 # remat "dots": the operators whose outputs the checkpoint keeps
 _DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -73,8 +90,9 @@ class TransformerConfig:
     # reference's), "flash" = the flash kernel (kernels.flash), "auto" =
     # flash on CUDA tensors when the sequence is a multiple of 128.
     attn_impl: str = "auto"
-    # Sequence-parallel strategy over a mesh: kept for config parity; any
-    # mesh raises in this slice.
+    # Sequence-parallel strategy when the mesh's seq axis is > 1: "ring"
+    # (K/V rotate around the axis, `ring.py`) or "ulysses" (an all-to-all
+    # head/sequence reshard, `ulysses.py`). Both are exact.
     seq_impl: str = "ring"
     n_experts: int = 0
     moe_top_k: int = 1
@@ -119,11 +137,12 @@ class TransformerConfig:
 
 
 def _check_in_slice(cfg: TransformerConfig, mesh=None) -> None:
-    """Refuse what later slices of the port bring."""
+    """Refuse what later slices of the port bring: a mesh for decoding and
+    serving (sharded KV caches) comes with slice 6, part 2."""
     if mesh is not None:
         raise NotImplementedError(
-            "meshes and sequence parallelism (ring, Ulysses) come with the "
-            "multi-GPU slice (slice 6)")
+            "sharded decoding and serving over a mesh come with the "
+            "multi-GPU slice's second part (slice 6, part 2)")
 
 
 def init_params(generator: torch.Generator, cfg: TransformerConfig) -> dict:
@@ -226,14 +245,16 @@ def _expand_kv(cfg: TransformerConfig, k, v):
 
 
 def _ffn(layer: dict, h: torch.Tensor, dt: torch.dtype,
-         cfg: TransformerConfig) -> tuple:
+         cfg: TransformerConfig, mesh=None) -> tuple:
     """A layer's FFN on the normed ``h``: ``(out, aux)``, the SwiGLU FFN
-    with aux None, or `moe.moe_ffn` when the layer holds ``moe``."""
+    with aux None, or `moe.moe_ffn` when the layer holds ``moe``. Over a
+    mesh the FFN is column- then row-parallel over ``model``."""
     if "moe" in layer:
-        return moe_ffn(layer["moe"], h, dt, top_k=cfg.moe_top_k)
+        return moe_ffn(layer["moe"], h, dt, top_k=cfg.moe_top_k, mesh=mesh)
+    h = spmd.copy_to(mesh, h)
     up = h @ layer["w_up"].to(dt)
     gate = F.silu(h @ layer["w_gate"].to(dt))
-    return (up * gate) @ layer["w_down"].to(dt), None
+    return spmd.reduce_from(mesh, (up * gate) @ layer["w_down"].to(dt)), None
 
 
 def _resolve_attn_impl(cfg: TransformerConfig, seq_len: int,
@@ -249,42 +270,63 @@ def _resolve_attn_impl(cfg: TransformerConfig, seq_len: int,
 def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
     """Build ``forward(params, tokens) -> (logits, aux_loss)``;
     ``aux_loss`` is the mixture-of-experts load-balancing term summed over
-    the layers (0.0 for dense configs)."""
-    _check_in_slice(cfg, mesh)
+    the layers (0.0 for dense configs).
+
+    Over a mesh, ``params`` are this rank's shards and ``tokens [B/dp, T]``
+    its ``data`` rows (`spmd.global_batch`); the logits are those of its
+    ``seq`` block, ``[B/dp, T/sp, vocab]``, whole over the vocabulary."""
+    if mesh is not None:
+        spmd.check_mesh(mesh)
+        spmd.check_tp(cfg, spmd.axis_size(mesh, spmd.AXIS_MODEL))
     if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat mode {cfg.remat!r}")
+    if cfg.seq_impl not in ("ring", "ulysses"):
+        raise ValueError(f"unknown seq_impl {cfg.seq_impl!r}")
     # keyword arguments of each layer's checkpoint (None: no checkpoint)
     remat_kw = None if cfg.remat == "none" else {}
     if cfg.remat == "dots":
         remat_kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _DOTS_SAVED)
     scale = cfg.head_dim ** -0.5
+    tp = spmd.axis_size(mesh, spmd.AXIS_MODEL)
+    sp = spmd.axis_size(mesh, spmd.AXIS_SEQ)
+    heads, kv_heads = cfg.n_heads // tp, cfg.kv_heads // tp
 
     def attention_fn(t: int, device: torch.device):
-        impl = _resolve_attn_impl(cfg, t, device)
-        if impl == "flash":
-            return lambda q, k, v: flash_attention(
-                q, k, v, scale, window=cfg.attn_window)
-        if impl != "xla":
+        """The attend callable for a global sequence of ``t``."""
+        # Ulysses attends the full sequence after its all-to-all, so the
+        # flash decision sees t; the ring attends blocks of t // sp
+        local_t = t if cfg.seq_impl == "ulysses" else t // sp
+        impl = _resolve_attn_impl(cfg, local_t, device)
+        if impl not in ("flash", "xla"):
             raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+        window = cfg.attn_window
+        if sp > 1 and cfg.seq_impl == "ulysses":
+            return make_sharded_ulysses_attention(
+                mesh, scale, use_flash=impl == "flash", window=window)
+        if sp > 1:
+            return make_sharded_ring_attention(
+                mesh, scale, use_flash=impl == "flash", window=window)
+        if impl == "flash":
+            return lambda q, k, v: flash_attention(q, k, v, scale,
+                                                   window=window)
         return lambda q, k, v: _causal_attention(q, k, v, scale,
-                                                 window=cfg.attn_window)
+                                                 window=window)
 
     def block(layer, x, positions, attend):
         """One layer: ``(x, aux)``, aux None for a dense FFN."""
         dt = cfg.compute_dtype()
         b, t = x.shape[:2]
-        h = _rmsnorm(x, layer["ln1"])
-        q = (h @ layer["wq"].to(dt)).reshape(b, t, cfg.n_heads, cfg.head_dim)
-        k = (h @ layer["wk"].to(dt)).reshape(b, t, cfg.kv_heads,
-                                             cfg.head_dim)
-        v = (h @ layer["wv"].to(dt)).reshape(b, t, cfg.kv_heads,
-                                             cfg.head_dim)
+        h = spmd.copy_to(mesh, _rmsnorm(x, layer["ln1"]))
+        q = (h @ layer["wq"].to(dt)).reshape(b, t, heads, cfg.head_dim)
+        k = (h @ layer["wk"].to(dt)).reshape(b, t, kv_heads, cfg.head_dim)
+        v = (h @ layer["wv"].to(dt)).reshape(b, t, kv_heads, cfg.head_dim)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         k, v = _expand_kv(cfg, k, v)
-        x = x + attend(q, k, v).reshape(b, t, -1) @ layer["wo"].to(dt)
-        out, aux = _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg)
+        x = x + spmd.reduce_from(
+            mesh, attend(q, k, v).reshape(b, t, -1) @ layer["wo"].to(dt))
+        out, aux = _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg, mesh)
         return x + out, aux
 
     def forward(params, tokens):
@@ -292,8 +334,13 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
         dev = params["embed"].device
         tokens = torch.as_tensor(tokens, device=dev).long()
         b, t = tokens.shape
-        x = params["embed"].to(dt)[tokens]
-        positions = torch.arange(t, device=dev).expand(b, t)
+        if t % sp:
+            raise ValueError(f"sequence {t} not divisible by sp {sp}")
+        t_local = t // sp
+        start = spmd.axis_rank(mesh, spmd.AXIS_SEQ) * t_local
+        x = params["embed"].to(dt)[tokens[:, start:start + t_local]]
+        positions = (start + torch.arange(t_local, device=dev)).expand(
+            b, t_local)
         attend = attention_fn(t, dev)
         aux_total = torch.zeros((), device=dev)
         for layer in params["layers"]:
@@ -304,8 +351,8 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
                 x, aux = block(layer, x, positions, attend)
             if aux is not None:
                 aux_total = aux_total + aux
-        x = _rmsnorm(x, params["final_norm"])
-        logits = x @ params["unembed"].to(dt)
+        x = spmd.copy_to(mesh, _rmsnorm(x, params["final_norm"]))
+        logits = spmd.gather_last(mesh, x @ params["unembed"].to(dt))
         return logits.float(), aux_total
 
     return forward
@@ -324,14 +371,31 @@ def make_forward(cfg: TransformerConfig, mesh=None):
 def make_loss_fn(cfg: TransformerConfig, mesh=None):
     """``loss_fn(params, tokens [B, T+1]) -> loss``: next-token cross
     entropy from the float32 logits, token mean, plus ``moe_aux_weight``
-    times the aux loss."""
+    times the aux loss.
+
+    Over a mesh, ``tokens`` are this rank's ``data`` rows and the loss is
+    the global one on every rank: the rank's sum over its ``seq`` block
+    divided by the global token count and summed over ``data`` and ``seq``
+    (identity in the backward), so each rank's backward gives its part of
+    the gradient and `spmd.all_reduce_grads` sums the parts."""
     fwd = make_forward_with_aux(cfg, mesh)
+    sp = spmd.axis_size(mesh, spmd.AXIS_SEQ)
+    dp = spmd.axis_size(mesh, spmd.AXIS_DATA)
 
     def loss_fn(params, tokens):
         tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
         logits, aux = fwd(params, tokens[:, :-1])
-        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                              tokens[:, 1:].reshape(-1))
+        b, t_local = logits.shape[:2]
+        start = spmd.axis_rank(mesh, spmd.AXIS_SEQ) * t_local
+        targets = tokens[:, 1 + start:1 + start + t_local]
+        flat = logits.reshape(-1, logits.shape[-1])
+        if mesh is None:
+            nll = F.cross_entropy(flat, targets.reshape(-1))
+        else:
+            nll = spmd.reduce_from(
+                mesh, F.cross_entropy(flat, targets.reshape(-1),
+                                      reduction="sum"),
+                (spmd.AXIS_DATA, spmd.AXIS_SEQ)) / (b * dp * t_local * sp)
         return nll + cfg.moe_aux_weight * aux
 
     return loss_fn

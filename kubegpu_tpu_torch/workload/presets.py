@@ -3,8 +3,9 @@
 
 The dictionary is the reference's, entry for entry (a test holds the two
 equal). Every family builds a `TransformerConfig`; ``long-ring`` and
-``long-ulysses`` name sequence parallelism over a mesh, which comes with
-the multi-GPU slice: on one device they run as ``dense``.
+``long-ulysses`` name the sequence-parallel strategy over a mesh whose
+``seq`` axis is > 1 (`ring`, `ulysses`): on one device they run as
+``dense``.
 """
 
 from __future__ import annotations

@@ -1,22 +1,27 @@
-"""Single-device training step: the counterpart of
-``kubegpu_tpu/workload/train.py``'s ``mesh=None`` path.
+"""The training step: the counterpart of ``kubegpu_tpu/workload/train.py``.
 
 The reference jits fwd + bwd + optimizer and donates params and optimizer
 state so XLA updates them in place. Here the step runs eagerly and updates
 the parameter tensors in place through a ``torch.optim.AdamW`` (the same
 update as ``optax.adamw``: bias-corrected moments, decoupled weight decay
-on every leaf). The optimizer object is the optimizer state. Meshes belong
-to the multi-GPU slice (slice 6) and raise.
+on every leaf). The optimizer object is the optimizer state.
+
+Over a mesh every rank holds its shards (`spmd.shard_params`), takes its
+rows of the global batch (`spmd.global_batch`), runs the backward of the
+global loss and sums the gradients over ``data`` and ``seq`` in a few flat
+buffers (`spmd.all_reduce_grads`); the AdamW over its local shards is then
+exact, since AdamW works element by element.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
-from kubegpu_tpu_torch.workload.model import (TransformerConfig,
-                                              _check_in_slice, init_params,
+from kubegpu_tpu_torch.workload import spmd
+from kubegpu_tpu_torch.workload.model import (TransformerConfig, init_params,
                                               make_loss_fn)
 
 
@@ -44,10 +49,13 @@ def init_sharded(generator: torch.Generator, cfg: TransformerConfig,
                  mesh=None, optimizer=None, init_optimizer: bool = True):
     """``(params, opt_state, optimizer)`` on the generator's device: float32
     leaves that require grad, and the optimizer built over them
-    (``opt_state=None`` with ``init_optimizer=False``). Any mesh raises."""
-    _check_in_slice(cfg, mesh)
+    (``opt_state=None`` with ``init_optimizer=False``). Over a mesh every
+    rank draws the whole tree from its generator (seeded alike on every
+    rank, so the ranks agree) and keeps its shards."""
     optimizer = optimizer or default_optimizer()
     params = init_params(generator, cfg)
+    if mesh is not None:
+        params = spmd.shard_params(params, cfg, mesh)
     leaves = param_leaves(params)
     for x in leaves:
         x.requires_grad_(True)
@@ -63,8 +71,11 @@ def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
     first call). ``accum_steps`` > 1 splits the batch into that many equal
     microbatches, averages their gradients and applies one update; the
     loss is the mean of the microbatch losses. ``loss`` is a 0-d float32
-    tensor on the device: reading it is the caller's synchronisation."""
-    _check_in_slice(cfg, mesh)
+    tensor on the device: reading it is the caller's synchronisation.
+
+    Over a mesh ``params`` are this rank's shards and ``tokens`` the
+    global batch, the same on every rank (numpy or a tensor); each
+    microbatch of it is split over ``data`` as the reference's is."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     optimizer = optimizer or default_optimizer()
@@ -72,7 +83,11 @@ def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
 
     def step(params, opt_state, tokens):
         leaves = param_leaves(params)
-        tokens = torch.as_tensor(tokens, device=leaves[0].device).long()
+        dev = leaves[0].device
+        if mesh is None:
+            tokens = torch.as_tensor(tokens, device=dev).long()
+        elif not torch.is_tensor(tokens):
+            tokens = torch.from_numpy(np.asarray(tokens))
         b = tokens.shape[0]
         if b % accum_steps:
             raise ValueError(
@@ -82,11 +97,15 @@ def make_train_step(cfg: TransformerConfig, mesh=None, optimizer=None,
             x.grad = None
         if opt_state is None:
             opt_state = optimizer(leaves)
-        total = torch.zeros((), device=tokens.device)
+        total = torch.zeros((), device=dev)
         for micro in tokens.chunk(accum_steps):
+            if mesh is not None:
+                micro = spmd.global_batch(mesh, micro)
             loss = loss_fn(params, micro)
             (loss / accum_steps).backward()
             total += loss.detach()
+        if mesh is not None:
+            spmd.all_reduce_grads(leaves, mesh)
         opt_state.step()
         return params, opt_state, total / accum_steps
 

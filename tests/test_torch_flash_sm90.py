@@ -318,3 +318,53 @@ def test_remat_dots_step_keeps_k1_outputs_on_card():
     for g, w in zip(grads["dots"], grads["none"]):
         err = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
         assert err <= 1e-2
+
+
+@pytest.mark.cuda
+def test_sm90_kernels_at_ring_offsets_on_card():
+    """K1, K2 and K3's sm90 instances at every (q_offset, kv_offset) pair a
+    ring of 4 gives (blocks of 128 at D = 128), with an lse cotangent,
+    against the plain versions: the blocks of the future (kv_offset >
+    q_offset) see no key and give O = 0, lse <= -1e20 and zero gradients;
+    the diagonal and past blocks the bf16 tolerances of chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    t, sp, scale = 128, 4, 128 ** -0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, k, v, do = (rnd(2, t * sp, 2, 128).to(torch.bfloat16)
+                   for _ in range(4))
+    for i in range(sp):
+        for src in range(sp):
+            kw = dict(q_offset=i * t, kv_offset=src * t)
+            qb, dob = (x[:, i * t:(i + 1) * t] for x in (q, do))
+            kb, vb = (x[:, src * t:(src + 1) * t] for x in (k, v))
+            dlse = rnd(2, 2, t)
+            before = _all_counts()
+            o, lse = tflash.flash_attention_with_lse(qb, kb, vb, scale, **kw)
+            dq, delta = tflash.flash_bwd_dq(qb, kb, vb, o, dob, lse, dlse,
+                                            scale, **kw)
+            dk, dv = tflash.flash_bwd_dkv(qb, kb, vb, dob, lse, delta,
+                                          scale, **kw)
+            torch.cuda.synchronize()
+            for was, now in zip(before, _all_counts()):
+                assert now == dict(was, sm90=was["sm90"] + 1)
+            grads = (dq, dk, dv)
+            assert all(bool(torch.isfinite(x).all())
+                       for x in (o, lse, *grads))
+            if src > i:
+                assert o.abs().max().item() == 0.0
+                assert lse.max().item() <= -1e20
+                assert all(not g.any() for g in grads)
+                continue
+            ro, rl = tflash.flash_attention_plain(qb, kb, vb, scale, **kw)
+            assert (o.float() - ro.float()).abs().max().item() <= 2e-2
+            assert (lse - rl).abs().max().item() <= 1e-3
+            want = tflash.flash_attention_bwd_plain(qb, kb, vb, o, lse, dob,
+                                                    dlse, scale, **kw)
+            for g, w in zip(grads, want):
+                err = (g.float() - w.float()).abs().max().item()
+                assert err <= 1e-2 * w.float().abs().max().item()

@@ -181,8 +181,14 @@ def test_lora_steps_match_jax(setup, alpha):
 
 
 def test_lora_step_refuses_a_mesh(setup):
+    """A mesh builds the LoRA step now (slice 6); an object that is not a
+    mesh is refused."""
     _, tcfg, _, _, _ = setup
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    from tests.torch_worlds import single_rank_mesh
+
+    with single_rank_mesh() as mesh:
+        tlora.make_lora_train_step(tcfg, mesh, 4)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tlora.make_lora_train_step(tcfg, object(), 4)
 
 

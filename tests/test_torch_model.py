@@ -136,10 +136,16 @@ def test_auto_resolves_to_plain_attention_on_cpu():
 
 
 def test_out_of_slice_paths_raise():
-    """Only a mesh (slice 6) is refused now; the ``moe`` preset builds."""
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    """A mesh builds now (slice 6) and the ``moe`` preset builds; an object
+    that is not a mesh raises TypeError."""
+    from tests.torch_worlds import single_rank_mesh
+
+    with single_rank_mesh() as mesh:
+        tmodel.make_forward(tpresets.make_config("moe"), mesh=mesh)
+        tmodel.make_forward(tmodel.TransformerConfig(), mesh=mesh)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmodel.make_forward(tpresets.make_config("moe"), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmodel.make_forward(tmodel.TransformerConfig(), mesh=object())
     params = tmodel.init_params(torch.Generator(),
                                 tpresets.make_config("moe"))
@@ -187,7 +193,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for name in ("workload.serve", "workload.train", "workload.data",
                  "cmd.train_demo", "workload.kernels.flash",
                  "workload.speculative", "workload.keys", "native",
-                 "workload.lora", "workload.checkpoint", "workload.moe"):
+                 "workload.lora", "workload.checkpoint", "workload.moe",
+                 "workload.spmd", "workload.ring", "workload.ulysses",
+                 "workload.pipeline", "entry"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -258,9 +258,17 @@ def test_init_sharded_and_optimizer():
     _, none, _ = ttrain.init_sharded(torch.Generator().manual_seed(0), tcfg,
                                      init_optimizer=False)
     assert none is None
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    from tests.torch_worlds import single_rank_mesh
+
+    with single_rank_mesh() as mesh:
+        sharded, _, _ = ttrain.init_sharded(
+            torch.Generator().manual_seed(0), tcfg, mesh=mesh)
+        ttrain.make_train_step(tcfg, mesh=mesh)
+    for a, b in zip(ttrain.param_leaves(sharded), leaves):
+        assert torch.equal(a, b) and a.requires_grad
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttrain.init_sharded(torch.Generator(), tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttrain.make_train_step(tcfg, mesh=object())
 
 
@@ -351,11 +359,13 @@ def test_train_demo_remat_dots_and_sampled_generate(capsys):
      "--accum-steps is not supported with --lora-rank"),
     (["--checkpoint-dir", "x", "--checkpoint-every", "0"],
      "--checkpoint-every must be >= 1"),
-    (["--dp", "1", "--sp", "1", "--tp", "1"], "slice 6")],
+    (["--dp", "1", "--sp", "1", "--tp", "1", "--checkpoint-dir", "x"],
+     "slice 6, part 2")],
     ids=["lora-accum", "checkpoint-every", "mesh"])
 def test_train_demo_refuses_later_slices(capsys, flags, message):
-    """Meshes (slice 6) are refused; LoRA and checkpoints are in, and
-    refuse what the reference refuses."""
+    """Meshes train now; checkpoints over a mesh (slice 6, part 2) are
+    refused; LoRA and checkpoints are in, and refuse what the reference
+    refuses."""
     from kubegpu_tpu_torch.cmd import train_demo
 
     with pytest.raises(SystemExit) as exc:

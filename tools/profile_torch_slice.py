@@ -27,7 +27,10 @@ under ``torch.profiler`` (CPU and CUDA activities):
   on wq and wv, the base frozen; chip_smoke's ``train_lora`` phase);
 - ``moe``: the same for one AdamW step of chip_smoke's ``MOE_MODEL`` (the
   ``moe`` preset's 4 experts, top-2, at the serving width) at batch 4,
-  T = 2048.
+  T = 2048;
+- ``ring``: one pass of ring attention (forward and backward over every
+  virtual rank in this process, chip_smoke's ``ring_pass``) at the
+  training shape, sp = 4 and 2, after a warm-up pass.
 
 For each it prints one JSON line: the wall time, the summed device time of
 all kernels, the device's busy share of the wall (kernel time over wall;
@@ -111,7 +114,7 @@ def main(argv=None) -> int:
         help="where the Chrome traces go")
     ap.add_argument("--sections", default="forward,serve,train",
                     help="comma-separated subset of forward,serve,train,"
-                         "lora,moe")
+                         "lora,moe,ring")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="serve: > 0 samples (top-k/top-p of chip_smoke)")
     ap.add_argument("--spec", action="store_true",
@@ -151,6 +154,8 @@ def main(argv=None) -> int:
         _lora(dev, acts, args.out)
     if "moe" in sections:
         _moe(dev, acts, args.out)
+    if "ring" in sections:
+        _ring(dev, acts)
     return 0
 
 
@@ -321,5 +326,31 @@ def _moe(dev, acts, out) -> None:
                   model=cs.MOE_MODEL)
 
 
+def _ring(dev, acts) -> None:
+    import torch
+    from torch.profiler import profile
+
+    import chip_smoke as cs
+
+    b, t, h, d = cs.TRAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(9)
+    leaves = [x.requires_grad_() for x in cs.case_qkv(
+        gen, dev, b, t, t, h, d, torch.bfloat16)]
+    do = torch.randn((b, t, h, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    for sp in (4, 2):
+        cs.ring_pass(leaves, do, sp, d ** -0.5)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            cs.ring_pass(leaves, do, sp, d ** -0.5)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        row = _summary(prof, wall, f"ring_sp{sp}")
+        row.update(shape=list(cs.TRAIN_SHAPE), sp=sp)
+        print(json.dumps(row), flush=True)
+
+
 if __name__ == "__main__":
     sys.exit(main())
+
