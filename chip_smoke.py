@@ -100,10 +100,24 @@ T = 2048, no remat), random weights from a seed:
    sharded train step at the training config (dp = sp = tp = 1): its loss
    and per-leaf gradients on one batch against the single-device step's
    (the remat tolerances), 6 K1, K2 and K3 sm90 launches, and 5 AdamW
-   steps from the native loader, median step ms beside the train phase's.
+   steps from the native loader, median step ms beside the train phase's;
+19. serve_mesh: in the same group, the serving config in float32 over the
+   (1, 1, 1) mesh: the sharded ``make_generate`` on 4 rows of the serve
+   phase's prompts, the sharded server on its traffic and the sharded
+   speculative server (the serve_spec phase's draft, sharded over the same
+   mesh), each equal to the same call without a mesh; bf16 tokens/s of the
+   mesh server and the plain one, beside the serve phase's. Then
+   the sharded resume at the training config: 2 steps of the sharded train
+   step, ``save_checkpoint(..., mesh)``, 2 more; freshly initialised shards
+   restored with ``restore_checkpoint(..., mesh)`` take the same 2 steps,
+   their losses equal to the uninterrupted run's bit for bit, with 6 K1,
+   K2 and K3 sm90 launches a step; the save and restore seconds beside the
+   checkpoint phase's. Last, ``dryrun_multichip`` over the card, with its
+   serving leg.
 
 The ``kernels`` line names each kernel's instance on the main path and
-the launches that went to each instance. Every phase prints one JSON line
+the launches that went to each instance (``launches_serve_mesh_step``:
+the last resumed sharded step's). Every phase prints one JSON line
 and raises on failure. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -1682,14 +1696,37 @@ def ring_kernels_phase(dev) -> dict:
     return out
 
 
-def train_mesh_phase(dev, train) -> dict:
-    """The sharded training path on the card at world size 1 (NCCL): the
-    multi-device dry run, then the sharded step at the training config (dp
-    = sp = tp = 1) against the single-device step on one batch (loss and
-    per-leaf gradients, 6 K1, K2 and K3 sm90 launches), and its AdamW
-    steps' median ms beside the ``train`` phase's."""
-    import statistics
+@contextlib.contextmanager
+def world_of_one(dev):
+    """A world-size-1 process group (NCCL on the card; a ``file://`` store
+    in a temporary directory) for the mesh phases; yields the directory,
+    which they may use, and removes it after."""
+    import shutil
     import tempfile
+
+    import torch.distributed as dist
+
+    from kubegpu_tpu_torch.workload import spmd
+
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-mesh-")
+    dist.init_process_group(spmd.backend_for(dev),
+                            init_method=f"file://{tmp}/store",
+                            world_size=1, rank=0)
+    try:
+        yield tmp
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_mesh_phase(dev, train, tmp) -> dict:
+    """The sharded training path on the card at world size 1 (NCCL, in
+    `world_of_one`): the multi-device dry run, then the sharded step at the
+    training config (dp = sp = tp = 1) against the single-device step on
+    one batch (loss and per-leaf gradients, 6 K1, K2 and K3 sm90
+    launches), and its AdamW steps' median ms beside the ``train``
+    phase's."""
+    import statistics
 
     import numpy as np
     import torch
@@ -1704,69 +1741,58 @@ def train_mesh_phase(dev, train) -> dict:
                                                   make_train_step,
                                                   param_leaves)
 
-    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-mesh-")
     n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-    dist.init_process_group(spmd.backend_for(dev),
-                            init_method=f"file://{tmp}/store",
-                            world_size=1, rank=0)
-    try:
-        backend = dist.get_backend()
-        t0 = time.perf_counter()
-        dryrun_multichip(n_dev, device=dev)
-        dryrun_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+    t0 = time.perf_counter()
+    dryrun_multichip(n_dev, device=dev)
+    dryrun_s = time.perf_counter() - t0
 
-        cfg = TransformerConfig(**TRAIN_MODEL)
-        mesh = spmd.make_mesh(1, 1, 1, 1, device=dev)
-        gen = torch.Generator(device=dev).manual_seed(3)
-        params, _, _ = init_sharded(
-            torch.Generator(device=dev).manual_seed(2), cfg,
-            init_optimizer=False)
-        tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
-                               generator=gen, device=dev)
-        loss_one, g_one = _loss_and_grads(cfg, params, tokens)
-        local = spmd.shard_params(params, cfg, mesh)
-        del params
-        leaves = param_leaves(local)
-        for x in leaves:
-            x.requires_grad_(True)
+    cfg = TransformerConfig(**TRAIN_MODEL)
+    mesh = spmd.make_mesh(1, 1, 1, 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params, _, _ = init_sharded(
+        torch.Generator(device=dev).manual_seed(2), cfg,
+        init_optimizer=False)
+    tokens = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device=dev)
+    loss_one, g_one = _loss_and_grads(cfg, params, tokens)
+    local = spmd.shard_params(params, cfg, mesh)
+    del params
+    leaves = param_leaves(local)
+    for x in leaves:
+        x.requires_grad_(True)
+    _zero_launch_counts()
+    loss = make_loss_fn(cfg, mesh)(local, spmd.global_batch(mesh, tokens))
+    loss.backward()
+    spmd.all_reduce_grads(leaves, mesh)
+    torch.cuda.synchronize()
+    grad_launches = list(_launch_counts())
+    grad_by_instance = _instance_counts()
+    loss_mesh = loss.item()
+    grad_err = _grad_errors([x.grad for x in leaves], g_one)
+    del g_one, local, leaves, loss
+    torch.cuda.empty_cache()
+
+    # AdamW steps through the user's entry points, from the loader
+    paths = _token_shards(cfg.vocab, tmp)
+    loader = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    params, opt_state, optimizer = init_sharded(
+        torch.Generator(device=dev).manual_seed(0), cfg, mesh)
+    step = make_train_step(cfg, mesh, optimizer)
+    losses, step_s, launches = [], [], []
+    for _ in range(TRAIN_STEPS):
+        batch = next(loader)                 # the global batch, numpy
         _zero_launch_counts()
-        loss = make_loss_fn(cfg, mesh)(local, spmd.global_batch(mesh,
-                                                                tokens))
-        loss.backward()
-        spmd.all_reduce_grads(leaves, mesh)
         torch.cuda.synchronize()
-        grad_launches = list(_launch_counts())
-        grad_by_instance = _instance_counts()
-        loss_mesh = loss.item()
-        grad_err = _grad_errors([x.grad for x in leaves], g_one)
-        del g_one, local, leaves, loss
-        torch.cuda.empty_cache()
-
-        # AdamW steps through the user's entry points, from the loader
-        paths = _token_shards(cfg.vocab, tmp)
-        loader = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-        params, opt_state, optimizer = init_sharded(
-            torch.Generator(device=dev).manual_seed(0), cfg, mesh)
-        step = make_train_step(cfg, mesh, optimizer)
-        losses, step_s, launches = [], [], []
-        for _ in range(TRAIN_STEPS):
-            batch = next(loader)                 # the global batch, numpy
-            _zero_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt_state, loss = step(params, opt_state, batch)
-            losses.append(loss.item())              # waits for the step
-            step_s.append(time.perf_counter() - t0)
-            launches.append(list(_launch_counts()))
-        by_instance = _instance_counts()
-        loader.close()
-        del params, opt_state, optimizer, step
-        torch.cuda.empty_cache()
-    finally:
-        dist.destroy_process_group()
-        for name in os.listdir(tmp):
-            os.remove(os.path.join(tmp, name))
-        os.rmdir(tmp)
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss.item())              # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        launches.append(list(_launch_counts()))
+    by_instance = _instance_counts()
+    loader.close()
+    del params, opt_state, optimizer, step
+    torch.cuda.empty_cache()
     n = cfg.n_layers
     step_ms = statistics.median(step_s[1:]) * 1e3
     row = {"phase": "train_mesh", "backend": backend, "world_size": 1,
@@ -1790,6 +1816,151 @@ def train_mesh_phase(dev, train) -> dict:
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"train_mesh phase failed: {row}")
+    return row
+
+
+def serve_mesh_phase(dev, serve, ckpt, tmp) -> dict:
+    """The sharded serving paths and the sharded resume on the card at
+    world size 1 (in `world_of_one`): the serving config's sharded
+    generate, server and speculative server against the unsharded ones in
+    float32, tokens/s in bf16 in turns; the training config's sharded
+    save, restore and resumed steps against the uninterrupted run; the dry
+    run with its serving leg."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.entry import dryrun_multichip
+    from kubegpu_tpu_torch.workload import spmd
+    from kubegpu_tpu_torch.workload.checkpoint import (
+        adamw_state, adamw_template, load_train_state, restore_checkpoint,
+        save_checkpoint, train_state_specs)
+    from kubegpu_tpu_torch.workload.data import make_loader
+    from kubegpu_tpu_torch.workload.decode import make_generate
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  init_params)
+    from kubegpu_tpu_torch.workload.train import (init_sharded,
+                                                  make_train_step)
+
+    mesh = spmd.make_mesh(1, 1, 1, 1, device=dev)
+    # the serving config (the serve phase's params: the same seed)
+    cfg = TransformerConfig(**MODEL)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    local = spmd.shard_params(params, cfg, mesh)
+    dcfg = TransformerConfig(**DRAFT_MODEL)
+    dlocal = spmd.shard_params(
+        init_params(torch.Generator(device=dev).manual_seed(1), dcfg),
+        dcfg, mesh)
+    f32, df32 = (dataclasses.replace(c, dtype="float32") for c in (cfg, dcfg))
+    prompts = _serve_prompts(cfg)
+    # 4 rows of equal length: the 4 longest prompts cut to the shortest
+    rows = [p[:len(prompts[4])] for p in prompts[4:]]
+    gen_mesh = make_generate(f32, mesh)(local, rows, SERVE_MAX_NEW)
+    gen_one = make_generate(f32)(params, torch.tensor(rows, device=dev),
+                                 SERVE_MAX_NEW)
+    plain = _drain(f32, params, prompts)["outs"]
+    sharded = _drain(f32, local, prompts, mesh=mesh)["outs"]
+    spec = _drain(f32, local, prompts, mesh=mesh, draft_params=dlocal,
+                  draft_cfg=df32, lookahead=SPEC_LOOKAHEAD,
+                  spec_rounds=SPEC_ROUNDS)["outs"]
+    # bf16 greedy tokens/s, one drain each (in turns over several pairs:
+    # tools/mesh_serve_ab.py)
+    mesh_rate = _drain(cfg, local, prompts, mesh=mesh)["tokens_per_s"]
+    plain_rate = _drain(cfg, params, prompts)["tokens_per_s"]
+    del params, local, dlocal
+    torch.cuda.empty_cache()
+
+    # the sharded resume at the training config
+    tcfg = TransformerConfig(**TRAIN_MODEL)
+    specs = train_state_specs(spmd.param_pspecs(tcfg))
+    paths = _token_shards(tcfg.vocab, tmp)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+
+    def run(seed, start, n, save_at=None, restore=False) -> tuple:
+        """``n`` sharded steps from batch ``start`` of the loader from
+        fresh shards (``seed``), restored first if asked, saved after
+        ``save_at`` steps: the losses, launches a step, save and restore
+        seconds."""
+        params, opt, optimizer = init_sharded(
+            torch.Generator(device=dev).manual_seed(seed), tcfg, mesh)
+        secs = {}
+        if restore:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, at = restore_checkpoint(
+                ckpt_dir, {"params": params,
+                           "opt_state": adamw_template(params)},
+                mesh=mesh, specs=specs)
+            load_train_state(opt, params, state)
+            torch.cuda.synchronize()
+            secs["restore_s"] = time.perf_counter() - t0
+            secs["restored_step"] = at
+            del state
+        step = make_train_step(tcfg, mesh, optimizer)
+        loader = make_loader(paths, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        losses, launches = [], []
+        try:
+            for _ in range(start):
+                next(loader)
+            for i in range(start, start + n):
+                batch = next(loader)
+                _zero_launch_counts()
+                params, opt, loss = step(params, opt, batch)
+                losses.append(loss.item())
+                launches.append(list(_launch_counts()))
+                if save_at == i + 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    save_checkpoint(ckpt_dir, {
+                        "params": params,
+                        "opt_state": adamw_state(opt, params)},
+                        step=i + 1, mesh=mesh, specs=specs)
+                    secs["save_s"] = time.perf_counter() - t0
+        finally:
+            loader.close()
+        return losses, launches, _instance_counts(), secs
+
+    whole, _, _, saved = run(0, 0, 4, save_at=2)
+    torch.cuda.empty_cache()
+    resumed, launches, by_instance, restored = run(7, 2, 2, restore=True)
+    torch.cuda.empty_cache()
+    file_gb = os.path.getsize(os.path.join(ckpt_dir, "step_2",
+                                           "leaves.npz")) / 1e9
+    t0 = time.perf_counter()
+    dryrun_multichip(1, device=dev)
+    dryrun_s = time.perf_counter() - t0
+    n = tcfg.n_layers
+    row = {"phase": "serve_mesh", "mesh": [1, 1, 1],
+           "generate_rows": [len(r) for r in rows],
+           "generate_equal": bool(torch.equal(gen_mesh, gen_one)),
+           "server_equal": sharded == plain,
+           "spec_server_equal": spec == plain,
+           "all_full_length": all(len(o) == SERVE_MAX_NEW
+                                  for o in sharded + spec),
+           "bf16_mesh_tokens_per_s": mesh_rate,
+           "bf16_plain_tokens_per_s": plain_rate,
+           "serve_phase_tokens_per_s": serve["tokens_per_s"],
+           "resume_model": TRAIN_MODEL, "losses_uninterrupted": whole,
+           "losses_resumed": resumed,
+           "restored_step": restored["restored_step"],
+           "resumed_equal": resumed == whole[2:],
+           "launches_fwd_dq_dkv_per_step": launches,
+           "file_gb": file_gb, "save_s": saved["save_s"],
+           "restore_s": restored["restore_s"],
+           "checkpoint_phase_save_s": ckpt["full_save_s"],
+           "checkpoint_phase_restore_s": ckpt["full_restore_s"],
+           "dryrun_s": dryrun_s}
+    row["ok"] = (row["generate_equal"] and row["server_equal"]
+                 and row["spec_server_equal"] and row["all_full_length"]
+                 and row["restored_step"] == 2 and row["resumed_equal"]
+                 and all(np.isfinite(whole))
+                 and all(x == [n] * 3 for x in launches)
+                 and all(c["sm90"] == n for c in by_instance))
+    row["bf16_mesh_over_plain"] = mesh_rate / plain_rate
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"serve_mesh phase failed: {row}")
     return row
 
 
@@ -1825,7 +1996,7 @@ def main() -> int:
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     fwd = forward_phase(dev, cfg, params)
     entry_phase()
-    serve_phase(dev, cfg, params)
+    serve = serve_phase(dev, cfg, params)
     serve_sampled_phase(dev, cfg, params)
     serve_spec_phase(dev, cfg, params)
     serve_prefix_phase(dev, cfg, params)
@@ -1837,12 +2008,14 @@ def main() -> int:
     train = train_phase(dev)
     dots = train_remat_dots_phase(dev)
     lora, base = train_lora_phase(dev, train)
-    checkpoint_phase(dev, base)
+    ckpt = checkpoint_phase(dev, base)
     del base
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
     ring_rows = ring_kernels_phase(dev)
-    mesh = train_mesh_phase(dev, train)
+    with world_of_one(dev) as tmp:
+        mesh = train_mesh_phase(dev, train, tmp)
+        serve_mesh = serve_mesh_phase(dev, serve, ckpt, tmp)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
     # and MoE steps' are their last step's; the ring's its kernel pass at
@@ -1858,6 +2031,7 @@ def main() -> int:
     ring_pass = ring_rows[4]["launches_fwd_dq_dkv_per_pass"]
     ring_pass_sp2 = ring_rows[2]["launches_fwd_dq_dkv_per_pass"]
     mesh_step = mesh["launches_fwd_dq_dkv_per_step"][-1]
+    resume_step = serve_mesh["launches_fwd_dq_dkv_per_step"][-1]
     k1_run, k2_run, k3_run = train["run_by_instance"]
     src = "kubegpu_tpu_torch/csrc/"
     emit({"kernels": [{
@@ -1875,6 +2049,7 @@ def main() -> int:
         "launches_ring_pass": ring_pass[0],
         "launches_ring_pass_sp2": ring_pass_sp2[0],
         "launches_train_mesh_step": mesh_step[0],
+        "launches_serve_mesh_step": resume_step[0],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
         "op_ms": k1["op_ms"], "previous_ms": k1["previous_ms"],
         "serve_shape_previous_ms": k1["previous_ms"],
@@ -1896,6 +2071,7 @@ def main() -> int:
         "launches_ring_pass": ring_pass[1],
         "launches_ring_pass_sp2": ring_pass_sp2[1],
         "launches_train_mesh_step": mesh_step[1],
+        "launches_serve_mesh_step": resume_step[1],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
         "delta_max_abs_err": kb["delta_max_abs_err"], "ms": kb["dq_ms"],
         "previous_ms": kb["dq_previous_ms"], "delta_ms": kb["delta_ms"],
@@ -1915,6 +2091,7 @@ def main() -> int:
         "launches_ring_pass": ring_pass[2],
         "launches_ring_pass_sp2": ring_pass_sp2[2],
         "launches_train_mesh_step": mesh_step[2],
+        "launches_serve_mesh_step": resume_step[2],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
         "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
         "plain_ms": kb["dkv_plain_ms"],

@@ -1,5 +1,5 @@
 """Serving demo binary: continuous-batching decode over synthetic
-requests, on one device.
+requests, on one device or as a gang over several.
 
 The port's counterpart of ``kubegpu_tpu/cmd/serve_demo.py``: builds a
 model from --seed (or restores its params from a train_demo
@@ -12,11 +12,21 @@ through speculative decoding with a smaller draft model built from
 keeps the K/V of served prompts. Runs on CUDA unless --device says
 otherwise.
 
+Serving is a gang workload like training: under torchrun every rank
+joins one process group (NCCL on CUDA, gloo on the CPU) and serves over a
+(1, 1, world) mesh, the heads and the FFN split over ``model``. Every
+rank builds the params (and the draft) from --seed and keeps its shards,
+or restores its shards from --checkpoint-dir, all ranks agreeing that
+they read it; every rank drives the same host loop on the same requests,
+and rank 0 prints the JSON line, with ``"processes"``.
+
 Examples:
     python -m kubegpu_tpu_torch.cmd.serve_demo --requests 8 --slots 4
     python -m kubegpu_tpu_torch.cmd.serve_demo --temperature 0.8 --top-p 0.9
     python -m kubegpu_tpu_torch.cmd.serve_demo --speculative --draft-layers 1
     python -m kubegpu_tpu_torch.cmd.serve_demo --device cpu --d-model 32
+    torchrun --nproc-per-node 2 -m kubegpu_tpu_torch.cmd.serve_demo \
+        --device cpu --d-model 32 --spec-server
 """
 
 from __future__ import annotations
@@ -36,6 +46,10 @@ def main(argv=None) -> int:
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--n-layers", type=int, default=2)
     ap.add_argument("--n-heads", type=int, default=4)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="compute dtype; float32 makes a gang's streams "
+                         "equal to one device's")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -71,32 +85,54 @@ def main(argv=None) -> int:
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from kubegpu_tpu_torch import metrics
     from kubegpu_tpu_torch._device import resolve_device
+    from kubegpu_tpu_torch.workload import spmd
     from kubegpu_tpu_torch.workload.model import TransformerConfig, init_params
     from kubegpu_tpu_torch.workload.serve import DecodeServer
 
     dev = resolve_device(args.device)
+    # a gang's ranks join one process group (no-op single-process) and
+    # serve over a model-parallel mesh; the batch stays whole on every
+    # rank (dp = 1), as the reference's serve_demo keeps it
+    multiproc = spmd.distributed_init_from_env(device=dev)
+    world = dist.get_world_size() if multiproc else 1
+    mesh = spmd.make_mesh(world, dp=1, sp=1, tp=world, device=dev) \
+        if world > 1 else None
+    if mesh is not None:
+        dev = spmd.mesh_device(mesh)
+
+    def build(tree_cfg, seed):
+        """The params from ``seed``, as this rank's shards over a mesh."""
+        tree = init_params(torch.Generator(device=dev).manual_seed(seed),
+                           tree_cfg)
+        return tree if mesh is None else \
+            spmd.shard_params(tree, tree_cfg, mesh)
+
     cfg = TransformerConfig(vocab=args.vocab, d_model=args.d_model,
                             n_heads=args.n_heads, n_layers=args.n_layers,
-                            d_ff=4 * args.d_model, max_seq=args.seq)
-    params = init_params(torch.Generator(device=dev).manual_seed(args.seed),
-                         cfg)
+                            d_ff=4 * args.d_model, max_seq=args.seq,
+                            dtype=args.dtype)
+    params = build(cfg, args.seed)
     restored_step = None
     if args.checkpoint_dir:
         from kubegpu_tpu_torch.workload.checkpoint import (
-            adamw_template, restore_checkpoint, tree_map)
+            adamw_template, restore_checkpoint, train_state_specs, tree_map)
 
         # train_demo saves {params, opt_state}: the template matches it
-        # leaf for leaf, with the AdamW moments as shapes only
+        # leaf for leaf, with the AdamW moments as shapes only. In a gang
+        # every rank must read it: the ranks agree before any returns
         state, at = restore_checkpoint(
             args.checkpoint_dir,
-            {"params": params, "opt_state": adamw_template(params)})
+            {"params": params, "opt_state": adamw_template(params)},
+            mesh=mesh, specs=train_state_specs(spmd.param_pspecs(cfg)))
         if state is None:
             ap.error(f"no readable checkpoint in {args.checkpoint_dir} "
                      "(serve_demo restores full fine-tune checkpoints "
-                     "saved by train_demo)")
+                     "saved by train_demo; in a gang, every rank needs "
+                     "the checkpoint readable)")
         params = tree_map(lambda x: x.to(dev), state["params"])
         restored_step = at
         del state                    # drop the restored AdamW moments
@@ -110,10 +146,8 @@ def main(argv=None) -> int:
         draft_cfg = TransformerConfig(
             vocab=args.vocab, d_model=max(32, args.d_model // 4),
             n_heads=args.n_heads, n_layers=args.draft_layers,
-            d_ff=args.d_model, max_seq=args.seq)
-        draft = init_params(
-            torch.Generator(device=dev).manual_seed(args.seed + 1),
-            draft_cfg)
+            d_ff=args.d_model, max_seq=args.seq, dtype=args.dtype)
+        draft = build(draft_cfg, args.seed + 1)
 
     t0 = time.perf_counter()
     if args.speculative:
@@ -121,6 +155,7 @@ def main(argv=None) -> int:
             make_speculative_generate
 
         gen = make_speculative_generate(cfg, draft_cfg, k=args.lookahead,
+                                        mesh=mesh,
                                         temperature=args.temperature,
                                         top_k=args.top_k, top_p=args.top_p)
         outs, calls = [], 0
@@ -132,7 +167,7 @@ def main(argv=None) -> int:
         stats = {"mode": "speculative", "target_calls": calls,
                  "tokens": sum(len(o) for o in outs)}
     else:
-        srv = DecodeServer(cfg, params, slots=args.slots,
+        srv = DecodeServer(cfg, params, slots=args.slots, mesh=mesh,
                            temperature=args.temperature, top_k=args.top_k,
                            top_p=args.top_p, rng=args.seed,
                            draft_params=draft, draft_cfg=draft_cfg,
@@ -159,6 +194,8 @@ def main(argv=None) -> int:
     wall = time.perf_counter() - t0
     if restored_step is not None:
         stats["restored_step"] = restored_step
+    if multiproc:
+        stats["processes"] = world
     stats["device"] = str(dev) if dev.type == "cpu" \
         else torch.cuda.get_device_name(dev)
     stats.update({
@@ -167,7 +204,11 @@ def main(argv=None) -> int:
         "tokens_per_s": round(stats["tokens"] / wall, 1),
         "first_output": outs[0][:8],
     })
-    print(json.dumps(stats))
+    # one JSON line a job: every rank served the same requests
+    if not multiproc or dist.get_rank() == 0:
+        print(json.dumps(stats))
+    if multiproc:
+        dist.destroy_process_group()
     return 0
 
 

@@ -16,13 +16,22 @@ the CPU) and trains its shards of a (data, seq, model) mesh: --dp, --sp
 and --tp together, their product the world size, or the world size
 factored when they are absent. Every rank reads the same loader stream
 and keeps its rows of each batch; rank 0 prints the JSON line.
---checkpoint-dir and --generate over a mesh come with slice 6, part 2.
+--checkpoint-dir saves and resumes sharded there (the file holds the
+global state, `workload/checkpoint.py`), the adapters by `lora_pspecs` in
+LoRA mode. --generate decodes the global prompt rows through the sharded
+`make_generate` on every rank and rank 0 prints row 0. The reference
+refuses --generate in a multi-process run, because a cross-process JAX
+array cannot be sliced outside jit; that limit does not bind here, so
+every rank decodes as the reference's single-process mesh does.
 
 Examples:
     python -m kubegpu_tpu_torch.cmd.train_demo --steps 4 --d-model 128
     python -m kubegpu_tpu_torch.cmd.train_demo --device cpu --d-model 32
     torchrun --nproc-per-node 4 -m kubegpu_tpu_torch.cmd.train_demo \
         --dp 2 --sp 2 --tp 1 --device cpu --d-model 32
+    torchrun --nproc-per-node 4 -m kubegpu_tpu_torch.cmd.train_demo \
+        --dp 2 --sp 1 --tp 2 --device cpu --d-model 32 \
+        --checkpoint-dir /tmp/ckpt --generate 4
 """
 
 from __future__ import annotations
@@ -97,11 +106,6 @@ def main(argv=None) -> int:
     flags = (args.dp, args.sp, args.tp)
     if any(flags) and not all(flags):
         ap.error("--dp/--sp/--tp must be given together")
-    # a mesh: the flags, or a torchrun world without them
-    if (all(flags) or "WORLD_SIZE" in os.environ) and \
-            (args.checkpoint_dir or args.generate):
-        ap.error("--checkpoint-dir and --generate over a mesh (sharded "
-                 "checkpoints and decoding) come with slice 6, part 2")
 
     import numpy as np
     import torch
@@ -115,24 +119,6 @@ def main(argv=None) -> int:
                                                   make_train_step,
                                                   param_leaves)
 
-    dev = resolve_device(args.device)
-    # torchrun's ranks join one process group first (no-op without it)
-    multiproc = spmd.distributed_init_from_env(device=dev)
-    mesh = None
-    if all(flags):
-        if not dist.is_initialized():
-            ap.error("--dp/--sp/--tp need a process group: run under "
-                     "torchrun --nproc-per-node N")
-        want = args.dp * args.sp * args.tp
-        if want != dist.get_world_size():
-            ap.error(f"--dp*--sp*--tp = {want} but the process group has "
-                     f"{dist.get_world_size()} ranks")
-        mesh = spmd.make_mesh(want, dp=args.dp, sp=args.sp, tp=args.tp,
-                              device=dev)
-    elif multiproc:
-        mesh = spmd.mesh_from_env(device=dev)
-    if mesh is not None:
-        dev = spmd.mesh_device(mesh)
     explicit = {"remat": args.remat, "dtype": args.dtype}
     if args.vocab is not None:
         explicit["vocab"] = args.vocab
@@ -155,16 +141,35 @@ def main(argv=None) -> int:
                    d_ff=512, max_seq=128),
             **explicit})
     seq_len = args.seq if args.seq is not None else cfg.max_seq
-
     prompt_len = min(16, seq_len)
+    if args.generate > 0 and prompt_len + args.generate > cfg.max_seq:
+        ap.error(f"--generate {args.generate} + prompt {prompt_len} "
+                 f"exceeds the model's max_seq {cfg.max_seq}")
+
+    dev = resolve_device(args.device)
+    # torchrun's ranks join one process group first (no-op without it)
+    multiproc = spmd.distributed_init_from_env(device=dev)
+    mesh = None
+    if all(flags):
+        if not dist.is_initialized():
+            ap.error("--dp/--sp/--tp need a process group: run under "
+                     "torchrun --nproc-per-node N")
+        want = args.dp * args.sp * args.tp
+        if want != dist.get_world_size():
+            ap.error(f"--dp*--sp*--tp = {want} but the process group has "
+                     f"{dist.get_world_size()} ranks")
+        mesh = spmd.make_mesh(want, dp=args.dp, sp=args.sp, tp=args.tp,
+                              device=dev)
+    elif multiproc:
+        mesh = spmd.mesh_from_env(device=dev)
+    if mesh is not None:
+        dev = spmd.mesh_device(mesh)
+
     gen = None
     if args.generate > 0:
-        if prompt_len + args.generate > cfg.max_seq:
-            ap.error(f"--generate {args.generate} + prompt {prompt_len} "
-                     f"exceeds the model's max_seq {cfg.max_seq}")
         from kubegpu_tpu_torch.workload.decode import make_generate
 
-        gen = make_generate(cfg, temperature=args.temperature,
+        gen = make_generate(cfg, mesh, temperature=args.temperature,
                             top_k=args.top_k, top_p=args.top_p)
 
     tmp = None
@@ -199,25 +204,30 @@ def main(argv=None) -> int:
             opt_state = optimizer(param_leaves(lora))
             lora_step = make_lora_train_step(cfg, mesh, args.lora_rank,
                                              optimizer)
+            specs = lora_pspecs(cfg)
         else:
             params, opt_state, optimizer = init_sharded(
                 torch.Generator(device=dev).manual_seed(args.seed), cfg,
                 mesh)
             step = make_train_step(cfg, mesh, optimizer=optimizer,
                                    accum_steps=args.accum_steps)
+            specs = spmd.param_pspecs(cfg)
 
         # resume from the newest readable step; in LoRA mode the
-        # checkpoint holds the adapters (the base comes from --seed)
+        # checkpoint holds the adapters (the base comes from --seed). Over
+        # a mesh the file holds the global state and each rank its shards
         trained = lora if lora is not None else params
         start_step = 0
         if args.checkpoint_dir:
             from kubegpu_tpu_torch.workload.checkpoint import (
                 adamw_state, adamw_template, load_train_state,
-                restore_checkpoint, save_checkpoint)
+                restore_checkpoint, save_checkpoint, train_state_specs)
 
+            state_specs = train_state_specs(specs)
             state, at = restore_checkpoint(
                 args.checkpoint_dir,
-                {"params": trained, "opt_state": adamw_template(trained)})
+                {"params": trained, "opt_state": adamw_template(trained)},
+                mesh=mesh, specs=state_specs)
             if state is not None:
                 load_train_state(opt_state, trained, state)
                 start_step = at
@@ -249,7 +259,7 @@ def main(argv=None) -> int:
                         args.checkpoint_dir,
                         {"params": trained,
                          "opt_state": adamw_state(opt_state, trained)},
-                        step=i + 1)
+                        step=i + 1, mesh=mesh, specs=state_specs)
         finally:
             loader.close()
         wall = time.perf_counter() - t0
@@ -274,7 +284,9 @@ def main(argv=None) -> int:
             from kubegpu_tpu_torch.workload.lora import merge_lora
 
             # the step's alpha / rank is 1
-            params = merge_lora(params, lora, 1.0)
+            with torch.no_grad():
+                params = merge_lora(params, lora, 1.0, mesh)
+        # over a mesh: the global prompt rows, decoded on every rank
         toks = gen(params, tokens[:, :prompt_len], args.generate,
                    rng=args.seed)
         out["generated"] = toks[0].tolist()

@@ -1,7 +1,7 @@
 """The port's counterparts of ``__graft_entry__.py``: ``entry()``, the
 flagship model's forward pass with its example arguments, and
-``dryrun_multichip(n)``, full sharded training steps over an n-rank
-mesh."""
+``dryrun_multichip(n)``, full sharded training steps and sharded serving
+over an n-rank mesh."""
 
 from __future__ import annotations
 
@@ -38,8 +38,63 @@ def _dryrun_factors(n: int) -> tuple:
     return n, 1, 1
 
 
+def _serving_factors(n: int) -> tuple:
+    """(dp, tp) of the serving leg's mesh. The reference serves over
+    ``(2, 1, min(4, n/2))`` devices, a part of its n; the port's mesh
+    spans the whole group (`spmd.make_mesh`), so an even ``n`` takes the
+    largest ``tp <= 4`` dividing ``n/2`` (``n/2`` itself up to 4) and
+    ``dp = n/tp``; an odd ``n`` is all data parallel."""
+    if n % 2:
+        return n, 1
+    tp = next(t for t in (4, 2, 1) if (n // 2) % t == 0)
+    return n // tp, tp
+
+
+def _serving_leg(n_devices: int, device_type: str) -> None:
+    """``__graft_entry__.py:105-143``: the sharded `make_generate`, the
+    server and its speculative mode (draft = target, lookahead 3), each
+    equal token for token to the same call without a mesh on this rank
+    (float32)."""
+    import math
+
+    from kubegpu_tpu_torch.workload import spmd
+    from kubegpu_tpu_torch.workload.decode import make_generate
+    from kubegpu_tpu_torch.workload.serve import DecodeServer
+
+    dp, tp = _serving_factors(n_devices)
+    mesh = spmd.make_mesh(n_devices, dp=dp, sp=1, tp=tp, device=device_type)
+    dev = spmd.mesh_device(mesh)
+    cfg = TransformerConfig(vocab=64, d_model=32, n_heads=4, n_layers=2,
+                            d_ff=64, max_seq=64, dtype="float32")
+    full = init_params(torch.Generator(device=dev).manual_seed(1), cfg)
+    local = spmd.shard_params(full, cfg, mesh)
+    # the reference's four rows and four slots, repeated until dp divides
+    reps = dp // math.gcd(4, dp)
+    batch = np.tile([[1, 2, 3, 4], [9, 8, 7, 6], [2, 7, 1, 8],
+                     [5, 5, 5, 5]], (reps, 1))
+    sharded = make_generate(cfg, mesh)(local, batch, 6)
+    single = make_generate(cfg)(full, torch.from_numpy(batch).to(dev), 6)
+    if not torch.equal(sharded, single):
+        raise AssertionError("sharded decode diverged")
+
+    def serve_tokens(params, **kw):
+        srv = DecodeServer(cfg, params, slots=4 * reps, prefill_buckets=(8,),
+                           **kw)
+        rids = [srv.submit(list(p), max_new=5) for p in
+                ([1, 2, 3], [9, 8, 7, 6], [2, 7], [5, 5, 5])]
+        srv.run()
+        return [srv.result(r) for r in rids]
+
+    want = serve_tokens(full)
+    if serve_tokens(local, mesh=mesh) != want:
+        raise AssertionError("sharded server diverged")
+    if serve_tokens(local, mesh=mesh, draft_params=local, draft_cfg=cfg,
+                    lookahead=3) != want:
+        raise AssertionError("sharded speculative server diverged")
+
+
 def _dryrun_rank(rank: int, n_devices: int, device_type: str) -> None:
-    """The training legs of the dry run on this rank of an n-rank group."""
+    """The dry run's legs on this rank of an n-rank group."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from kubegpu_tpu_torch.workload.pipeline import (make_pipelined_apply,
@@ -93,20 +148,24 @@ def _dryrun_rank(rank: int, n_devices: int, device_type: str) -> None:
         if not bool(torch.isfinite(out).all()):
             raise AssertionError("non-finite pipeline output")
 
+    _serving_leg(n_devices, device_type)
+
 
 def dryrun_multichip(n_devices: int, device=None) -> None:
     """Full sharded training steps over an ``n_devices``-rank mesh: a dense
     dp x sp x tp step with ring attention, the same under remat "dots",
     one with Ulysses, an expert-parallel MoE step, and a 2-stage pipeline
-    (the training legs of ``__graft_entry__.py:57-103, :145-169``).
+    (the training legs of ``__graft_entry__.py:57-103, :145-169``); then
+    the serving leg (:105-143): the sharded `make_generate`, the server
+    and its speculative mode over a dp x tp mesh (`_serving_factors`: the
+    reference's ``(2, 1, min(4, n/2))`` where ``n/2 <= 4``), each equal
+    to one device token for token.
 
     Inside a formed process group of ``n_devices`` ranks (every rank
     calling it) it runs the legs there; otherwise it spawns
     ``n_devices`` processes joined in one group: gloo for
     ``device="cpu"``, NCCL on ``cuda`` (the default), which needs that
-    many GPUs and raises without them. The reference's serving leg
-    (sharded decoding, the server and its speculative mode) comes with
-    slice 6, part 2."""
+    many GPUs and raises without them."""
     dev = resolve_device(device)
     if dist.is_initialized():
         if dist.get_world_size() != n_devices:

@@ -19,6 +19,17 @@ EmptyState(), EmptyState())``, with ``count`` an int32 scalar and ``mu``,
 
 A ``step_N`` without ``leaves.npz`` (an orbax checkpoint of the reference)
 counts as unreadable: reading orbax needs jax.
+
+Over a mesh (``mesh=``, with ``specs``: the tree of split dimensions
+`spmd.param_pspecs` states, `train_state_specs` for a train state) the
+file holds the global state, so a checkpoint restores onto any mesh shape
+or one device, and the reference reads it: on save every split leaf is
+gathered over ``model``, the rank at mesh coordinate (0, 0, 0) writes,
+and the ranks agree that it did before any returns; on restore every rank
+reads the file, checks it against the global shapes, and the ranks agree
+on success and on the step (an all-reduce, before any other collective)
+before each keeps its shards, so a rank that cannot read never strands
+its peers in the next collective.
 """
 
 from __future__ import annotations
@@ -31,7 +42,9 @@ from typing import Any, Iterator, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from kubegpu_tpu_torch.workload import spmd
 from kubegpu_tpu_torch.workload.train import param_leaves
 
 
@@ -46,9 +59,51 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
     return next(leaves)
 
 
-def save_checkpoint(path: str, state: Any, step: int) -> str:
+def _agree(mesh, *values: int) -> list:
+    """Each of ``values`` as its least over every rank of the mesh's
+    process group (``values`` as they are without a mesh)."""
+    if mesh is None:
+        return list(values)
+    t = torch.tensor(values, dtype=torch.int64,
+                     device=spmd.mesh_device(mesh))
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return t.tolist()
+
+
+def train_state_specs(param_specs: Any) -> dict:
+    """The specs of a train state ``{"params", "opt_state": (count, mu,
+    nu)}`` over params laid out by ``param_specs``: AdamW works element by
+    element, so the moments split as the params do; ``count`` is
+    replicated."""
+    return {"params": param_specs,
+            "opt_state": (None, param_specs, param_specs)}
+
+
+def save_checkpoint(path: str, state: Any, step: int, mesh=None,
+                    specs: Any = None) -> str:
     """Write ``state`` (a tree of tensors) at ``path/step_<step>``
-    atomically (a temp dir, then a rename); returns the final path."""
+    atomically (a temp dir, then a rename); returns the final path. Over
+    a mesh ``state`` is this rank's shards, laid out by ``specs``: the
+    file holds the gathered global state, written by the rank at mesh
+    coordinate (0, 0, 0), and no rank returns before it exists (every
+    rank raises if the write failed)."""
+    if mesh is None:
+        return _write(path, state, step)
+    state = spmd.gather_tree(state, specs, mesh)
+    full, ok = os.path.join(path, f"step_{step}"), 1
+    if all(c == 0 for c in mesh.get_coordinate()):
+        try:
+            full = _write(path, state, step)
+        except Exception:
+            logging.getLogger(__name__).exception(
+                "checkpoint %s not written", full)
+            ok = 0
+    if not _agree(mesh, ok)[0]:
+        raise RuntimeError(f"checkpoint {full} was not written")
+    return full
+
+
+def _write(path: str, state: Any, step: int) -> str:
     full = os.path.join(path, f"step_{step}")
     tmp = f"{full}.tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
@@ -89,12 +144,46 @@ def _read_step(full: str, like: Any) -> Any:
     return _unflatten(like, iter(restored))
 
 
-def restore_checkpoint(path: str, like: Any) -> Tuple[Any, int]:
+def restore_checkpoint(path: str, like: Any, mesh=None,
+                       specs: Any = None) -> Tuple[Any, int]:
     """Restore the newest readable ``step_*`` under ``path`` into the
     structure of ``like`` (whose leaves give only the shapes: meta tensors
     will do); returns ``(state, step)`` with CPU tensors, or ``(None, -1)``
     when no step is readable. An unreadable step (torn, from another
-    config, orbax) is logged as a warning and the next older one tried."""
+    config, orbax) is logged as a warning and the next older one tried.
+
+    Over a mesh ``like`` is this rank's shards, laid out by ``specs``;
+    every rank reads the global state, and the ranks agree (one
+    all-reduce) before each keeps its shards: unless all of them read the
+    same step, all return ``(None, -1)``."""
+    if mesh is None:
+        return _read_newest(path, like)
+    tp = spmd.axis_size(mesh, spmd.AXIS_MODEL)
+    r = spmd.axis_rank(mesh, spmd.AXIS_MODEL)
+
+    def whole(x, dim):
+        shape = list(x.shape)
+        if dim is not None:
+            shape[dim] *= tp
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+
+    state, step = _read_newest(path, spmd.map_specs(whole, like, specs))
+    low, neg_high = _agree(mesh, step, -step)
+    if low != -neg_high or low < 0:
+        if step >= 0:
+            logging.getLogger(__name__).warning(
+                "checkpoint step %d read here, but not on every rank "
+                "(steps %d..%d): restoring nothing", step, low, -neg_high)
+        return None, -1
+
+    def shard(x, dim):
+        return x if dim is None else x.chunk(tp, dim)[r].contiguous()
+
+    return _unflatten(like, iter(param_leaves(
+        spmd.map_specs(shard, state, specs)))), step
+
+
+def _read_newest(path: str, like: Any) -> Tuple[Any, int]:
     if not os.path.isdir(path):
         return None, -1
     steps = sorted(

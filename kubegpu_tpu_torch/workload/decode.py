@@ -1,7 +1,7 @@
 """Autoregressive inference: KV-cache prefill and decode, greedy or
 sampled.
 
-The counterpart of ``kubegpu_tpu/workload/decode.py``, single device:
+The counterpart of ``kubegpu_tpu/workload/decode.py``:
 
 - the KV cache is allocated at a fixed length up front and every step
   attends the whole cache under a position mask, so each step has the
@@ -20,6 +20,16 @@ Unlike ``lax.dynamic_update_slice``, a tensor write does not clamp an
 out-of-range start: callers refuse such writes up front (`make_generate`,
 `serve.DecodeServer.submit`).
 
+Over a mesh (`spmd.make_mesh`) the batch is split over ``data`` and the
+heads over ``model``, the KV cache likewise (`cache_pspecs`): each rank
+runs the same eager program on its shards and its rows, and calls the
+collectives GSPMD would insert (reference ``decode.py:60-160``): the
+layer input enters the column-parallel products through `spmd.copy_to`,
+``wo`` and ``w_down`` leave through `spmd.reduce_from`, the
+vocabulary-split logits are gathered over ``model``. `make_generate` and
+`make_decode_chunk` take the global batch and return it, each rank's rows
+gathered over ``data`` once a call (a chunk).
+
 Sampling (temperature > 0, truncated by top-k and the top-p nucleus)
 has the reference's semantics (`_truncate_logits`); its randomness is the
 port's own counter-based keys (`keys`), since threefry's bits cannot be
@@ -30,26 +40,77 @@ lineage alone.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from kubegpu_tpu_torch._device import resolve_device
-from kubegpu_tpu_torch.workload import keys
-from kubegpu_tpu_torch.workload.model import (TransformerConfig,
-                                              _check_in_slice, _ffn,
+from kubegpu_tpu_torch.workload import keys, spmd
+from kubegpu_tpu_torch.workload.model import (TransformerConfig, _ffn,
                                               _rmsnorm, _rope)
 
 NEG_INF = -1e30
 
 
+def cache_pspecs(cfg: TransformerConfig, mesh=None) -> list:
+    """The KV cache's layout over a mesh, a tree matching `init_cache`:
+    per layer ``{"k", "v"}`` of the mesh axis each of the four dimensions
+    ``[B, max_seq, kv_heads, head_dim]`` is split over (None: replicated),
+    as the reference's ``PartitionSpec``: the batch over ``data``, the kv
+    heads over ``model``, or replicated when ``tp > 1`` does not divide
+    them (the reference's rule; the port's forward still refuses such a
+    config, `spmd.check_tp`)."""
+    head_axis = spmd.AXIS_MODEL
+    tp = spmd.axis_size(mesh, spmd.AXIS_MODEL)
+    if tp > 1 and cfg.kv_heads % tp:
+        head_axis = None
+    spec = (spmd.AXIS_DATA, None, head_axis, None)
+    return [{"k": spec, "v": spec} for _ in range(cfg.n_layers)]
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
-               device=None):
+               device=None, mesh=None, split_rows: bool = True):
     """Zeroed per-layer KV cache: a list of ``{"k", "v"}`` of
-    ``[B, max_seq, kv_heads, head_dim]`` in the compute dtype."""
+    ``[B, max_seq, kv_heads, head_dim]`` in the compute dtype. Over a mesh,
+    this rank's block of it by `cache_pspecs`: ``B/dp`` rows and its kv
+    heads; ``split_rows=False`` keeps all ``B`` rows on every rank (a
+    prefill every rank computes, as the server's admission)."""
     dev = resolve_device(device)
-    shape = (batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    shape = [batch, max_seq, cfg.kv_heads, cfg.head_dim]
+    if mesh is not None:
+        for dim, axis in enumerate(cache_pspecs(cfg, mesh)[0]["k"]):
+            if axis is None or (dim == 0 and not split_rows):
+                continue
+            n = spmd.axis_size(mesh, axis)
+            if shape[dim] % n:
+                raise ValueError(f"cache dimension {dim} ({shape[dim]}) "
+                                 f"not divisible by the {axis} axis ({n})")
+            shape[dim] //= n
     dt = cfg.compute_dtype()
     return [{"k": torch.zeros(shape, dtype=dt, device=dev),
              "v": torch.zeros(shape, dtype=dt, device=dev)}
             for _ in range(cfg.n_layers)]
+
+
+def _data_rows(mesh, batch: int) -> tuple:
+    """``(first, count)``: this rank's rows of a global batch of ``batch``
+    over ``data`` (all of it without a mesh); raises unless ``dp`` divides
+    it."""
+    dp = spmd.axis_size(mesh, spmd.AXIS_DATA)
+    if batch % dp:
+        raise ValueError(f"batch {batch} not divisible by dp {dp}")
+    rows = batch // dp
+    return spmd.axis_rank(mesh, spmd.AXIS_DATA) * rows, rows
+
+
+def gather_rows(mesh, x):
+    """Every ``data`` rank's rows of ``x`` (dimension 0) in rank order, on
+    every rank (``x`` itself without a mesh)."""
+    if mesh is None:
+        return x
+    group = mesh.get_group(spmd.AXIS_DATA)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts)
 
 
 def make_forward_step(cfg: TransformerConfig, mesh=None):
@@ -57,8 +118,17 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
     process ``tokens [B, T]`` whose first token sits at absolute position
     ``start_pos`` (an int, or a ``[B]`` tensor of per-row positions),
     attending everything cached so far plus the chunk itself. The chunk's
-    K/V is written into ``cache`` in place; the same list is returned."""
-    _check_in_slice(cfg, mesh)
+    K/V is written into ``cache`` in place; the same list is returned.
+
+    Over a mesh ``params`` are this rank's shards (`spmd.shard_params`),
+    ``cache`` its block (`init_cache` with the mesh), ``tokens`` and
+    ``start_pos`` its rows; attention runs on its ``H/tp`` heads and the
+    logits come back whole over the vocabulary, for its rows."""
+    if mesh is not None:
+        spmd.check_mesh(mesh)
+        spmd.check_tp(cfg, spmd.axis_size(mesh, spmd.AXIS_MODEL))
+    tp = spmd.axis_size(mesh, spmd.AXIS_MODEL)
+    heads, kv_heads = cfg.n_heads // tp, cfg.kv_heads // tp
 
     def step(params, cache, tokens, start_pos):
         dt = cfg.compute_dtype()
@@ -93,12 +163,11 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
 
         x = params["embed"].to(dt)[tokens]
         for layer, kv in zip(params["layers"], cache):
-            h = _rmsnorm(x, layer["ln1"])
-            q = (h @ layer["wq"].to(dt)).reshape(b, t, cfg.n_heads,
+            h = spmd.copy_to(mesh, _rmsnorm(x, layer["ln1"]))
+            q = (h @ layer["wq"].to(dt)).reshape(b, t, heads, cfg.head_dim)
+            k = (h @ layer["wk"].to(dt)).reshape(b, t, kv_heads,
                                                  cfg.head_dim)
-            k = (h @ layer["wk"].to(dt)).reshape(b, t, cfg.kv_heads,
-                                                 cfg.head_dim)
-            v = (h @ layer["wv"].to(dt)).reshape(b, t, cfg.kv_heads,
+            v = (h @ layer["wv"].to(dt)).reshape(b, t, kv_heads,
                                                  cfg.head_dim)
             q = _rope(q, positions, cfg.rope_theta)
             k = _rope(k, positions, cfg.rope_theta)
@@ -110,26 +179,27 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
             # as the reference). With GQA the query heads are grouped
             # against the narrow cache (g = kv head, r = query head in the
             # group), so the full-width K/V is never materialized.
-            if cfg.kv_heads != cfg.n_heads:
-                rep = cfg.n_heads // cfg.kv_heads
-                qg = q.reshape(b, t, cfg.kv_heads, rep, cfg.head_dim)
+            if kv_heads != heads:
+                rep = heads // kv_heads
+                qg = q.reshape(b, t, kv_heads, rep, cfg.head_dim)
                 s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), ck) * scale
                 s = s.masked_fill(~mask[:, None, None], NEG_INF)
                 p = torch.softmax(s, dim=-1)
                 attn = torch.einsum("bgrqk,bkgd->bqgrd",
                                     p.to(dt).float(), cv)
-                attn = attn.reshape(b, t, cfg.n_heads, cfg.head_dim)
+                attn = attn.reshape(b, t, heads, cfg.head_dim)
             else:
                 s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck) * scale
                 s = s.masked_fill(~mask[:, None], NEG_INF)
                 p = torch.softmax(s, dim=-1)
                 attn = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), cv)
-            x = x + attn.to(dt).reshape(b, t, -1) @ layer["wo"].to(dt)
+            x = x + spmd.reduce_from(
+                mesh, attn.to(dt).reshape(b, t, -1) @ layer["wo"].to(dt))
 
-            x = x + _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg)[0]
+            x = x + _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg, mesh)[0]
 
-        x = _rmsnorm(x, params["final_norm"])
-        logits = x @ params["unembed"].to(dt)
+        x = spmd.copy_to(mesh, _rmsnorm(x, params["final_norm"]))
+        logits = spmd.gather_last(mesh, x @ params["unembed"].to(dt))
         return logits.float(), cache
 
     return torch.no_grad()(step)
@@ -209,12 +279,13 @@ def _pick_rows(logits, rkeys, temperature: float, top_k: int,
 
 
 def _select_token(logits, key, temperature: float, top_k: int,
-                  top_p: float):
+                  top_p: float, row0: int = 0):
     """`_select_token_rows` with one key for the whole batch: row ``i``
-    draws with ``fold(key, i)``."""
+    draws with ``fold(key, row0 + i)``, ``row0`` being the first row's
+    index in the global batch."""
     if temperature == 0.0:
         return logits.argmax(-1)
-    rows = torch.arange(logits.shape[0], device=logits.device)
+    rows = row0 + torch.arange(logits.shape[0], device=logits.device)
     return _select_token_rows(logits, keys.fold(key, rows), temperature,
                               top_k, top_p)
 
@@ -235,7 +306,12 @@ def make_decode_chunk(cfg: TransformerConfig, mesh=None, chunk: int = 16,
     sampling, ``skeys [B]`` are the rows' key roots: the selection fed by
     the token at position ``p`` uses ``keys.fold(skeys[b], p)``, so the
     fused chunk and the server's per-token oracle draw the same tokens.
-    The loop stays on the device: no value is read back inside it."""
+    The loop stays on the device: no value is read back inside it.
+
+    Over a mesh ``cache`` is this rank's block, and ``tok``, ``pos``,
+    ``active``, ``budget`` and ``skeys`` are the global ``[B]`` vectors:
+    the rank decodes its rows and the five outputs come back global,
+    gathered over ``data`` in one collective a chunk."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     top_k = validate_sampling(cfg, temperature, top_k, top_p)
@@ -246,6 +322,11 @@ def make_decode_chunk(cfg: TransformerConfig, mesh=None, chunk: int = 16,
     def chunk_step(params, cache, tok, pos, active, budget, skeys=None):
         if sampling and skeys is None:
             raise ValueError("a sampling decode chunk needs skeys")
+        if mesh is not None:
+            r0, n = _data_rows(mesh, tok.shape[0])
+            tok, pos, active, budget = (x[r0:r0 + n] for x in
+                                        (tok, pos, active, budget))
+            skeys = skeys[r0:r0 + n] if sampling else None
         emitted = torch.zeros_like(pos)
         toks = []
         for _ in range(chunk):
@@ -263,7 +344,15 @@ def make_decode_chunk(cfg: TransformerConfig, mesh=None, chunk: int = 16,
             active = active & alive                  # the row freezes
             toks.append(torch.where(emit, nxt, torch.zeros_like(nxt)))
             tok = nxt
-        return cache, torch.stack(toks, 1), emitted, tok, pos, active
+        toks = torch.stack(toks, 1)
+        if mesh is None:
+            return cache, toks, emitted, tok, pos, active
+        # every rank's rows of the five outputs, in one gather
+        got = gather_rows(mesh, torch.cat(
+            [toks, torch.stack([emitted, tok, pos, active.to(tok.dtype)],
+                               1)], 1))
+        return (cache, got[:, :chunk], got[:, chunk], got[:, chunk + 1],
+                got[:, chunk + 2], got[:, chunk + 3].bool())
 
     return chunk_step
 
@@ -276,7 +365,12 @@ def make_generate(cfg: TransformerConfig, mesh=None,
     the call's 128-aligned horizon. ``temperature`` 0 is greedy; above 0 it
     samples, truncated by ``top_k``/``top_p``, and ``generate`` then needs
     ``rng``, an integer seed: selection ``i`` (0 after the prefill) draws
-    with ``keys.fold(rng, i)``, row ``b`` with ``fold(fold(rng, i), b)``."""
+    with ``keys.fold(rng, i)``, row ``b`` with ``fold(fold(rng, i), b)``.
+
+    Over a mesh ``params`` are this rank's shards and ``prompt`` the
+    global batch, as the reference's global program takes it: the rank
+    decodes its ``B/dp`` rows (``dp`` must divide ``B``) and returns the
+    global ``[B, n_new]``, gathered over ``data``, on every rank."""
     max_seq = max_seq or cfg.max_seq
     top_k = validate_sampling(cfg, temperature, top_k, top_p)
     sampling = temperature != 0.0
@@ -289,12 +383,15 @@ def make_generate(cfg: TransformerConfig, mesh=None,
         dev = params["embed"].device
         root = keys.as_key(0 if rng is None else rng, dev)
 
+        prompt = torch.as_tensor(prompt, device=dev).long()
+        r0, b = _data_rows(mesh, prompt.shape[0])
+        prompt = prompt[r0:r0 + b]
+        t0 = prompt.shape[1]
+
         def select(logits, i):
             return _select_token(logits[:, -1, :], keys.fold(root, i),
-                                 temperature, top_k, top_p)
+                                 temperature, top_k, top_p, row0=r0)
 
-        prompt = torch.as_tensor(prompt, device=dev).long()
-        b, t0 = prompt.shape
         if t0 + n_new > max_seq:
             # a write past the cache end would fail or corrupt the cache
             # while RoPE positions keep advancing, so refuse
@@ -302,7 +399,8 @@ def make_generate(cfg: TransformerConfig, mesh=None,
                 f"prompt ({t0}) + n_new ({n_new}) exceeds max_seq "
                 f"({max_seq}); raise max_seq= on make_generate")
         horizon = min(max_seq, -(-(t0 + n_new) // 128) * 128)
-        cache = init_cache(cfg, b, horizon, dev)
+        # its b rows are this rank's already: split only the kv heads
+        cache = init_cache(cfg, b, horizon, dev, mesh, split_rows=False)
         logits, cache = step(params, cache, prompt, 0)
         tok = select(logits, 0)
         out = [tok]
@@ -310,6 +408,6 @@ def make_generate(cfg: TransformerConfig, mesh=None,
             logits, cache = step(params, cache, tok[:, None], t0 + i - 1)
             tok = select(logits, i)
             out.append(tok)
-        return torch.stack(out, 1)
+        return gather_rows(mesh, torch.stack(out, 1))
 
     return generate

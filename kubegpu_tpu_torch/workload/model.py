@@ -136,15 +136,6 @@ class TransformerConfig:
         return dt
 
 
-def _check_in_slice(cfg: TransformerConfig, mesh=None) -> None:
-    """Refuse what later slices of the port bring: a mesh for decoding and
-    serving (sharded KV caches) comes with slice 6, part 2."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded decoding and serving over a mesh come with the "
-            "multi-GPU slice's second part (slice 6, part 2)")
-
-
 def init_params(generator: torch.Generator, cfg: TransformerConfig) -> dict:
     """Parameter dict with the reference's names and ``(in, out)`` shapes,
     drawn from ``generator`` on the generator's device. The numbers differ

@@ -39,8 +39,19 @@ as one Python loop of tensor operations with one readback.
 ``prefix_cache_size > 0`` keeps the K/V of served prompts and of their
 bucket-aligned prefixes (LRU, that many entries); a request whose prompt
 extends a stored one copies the stored rows in and prefills only the
-remainder. The cache is written in place, so a stored prefix is a copy,
-never a view of the slot's rows.
+remainder. A stored prefix is a copy of the admission prefill's own
+one-row cache, never a view of the big cache, which is written in place.
+
+Over a mesh (``mesh=``, reference ``serve.py:125-300``) the slots split
+over ``data``: rank ``d`` owns slots ``[d·S/dp, (d+1)·S/dp)`` and its
+cache block holds their rows, its kv heads of them (`decode.cache_pspecs`).
+Every rank runs the same host program on the same submissions. A decode
+dispatch runs each rank's rows and gathers them over ``data`` before the
+host reads anything back, so the queue, slots and positions stay equal on
+every rank and every rank enters the same collectives in the same order.
+Admission prefills one request with batch 1 on every rank (tensor
+parallel within its ``model`` group), so the first token is the same
+everywhere; only the slot's owner writes its K/V rows.
 """
 
 from __future__ import annotations
@@ -54,9 +65,10 @@ import numpy as np
 import torch
 
 from kubegpu_tpu_torch import metrics
-from kubegpu_tpu_torch.workload import keys
+from kubegpu_tpu_torch.workload import keys, spmd
 from kubegpu_tpu_torch.workload.decode import (_pick_rows,
-                                               _select_token_rows, init_cache,
+                                               _select_token_rows,
+                                               gather_rows, init_cache,
                                                make_decode_chunk,
                                                make_forward_step,
                                                truncated_probs,
@@ -91,7 +103,11 @@ class DecodeServer:
     parameters live on. Greedy by default; ``temperature > 0`` samples
     (truncated by ``top_k``/``top_p``) from the integer seed ``rng``.
     ``prefix_hits``/``prefix_misses`` count prefix reuse;
-    ``spec_accepted``/``spec_proposed`` the drafts' acceptance."""
+    ``spec_accepted``/``spec_proposed`` the drafts' acceptance.
+
+    Over a ``mesh`` (a `spmd.make_mesh` mesh; ``dp`` must divide
+    ``slots``) ``params`` and ``draft_params`` are this rank's shards
+    (`spmd.shard_params`, the draft with its own config)."""
 
     def __init__(self, cfg: TransformerConfig, params, slots: int = 4,
                  max_seq: int | None = None, mesh=None,
@@ -112,6 +128,15 @@ class DecodeServer:
         if prefix_cache_size < 0:
             raise ValueError(
                 f"prefix_cache_size must be >= 0, got {prefix_cache_size}")
+        if mesh is not None:
+            spmd.check_mesh(mesh)
+        self.mesh = mesh
+        dp = spmd.axis_size(mesh, spmd.AXIS_DATA)
+        if slots % dp:
+            raise ValueError(f"slots {slots} not divisible by dp {dp}")
+        # this rank's slots: [row0, row0 + rows)
+        self.rows = slots // dp
+        self.row0 = spmd.axis_rank(mesh, spmd.AXIS_DATA) * self.rows
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -134,7 +159,7 @@ class DecodeServer:
         self._chunk_step = make_decode_chunk(
             cfg, mesh, chunk=self.chunk, temperature=self.temperature,
             top_k=self.top_k, top_p=self.top_p, eos_id=eos_id)
-        self.cache = init_cache(cfg, slots, self.max_seq, self.device)
+        self.cache = init_cache(cfg, slots, self.max_seq, self.device, mesh)
         self.pos = np.zeros(slots, np.int64)        # next position per slot
         self.tok = np.zeros(slots, np.int64)        # last emitted token
         # per-slot key root fold(rng, rid) of the resident request; zero
@@ -171,7 +196,7 @@ class DecodeServer:
             self.draft_params = draft_params
             self._dstep = make_forward_step(draft_cfg, mesh)
             self.dcache = init_cache(draft_cfg, slots, self.max_seq,
-                                     self.device)
+                                     self.device, mesh)
             self.prev = np.zeros(slots, np.int64)   # token at pos - 1
 
     # -- public API ----------------------------------------------------------
@@ -243,14 +268,15 @@ class DecodeServer:
         t0 = time.perf_counter()
         # one upload per step: tok, pos and the keys ride one [3, S]
         # transfer
-        up = self._upload(self.tok, self.pos, self.slot_key)
+        up = self._local(self._upload(self.tok, self.pos, self.slot_key))
         logits, self.cache = self._fstep(self.params, self.cache,
                                          up[0][:, None], up[1])
         rkeys = keys.fold(up[2], up[1]) if self.sampling else None
         nxt = _select_token_rows(logits[:, -1, :], rkeys, self.temperature,
                                  self.top_k, self.top_p)
-        # one batched [S] readback per step: the token is the product here
-        nxt = nxt.cpu().numpy()
+        # one batched [S] readback per step (every rank's rows): the token
+        # is the product here
+        nxt = gather_rows(self.mesh, nxt).cpu().numpy()
         itl_ms = (time.perf_counter() - t0) * 1e3
         for s in active:
             req = self.slot_req[s]
@@ -277,6 +303,11 @@ class DecodeServer:
     def _upload(self, *rows):
         """Host int64 vectors as one ``[len(rows), S]`` device tensor."""
         return torch.from_numpy(np.stack(rows)).to(self.device)
+
+    def _local(self, x):
+        """This rank's slots of ``x [..., S]`` (all of them without a
+        mesh)."""
+        return x[..., self.row0:self.row0 + self.rows]
 
     def _budget_mask(self, active: list):
         """Per-slot remaining ``max_new`` quota and active mask (idle
@@ -430,13 +461,15 @@ class DecodeServer:
         acceptance tallies."""
         t0 = time.perf_counter()
         budget, amask = self._budget_mask(active)
-        up = self._upload(self.prev, self.tok, self.pos, budget,
-                          self.slot_key)
-        amask_t = torch.from_numpy(amask).to(self.device)
+        up = self._local(self._upload(self.prev, self.tok, self.pos, budget,
+                                      self.slot_key))
+        amask_t = self._local(torch.from_numpy(amask).to(self.device))
         buf, n_tot, *state = self._spec_rounds(up[0], up[1], up[2], amask_t,
                                                up[3], up[4])
-        got = torch.cat([buf] + [x.long()[:, None] for x in [n_tot, *state]],
-                        1).cpu().numpy()
+        # every rank's rows, so the tallies and commits agree everywhere
+        got = gather_rows(self.mesh, torch.cat(
+            [buf] + [x.long()[:, None] for x in [n_tot, *state]],
+            1)).cpu().numpy()
         w = buf.shape[1]
         buf, (n_tot, prev_n, tok_n, pos_n, act_n, acc_n, acc_d) = \
             got[:, :w], got[:, w:].T
@@ -462,13 +495,14 @@ class DecodeServer:
         ``k`` proposals a slot, one batched verify, per-slot acceptance,
         the commit on the host."""
         t0 = time.perf_counter()
-        up = self._upload(self.prev, self.tok, self.pos, self.slot_key)
+        up = self._local(self._upload(self.prev, self.tok, self.pos,
+                                      self.slot_key))
         drafts, q_rows = self._spec_propose(up[0], up[1], up[2], up[3])
         chunk = torch.cat([up[1][:, None], drafts], 1)
         n_acc, extra = self._spec_verify(chunk, up[2], up[3], q_rows)
-        # one batched readback per round
-        got = torch.cat([n_acc[:, None], extra[:, None], chunk],
-                        1).cpu().numpy()
+        # one batched readback per round, of every rank's rows
+        got = gather_rows(self.mesh, torch.cat(
+            [n_acc[:, None], extra[:, None], chunk], 1)).cpu().numpy()
         wall_ms = (time.perf_counter() - t0) * 1e3
         for s in active:
             req = self.slot_req[s]
@@ -510,12 +544,13 @@ class DecodeServer:
         self._prefix_cache.move_to_end(best)
         return best, self._prefix_cache[best]
 
-    def _prefix_store(self, prompt: list, slot: int) -> None:
+    def _prefix_store(self, prompt: list, row: list) -> None:
         """Store the full prompt's K/V and its bucket-aligned prefixes: a
         shared system prompt with different user suffixes only ever
-        matches an intermediate prefix. Each entry is a copy of the slot's
-        first ``b`` positions, since the next request in the slot
-        overwrites its rows in place."""
+        matches an intermediate prefix. Each entry is a copy of the first
+        ``b`` positions of ``row``, the admission prefill's one-row cache,
+        which every rank holds (over a mesh the slot's rows live on one
+        ``data`` rank only), so a hit can splice into any slot."""
         entries = [(tuple(prompt[:b]), b)
                    for b in self.buckets if b < len(prompt)]
         entries.append((tuple(prompt),
@@ -525,8 +560,8 @@ class DecodeServer:
                 self._prefix_cache.move_to_end(key)
                 continue
             self._prefix_cache[key] = [
-                {kv: layer[kv][slot:slot + 1, :b].clone()
-                 for kv in ("k", "v")} for layer in self.cache]
+                {kv: layer[kv][:, :b].clone() for kv in ("k", "v")}
+                for layer in row]
         while len(self._prefix_cache) > self.prefix_cache_size:
             self._prefix_cache.popitem(last=False)
 
@@ -537,6 +572,21 @@ class DecodeServer:
         rkey = keys.fold(keys.as_key([req_key], self.device), pos)
         return _select_token_rows(logits[:, at, :], rkey, self.temperature,
                                   self.top_k, self.top_p)[0]
+
+    def _row_cache(self, cfg: TransformerConfig, length: int) -> list:
+        """A one-row cache for an admission prefill: every rank computes
+        it, over a mesh with its own kv heads."""
+        return init_cache(cfg, 1, length, self.device, self.mesh,
+                          split_rows=False)
+
+    def _install(self, big: list, row: list, slot: int, length: int) -> None:
+        """Copy the first ``length`` positions of the one-row cache ``row``
+        into ``slot``'s row of ``big``, on the rank that owns the slot."""
+        if not self.row0 <= slot < self.row0 + self.rows:
+            return
+        for b, r in zip(big, row):
+            for kv in ("k", "v"):
+                b[kv][slot - self.row0, :length] = r[kv][0, :length]
 
     def _admit(self, slot: int, req: _Request) -> None:
         """Prefill one request into ``slot``: the bucket-padded prompt
@@ -562,7 +612,7 @@ class DecodeServer:
         # every path, folds its position into this key
         req_key = int(keys.fold(self.rng, req.rid))
         if hit is not None:
-            row = init_cache(self.cfg, 1, self.max_seq, self.device)
+            row = self._row_cache(self.cfg, self.max_seq)
             for rw, st in zip(row, stored):
                 for kv in ("k", "v"):
                     rw[kv][:, :st[kv].shape[1]] = st[kv]
@@ -570,33 +620,28 @@ class DecodeServer:
             rem_padded[0, :len(rem)] = rem
             logits, row = self._fstep(self.params, row,
                                       torch.from_numpy(rem_padded), plen)
-            for big, rw in zip(self.cache, row):
-                for kv in ("k", "v"):
-                    big[kv][slot] = rw[kv][0]
+            self._install(self.cache, row, slot, self.max_seq)
             first_t = self._first_token(logits, len(rem) - 1, n - 1, req_key)
             self.prefix_hits += 1
         else:
-            small = init_cache(self.cfg, 1, bucket, self.device)
-            logits, small = self._fstep(self.params, small,
-                                        torch.from_numpy(padded), 0)
-            for big, sm in zip(self.cache, small):
-                for kv in ("k", "v"):
-                    big[kv][slot, :bucket] = sm[kv][0]
+            row = self._row_cache(self.cfg, bucket)
+            logits, row = self._fstep(self.params, row,
+                                      torch.from_numpy(padded), 0)
+            self._install(self.cache, row, slot, bucket)
             first_t = self._first_token(logits, n - 1, n - 1, req_key)
             if self.prefix_cache_size:
                 self.prefix_misses += 1
         if self.prefix_cache_size:
-            self._prefix_store(req.prompt, slot)
+            self._prefix_store(req.prompt, row)
         if self.spec:
-            small = init_cache(self.draft_cfg, 1, bucket, self.device)
+            small = self._row_cache(self.draft_cfg, bucket)
             _, small = self._dstep(self.draft_params, small,
                                    torch.from_numpy(padded), 0)
-            for big, sm in zip(self.dcache, small):
-                for kv in ("k", "v"):
-                    big[kv][slot, :bucket] = sm[kv][0]
+            self._install(self.dcache, small, slot, bucket)
             self.prev[slot] = req.prompt[-1]        # draft catch-up anchor
         # one scalar readback per admitted request: the host needs the
-        # first token for EOS and the output
+        # first token for EOS and the output (from logits gathered over
+        # model, the same on every rank)
         first = int(first_t)
         metrics.SERVE_TTFT_MS.observe(
             (time.perf_counter() - req.t_submit) * 1e3)

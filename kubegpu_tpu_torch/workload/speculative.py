@@ -91,7 +91,11 @@ def make_speculative_generate(target_cfg: TransformerConfig,
     i)`` and its acceptance with ``fold(round, 10000)``, as the
     reference's lineage. ``k`` is the draft lookahead a round; both models
     share the vocab. The draft catches up at ``pos - 1`` each round: after
-    a fully accepted round it never processed its own last proposal."""
+    a fully accepted round it never processed its own last proposal.
+
+    Over a mesh both parameter trees are this rank's shards: the one
+    stream runs tensor parallel within each ``model`` group, and every
+    ``data`` group computes the same stream (batch 1 does not split)."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if target_cfg.vocab != draft_cfg.vocab:
@@ -152,8 +156,10 @@ def make_speculative_generate(target_cfg: TransformerConfig,
                 f"exceeds max_seq ({max_seq})")
         # verify writes up to k + 1 positions past the last emitted token
         horizon = min(max_seq, -(-(t0 + n_new + k + 1) // 128) * 128)
-        t_cache = init_cache(target_cfg, 1, horizon, dev)
-        d_cache = init_cache(draft_cfg, 1, horizon, dev)
+        t_cache = init_cache(target_cfg, 1, horizon, dev, mesh,
+                             split_rows=False)
+        d_cache = init_cache(draft_cfg, 1, horizon, dev, mesh,
+                             split_rows=False)
         logits, t_cache = t_step(target_params, t_cache, prompt, 0)
         first = _select_token(logits[:, -1, :], keys.fold(root, 0),
                               temperature, top_k, top_p)

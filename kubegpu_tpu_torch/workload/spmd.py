@@ -201,15 +201,21 @@ def check_tp(cfg, tp: int) -> None:
         dims["d_ff"] = cfg.d_ff
     bad = [f"{k} {v}" for k, v in dims.items() if v % tp]
     if bad:
+        # a kv_heads tp does not divide would need wk/wv (and the cache's
+        # heads) replicated, their gradients reduced over model: not ported
+        hint = (" (a GQA layout with replicated wk/wv is not supported)"
+                if cfg.kv_heads % tp and not cfg.n_heads % tp else "")
         raise ValueError(f"tensor parallelism over tp={tp} needs "
-                         f"{', '.join(bad)} to divide by {tp}")
+                         f"{', '.join(bad)} to divide by {tp}{hint}")
 
 
-def _map_spec(fn, tree, specs):
+def map_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its matching tree of specs
+    (tuples come back as lists)."""
     if isinstance(tree, dict):
-        return {k: _map_spec(fn, tree[k], specs[k]) for k in tree}
+        return {k: map_specs(fn, tree[k], specs[k]) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return [_map_spec(fn, x, s) for x, s in zip(tree, specs)]
+        return [map_specs(fn, x, s) for x, s in zip(tree, specs)]
     return fn(tree, specs)
 
 
@@ -227,7 +233,7 @@ def shard_tree(full, specs, mesh) -> dict:
             x = x.chunk(tp, dim)[r]
         return x.contiguous().clone()
 
-    return _map_spec(shard, full, specs)
+    return map_specs(shard, full, specs)
 
 
 def gather_tree(local, specs, mesh) -> dict:
@@ -243,7 +249,7 @@ def gather_tree(local, specs, mesh) -> dict:
         dist.all_gather(parts, x, group=group)
         return torch.cat(parts, dim)
 
-    return _map_spec(gather, local, specs)
+    return map_specs(gather, local, specs)
 
 
 def shard_params(full, cfg, mesh) -> dict:

@@ -233,9 +233,8 @@ def test_moe_decode_server_streams_equal_jax():
 
 def test_moe_builds_and_the_mesh_is_still_refused():
     """``n_experts > 0`` builds, runs and trains on one device and over a
-    mesh; an object that is not a mesh raises TypeError; serving over a
-    mesh raises naming slice 6, part 2; top-k validation matches the
-    reference."""
+    mesh, and serves over a mesh; an object that is not a mesh raises
+    TypeError, in serving too; top-k validation matches the reference."""
     _, tcfg, _, tp = _setup()
     tmodel.make_forward(tcfg)
     tmodel.init_params(torch.Generator(), tcfg)
@@ -244,9 +243,10 @@ def test_moe_builds_and_the_mesh_is_still_refused():
 
     with single_rank_mesh() as mesh:
         tmodel.make_forward(tcfg, mesh=mesh)
+        DecodeServer(tcfg, tp, mesh=mesh)
     with pytest.raises(TypeError, match="DeviceMesh"):
         tmodel.make_forward(tcfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 6, part 2"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DecodeServer(tcfg, tp, mesh=object())
     x = torch.zeros((1, 2, 32))
     with pytest.raises(ValueError, match="top_k 5 must be in"):

@@ -218,11 +218,16 @@ def test_validation(setup):
 
 
 def test_out_of_slice_options_raise(setup):
-    """Only a mesh (slice 6) is refused now; sampling, a draft and the
-    prefix cache build."""
+    """Nothing is out of the slice now: a mesh builds (an object that is
+    not one raises TypeError); sampling, a draft and the prefix cache
+    build."""
+    from tests.torch_worlds import single_rank_mesh
+
     cfg, params, _ = setup
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DecodeServer(cfg, params, mesh=object())
+    with single_rank_mesh() as mesh:
+        assert DecodeServer(cfg, params, mesh=mesh).mesh is mesh
     assert DecodeServer(cfg, params, temperature=0.8).sampling
     assert DecodeServer(cfg, params, draft_params=params, draft_cfg=cfg).spec
     assert DecodeServer(cfg, params, prefix_cache_size=2) \

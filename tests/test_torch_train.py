@@ -360,12 +360,13 @@ def test_train_demo_remat_dots_and_sampled_generate(capsys):
     (["--checkpoint-dir", "x", "--checkpoint-every", "0"],
      "--checkpoint-every must be >= 1"),
     (["--dp", "1", "--sp", "1", "--tp", "1", "--checkpoint-dir", "x"],
-     "slice 6, part 2")],
+     "run under torchrun")],
     ids=["lora-accum", "checkpoint-every", "mesh"])
 def test_train_demo_refuses_later_slices(capsys, flags, message):
-    """Meshes train now; checkpoints over a mesh (slice 6, part 2) are
-    refused; LoRA and checkpoints are in, and refuse what the reference
-    refuses."""
+    """No later slice is refused now: meshes train, checkpoint and decode
+    (tests/test_torch_train_demo_mesh.py), and a checkpoint over a mesh
+    needs only the process group every mesh needs; LoRA and checkpoints
+    refuse what the reference refuses."""
     from kubegpu_tpu_torch.cmd import train_demo
 
     with pytest.raises(SystemExit) as exc:

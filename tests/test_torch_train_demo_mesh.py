@@ -4,7 +4,9 @@ under ``torchrun --nproc-per-node 4 --dp 2 --sp 2 --tp 1 --device cpu``
 keeps its rows, and rank 0's losses equal the single-process run's within
 1e-4 relative (float32: the ring's float32 probabilities and the
 single-device attention's bf16-rounded ones would differ by more in
-bf16). Also the mesh flags' refusals."""
+bf16). Over (2, 1, 2), --checkpoint-dir saves and resumes sharded (4
+steps equal 2 plus a resumed 2) and --generate decodes the global prompt
+rows as the single-process run does. Also the mesh flags' refusals."""
 
 import json
 import os
@@ -24,7 +26,8 @@ ARGS = ["--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "32",
         "--dtype", "float32"]
 
 
-def test_train_demo_under_torchrun_equals_one_process(capsys):
+def _torchrun(argv: list) -> dict:
+    """rank 0's JSON line of train_demo under torchrun on 4 ranks."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "WORLD_SIZE", "RANK", "MASTER_ADDR",
                         "MASTER_PORT", "LOCAL_RANK")}
@@ -32,13 +35,16 @@ def test_train_demo_under_torchrun_equals_one_process(capsys):
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "4", "-m", "kubegpu_tpu_torch.cmd.train_demo",
-         *ARGS, "--dp", "2", "--sp", "2", "--tp", "1"],
-        cwd=REPO, env=env, capture_output=True, text=True,
+         *argv], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=WORLD_TIMEOUT_S)
     assert r.returncode == 0, r.stderr[-3000:]
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
     assert len(lines) == 1, r.stdout          # rank 0 prints, once
-    mesh_run = json.loads(lines[0])
+    return json.loads(lines[0])
+
+
+def test_train_demo_under_torchrun_equals_one_process(capsys):
+    mesh_run = _torchrun([*ARGS, "--dp", "2", "--sp", "2", "--tp", "1"])
     assert train_demo.main(ARGS) == 0
     one = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert mesh_run["devices"] == 4 and one["devices"] == 1
@@ -47,12 +53,39 @@ def test_train_demo_under_torchrun_equals_one_process(capsys):
         assert abs(a - b) <= 1e-4 * abs(b), (mesh_run, one)
 
 
+def test_train_demo_checkpoint_and_generate_under_torchrun(capsys,
+                                                          tmp_path):
+    """Over (2, 1, 2): 4 steps saving every 2 equal 2 steps resumed from
+    the sharded step_2 (the file holds the global state, each rank takes
+    its shards), and --generate prints the single-process run's row."""
+    mesh = ["--dp", "2", "--sp", "1", "--tp", "2"]
+    ckpt = ["--checkpoint-dir", str(tmp_path), "--checkpoint-every", "2"]
+    whole = _torchrun([*ARGS, *mesh, *ckpt, "--steps", "4",
+                       "--generate", "4"])
+    assert sorted(os.listdir(tmp_path)) == ["step_2", "step_4"]
+    for name in os.listdir(tmp_path / "step_4"):
+        os.remove(tmp_path / "step_4" / name)
+    os.rmdir(tmp_path / "step_4")
+    resumed = _torchrun([*ARGS, *mesh, *ckpt, "--steps", "2"])
+    assert resumed["resumed_from_step"] == 2
+    assert resumed["losses_full"] == whole["losses_full"][2:]
+    assert train_demo.main([*ARGS, "--steps", "4", "--generate", "4"]) == 0
+    one = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(whole["generated"]) == 4
+    assert whole["generated"] == one["generated"]
+    for a, b in zip(whole["losses_full"], one["losses_full"]):
+        assert abs(a - b) <= 1e-4 * abs(b), (whole, one)
+
+
 @pytest.mark.parametrize("flags,message", [
     (["--dp", "2"], "must be given together"),
     (["--dp", "2", "--sp", "1", "--tp", "1"], "run under torchrun"),
-    (["--dp", "1", "--sp", "1", "--tp", "1", "--generate", "4"],
-     "slice 6, part 2")], ids=["partial", "no-group", "generate"])
+    (["--dp", "1", "--sp", "1", "--tp", "1", "--generate", "200"],
+     "exceeds the model's max_seq")], ids=["partial", "no-group", "generate"])
 def test_train_demo_mesh_flags_refused(capsys, flags, message):
+    """Refusals of the mesh flags; --generate over a mesh now decodes, and
+    refuses only what one device refuses (a horizon past max_seq), before
+    any process group forms."""
     with pytest.raises(SystemExit):
         train_demo.main(["--device", "cpu", *flags])
     assert message in capsys.readouterr().err

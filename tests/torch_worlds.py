@@ -260,3 +260,178 @@ def job_rank1_dies(rank: int, in_dir: str) -> dict:
         raise RuntimeError("rank 1 fails on purpose")
     dist.barrier()
     return {}
+
+
+def _serve_streams(cfg, params, reqs, **kw) -> tuple:
+    """The streams of ``reqs`` (``(prompt, max_new)``) through a fresh
+    port server, and the server."""
+    from kubegpu_tpu_torch.workload.serve import DecodeServer
+
+    srv = DecodeServer(cfg, params, **kw)
+    rids = [srv.submit(p, max_new=n) for p, n in reqs]
+    srv.run()
+    return [srv.result(r) for r in rids], srv
+
+
+def job_serve_mesh8(rank: int, in_dir: str) -> dict:
+    """The 8-rank world of tests/test_torch_serve_mesh.py: the server over
+    (2, 1, 4) against the same server on one device (greedy, the per-token
+    oracle, the prefix cache, the speculative server), and the cache
+    layout over (1, 1, 8)."""
+    from kubegpu_tpu_torch.workload.decode import cache_pspecs
+    from kubegpu_tpu_torch.workload.model import params_from_jax
+
+    inp = _load(in_dir)
+    out = {}
+    cfg = _cfg(inp["cfg"])
+    full = inp["params"]
+    mesh = spmd.make_mesh(8, 2, 1, 4, device="cpu")
+    local = spmd.shard_params(full, cfg, mesh)
+    one = params_from_jax(full, device="cpu")
+    for name, kw in inp["serve_cases"].items():
+        reqs = inp["prefix_reqs"] if "prefix_cache_size" in kw \
+            else inp["reqs"]
+        if kw.pop("oracle", False):
+            os.environ["KGTPU_FUSED_SERVE"] = "0"
+        try:
+            spec = {"draft_params": local, "draft_cfg": cfg} \
+                if "lookahead" in kw else {}
+            got, srv = _serve_streams(cfg, local, reqs, mesh=mesh, **kw,
+                                      **spec)
+            spec = {"draft_params": one, "draft_cfg": cfg} if spec else {}
+            want, ref = _serve_streams(cfg, one, reqs, **kw, **spec)
+        finally:
+            os.environ.pop("KGTPU_FUSED_SERVE", None)
+        out[name] = {"mesh": got, "one": want,
+                     "counts": [(s.prefix_hits, s.prefix_misses,
+                                 s.spec_accepted, s.spec_proposed)
+                                for s in (srv, ref)],
+                     "cache_rows": tuple(srv.cache[0]["k"].shape)}
+    try:
+        _serve_streams(cfg, local, inp["reqs"], mesh=mesh, slots=3)
+        out["odd_slots"] = None
+    except ValueError as exc:
+        out["odd_slots"] = str(exc)
+    # the cache layout at tp = 8: two kv heads replicated, eight split
+    gqa = _cfg(inp["gqa_cfg"])
+    tp8 = spmd.make_mesh(8, 1, 1, 8, device="cpu")
+    out["cache_pspecs"] = {
+        kv: cache_pspecs(_cfg({**inp["gqa_cfg"], "n_kv_heads": kv}), tp8)
+        for kv in (2, 8)}
+    try:
+        spmd.shard_params(full, gqa, tp8)
+        out["gqa_refusal"] = None
+    except ValueError as exc:
+        out["gqa_refusal"] = str(exc)
+    return out
+
+
+def _forward_cases(cfg, mesh, full, tokens, decode_pos, decode_toks) -> dict:
+    """This rank's logits of the sharded forward step: a prefill chunk at
+    position 0, then per-row decode steps at ``decode_pos``."""
+    from kubegpu_tpu_torch.workload.decode import (_data_rows, init_cache,
+                                                   make_forward_step)
+
+    local = spmd.shard_params(full, cfg, mesh)
+    r0, n = _data_rows(mesh, tokens.shape[0])
+    step = make_forward_step(cfg, mesh)
+    cache = init_cache(cfg, tokens.shape[0], cfg.max_seq, "cpu", mesh)
+    logits, cache = step(local, cache, torch.from_numpy(tokens[r0:r0 + n]),
+                         0)
+    out = {"rows": (r0, n), "prefill": logits.numpy(), "decode": []}
+    for pos, tok in zip(decode_pos, decode_toks):
+        logits, cache = step(local, cache,
+                             torch.from_numpy(tok[r0:r0 + n, None]),
+                             torch.from_numpy(pos[r0:r0 + n]))
+        out["decode"].append(logits.numpy())
+    return out
+
+
+def job_mesh4(rank: int, in_dir: str) -> dict:
+    """The 4-rank world of tests/test_torch_checkpoint_mesh.py: the sharded
+    forward step, `make_generate`, speculative decoding and sampled
+    serving over meshes of 4, and sharded checkpoints saved at (2, 1, 2)
+    and restored at (2, 1, 2) and (1, 1, 4)."""
+    from kubegpu_tpu_torch.workload.checkpoint import (
+        adamw_state, adamw_template, load_train_state, restore_checkpoint,
+        save_checkpoint, train_state_specs)
+    from kubegpu_tpu_torch.workload.decode import make_generate
+    from kubegpu_tpu_torch.workload.model import params_from_jax
+    from kubegpu_tpu_torch.workload.speculative import \
+        make_speculative_generate
+    from kubegpu_tpu_torch.workload.train import (init_sharded,
+                                                  make_train_step)
+
+    inp = _load(in_dir)
+    out = {}
+    cfg = _cfg(inp["cfg"])
+    full = inp["params"]
+    meshes = {shape: spmd.make_mesh(4, *shape, device="cpu")
+              for shape in ((2, 1, 2), (1, 1, 4), (4, 1, 1))}
+    for shape in ((2, 1, 2), (1, 1, 4)):
+        for name, kw, params in (("dense", inp["cfg"], full),
+                                 ("moe", inp["moe_cfg"], inp["moe_params"])):
+            out[("forward", shape, name)] = _forward_cases(
+                _cfg(kw), meshes[shape], params, inp["tokens"],
+                inp["decode_pos"], inp["decode_toks"])
+    mesh = meshes[(2, 1, 2)]
+    local = spmd.shard_params(full, cfg, mesh)
+    out["generate"] = make_generate(cfg, mesh)(
+        local, inp["tokens"], inp["n_new"]).numpy()
+    try:
+        make_generate(cfg, mesh)(local, inp["tokens"][:3], 2)
+        out["odd_batch"] = None
+    except ValueError as exc:
+        out["odd_batch"] = str(exc)
+    tp4 = meshes[(1, 1, 4)]
+    t4 = spmd.shard_params(full, cfg, tp4)
+    out["speculative"] = make_speculative_generate(cfg, cfg, k=3, mesh=tp4)(
+        t4, t4, inp["tokens"][0].tolist(), inp["n_new"])
+    # sampled serving with the rows split four ways and no sum changed
+    dp4 = meshes[(4, 1, 1)]
+    out["sampled"] = {
+        "mesh": _serve_streams(cfg, spmd.shard_params(full, cfg, dp4),
+                               inp["reqs"], mesh=dp4, **inp["sampled"])[0],
+        "one": _serve_streams(cfg, params_from_jax(full, device="cpu"),
+                              inp["reqs"], **inp["sampled"])[0]}
+
+    # checkpoints: 2 steps at (2, 1, 2), save, 2 more; then restore at
+    # (2, 1, 2) and (1, 1, 4) into fresh shards and take the same 2 steps
+    specs = train_state_specs(spmd.param_pspecs(cfg))
+    ckpt = os.path.join(in_dir, "ckpt")
+    params = spmd.shard_params(full, cfg, mesh)
+    step = make_train_step(cfg, mesh)
+    opt, losses = None, []
+    for i, batch in enumerate(inp["batches"]):
+        params, opt, loss = step(params, opt, batch)
+        losses.append(loss.item())
+        if i == 1:
+            save_checkpoint(ckpt, {"params": params,
+                                   "opt_state": adamw_state(opt, params)},
+                            2, mesh=mesh, specs=specs)
+            out["saved"] = _numpy_tree(spmd.gather_tree(
+                {"params": params, "opt_state": adamw_state(opt, params)},
+                specs, mesh))
+    out["losses"] = losses
+    for shape in ((2, 1, 2), (1, 1, 4)):
+        m = meshes[shape]
+        fresh, opt, optimizer = init_sharded(
+            torch.Generator().manual_seed(9), cfg, m)
+        state, at = restore_checkpoint(
+            ckpt, {"params": fresh, "opt_state": adamw_template(fresh)},
+            mesh=m, specs=specs)
+        load_train_state(opt, fresh, state)
+        step = make_train_step(cfg, m, optimizer)
+        resumed = []
+        for batch in inp["batches"][at:]:
+            fresh, opt, loss = step(fresh, opt, batch)
+            resumed.append(loss.item())
+        out[("resumed", shape)] = (at, resumed)
+    # a rank that cannot read: every rank returns (None, -1), and the next
+    # collective still meets
+    like = {"params": local, "opt_state": adamw_template(local)}
+    path = os.path.join(in_dir, "missing") if rank == 1 else ckpt
+    state, at = restore_checkpoint(path, like, mesh=mesh, specs=specs)
+    out["one_rank_unreadable"] = (state is None, at)
+    dist.barrier()
+    return out
