@@ -113,7 +113,26 @@ T = 2048, no remat), random weights from a seed:
    their losses equal to the uninterrupted run's bit for bit, with 6 K1,
    K2 and K3 sm90 launches a step; the save and restore seconds beside the
    checkpoint phase's. Last, ``dryrun_multichip`` over the card, with its
-   serving leg.
+   serving leg;
+20. device_side: ``NVMLBackend().enumerate()`` on the card, its index,
+   UUID, memory (MiB) and PCI bus id equal to what ``nvidia-smi
+   --query-gpu=index,uuid,memory.total,pci.bus_id`` prints (N/A where the
+   NVML withholds the bus id, on both sides) and ``/dev/nvidia<minor>``
+   present; ``GPUDeviceManager.update_node_info`` advertising every card,
+   the node annotation equal after the codec's round trip;
+   ``GPUScheduler.pod_fits_device`` placing a ``numgpu: 1`` pod and
+   refusing one card more than the host has with a reason naming
+   ``alpha.gpu/numgpu``; ``GPURuntimeHook`` over a dict-backed API
+   rewriting a config with a stale ``/dev/nvidia9`` entry and a one-rank
+   gang annotation (the card's ``/dev/nvidia<minor>``, ``nvidiactl``,
+   ``nvidia-uvm``; ``CUDA_VISIBLE_DEVICES`` = the UUID, ``MASTER_ADDR``,
+   ``MASTER_PORT``, ``WORLD_SIZE`` 1, ``RANK`` 0, ``LOCAL_RANK`` 0); then,
+   with exactly the hook's env, a subprocess that sees one card whose UUID
+   is the allocated one, and ``python -m kubegpu_tpu_torch.cmd.train_demo``
+   at the training config for 3 steps (a gang of one: the sharded step
+   over an NCCL group formed from that env), exiting 0 with finite losses
+   and 18 sm90 launches each of K1, K2 and K3, counted in that process
+   from zero (``launches_device_side_run``).
 
 The ``kernels`` line names each kernel's instance on the main path and
 the launches that went to each instance (``launches_serve_mesh_step``:
@@ -1964,6 +1983,228 @@ def serve_mesh_phase(dev, serve, ckpt, tmp) -> dict:
     return row
 
 
+# the device side: the hooked pod trains DEVICE_STEPS steps at the training
+# config (TRAIN_MODEL, TRAIN_BATCH, TRAIN_SEQ)
+DEVICE_STEPS = 3
+NODE = "smoke-rig"
+# The pod's command: ``python -m kubegpu_tpu_torch.cmd.train_demo ARGS``
+# (runpy, as -m runs it), with K1-K3's launch counts set to 0 before it and
+# printed as the last line after it.
+POD_RUNNER = """\
+import json, runpy, sys
+from kubegpu_tpu_torch.workload.kernels import flash
+kernels = (flash.flash_attention_with_lse, flash.flash_bwd_dq,
+           flash.flash_bwd_dkv)
+for k in kernels:
+    k.launches = 0
+    k.launches_by_instance = dict.fromkeys(k.launches_by_instance, 0)
+rc = 0
+try:
+    runpy.run_module("kubegpu_tpu_torch.cmd.train_demo", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+print(json.dumps({"launches": [k.launches for k in kernels],
+                  "by_instance": [dict(k.launches_by_instance)
+                                  for k in kernels]}))
+sys.exit(rc)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _StubAPI:
+    """The two reads the runtime hook makes of the API server, from
+    dicts."""
+
+    def __init__(self, pods: dict, nodes: dict):
+        self.pods, self.nodes = pods, nodes
+
+    def get_pod(self, name: str) -> dict:
+        return json.loads(json.dumps(self.pods[name]))
+
+    def get_node(self, name: str) -> dict:
+        return json.loads(json.dumps(self.nodes[name]))
+
+
+def _smi_inventory() -> list:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,uuid,memory.total,pci.bus_id",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return [[f.strip() for f in ln.split(",")]
+            for ln in out.strip().splitlines()]
+
+
+def device_side_phase() -> dict:
+    """NVML discovery, advertising, placement and the runtime hook on this
+    card, then a subprocess with the hook's env that trains on the card it
+    was given. Raises on any mismatch."""
+    import torch
+
+    from kubegpu_tpu_torch.core import codec, grammar
+    from kubegpu_tpu_torch.core.types import ContainerInfo, NodeInfo, PodInfo
+    from kubegpu_tpu_torch.node.manager import CONTROL_DEVICES, GPUDeviceManager
+    from kubegpu_tpu_torch.node.nvml import NVMLBackend
+    from kubegpu_tpu_torch.runtime.hook import (GANG_PROCESS_ANNOTATION,
+                                                GPURuntimeHook)
+    from kubegpu_tpu_torch.scheduler.gpu_scheduler import GPUScheduler
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # 1. NVML against nvidia-smi
+    backend = NVMLBackend()
+    t = time.perf_counter()
+    inv = backend.enumerate()
+    enumerate_ms = (time.perf_counter() - t) * 1e3
+    smi = _smi_inventory()
+    if len(smi) != len(inv.gpus) or not inv.gpus:
+        raise AssertionError(f"NVML lists {len(inv.gpus)} cards, "
+                             f"nvidia-smi {len(smi)}")
+    for gpu, (index, uuid, mem, bus) in zip(inv.gpus, smi):
+        want_bus = None if bus.upper() in ("[N/A]", "N/A") else bus.upper()
+        got = (str(gpu.index), gpu.uuid, f"{gpu.memory_bytes // 2**20} MiB",
+               gpu.pci_bus_id.upper() if gpu.pci_bus_id else None)
+        if got != (index, uuid, mem, want_bus):
+            raise AssertionError(f"NVML {got} != nvidia-smi "
+                                 f"{(index, uuid, mem, want_bus)}")
+        if not os.path.exists(f"/dev/nvidia{gpu.minor}"):
+            raise AssertionError(f"/dev/nvidia{gpu.minor} does not exist")
+    # 2. advertise, and the codec's round trip
+    mgr = GPUDeviceManager(backend)
+    info = NodeInfo(name=NODE)
+    mgr.update_node_info(info)
+    if info.allocatable.get(grammar.RESOURCE_NUM_GPU) != len(inv.gpus):
+        raise AssertionError(f"advertised {info.allocatable}")
+    meta = {"name": NODE}
+    codec.node_info_to_annotation(meta, info)
+    node = codec.annotation_to_node_info(meta)
+    if node.to_json() != info.to_json():
+        raise AssertionError("the node annotation did not round-trip")
+    # 3. placement: one card fits, one more than the host has does not
+    sched = GPUScheduler()
+    sched.add_node(NODE, node)
+
+    def pod(name, n):
+        return PodInfo(name=name, running_containers={
+            "main": ContainerInfo(requests={grammar.RESOURCE_NUM_GPU: n})})
+
+    one = pod("smoke-pod", 1)
+    fits, reasons, score = sched.pod_fits_device(node, one, True, True)
+    alloc = one.running_containers["main"].allocate_from
+    cards = [grammar.gpu_id_from_path(p) for p in alloc.values()
+             if grammar.gpu_id_from_path(p)]
+    if not fits or len(cards) != 1:
+        raise AssertionError(f"numgpu 1 did not fit: {reasons}")
+    sched.take_pod_resources(node, one, True)
+    too_many = pod("smoke-too-many", len(inv.gpus) + 1)
+    fits2, reasons2, _ = sched.pod_fits_device(node, too_many, False, True)
+    if fits2 or not any(grammar.RESOURCE_NUM_GPU in str(r.resource_name)
+                        for r in reasons2):
+        raise AssertionError(f"numgpu {len(inv.gpus) + 1} fit: {reasons2}")
+    # 4. the hook, over a dict-backed API: a stale /dev/nvidia9 entry and a
+    # one-rank gang coordinated on this node
+    one.node_name = NODE
+    pod_meta = {"name": one.name, "annotations": {
+        GANG_PROCESS_ANNOTATION: json.dumps({
+            "gang": 0, "rank": 0, "count": 1, "coordinator_node": NODE,
+            "coordinator_port": _free_port()})}}
+    codec.pod_info_to_annotation(pod_meta, one)
+    api = _StubAPI(
+        {one.name: {"metadata": pod_meta, "spec": {
+            "nodeName": NODE, "containers": [{"name": "main"}]}}},
+        {NODE: {"metadata": {"name": NODE, "annotations": {
+            codec.NODE_ADDRESS_ANNOTATION: "127.0.0.1"}}}})
+    config = {"devices": [
+        {"host_path": "/dev/nvidia9", "container_path": "/dev/nvidia9"},
+        {"host_path": "/dev/null", "container_path": "/dev/null"}],
+        "envs": [{"key": "CUDA_VISIBLE_DEVICES", "value": "9"}]}
+    cfg = GPURuntimeHook(api, mgr).create_container(one.name, "main", config)
+    env = {e["key"]: e["value"] for e in cfg["envs"]}
+    gpu = inv.gpu(cards[0])
+    devices = [d["host_path"] for d in cfg["devices"]]
+    want_devices = ["/dev/null", f"/dev/nvidia{gpu.minor}", *CONTROL_DEVICES]
+    if devices[:len(want_devices)] != want_devices or \
+            any(d.startswith("/dev/nvidia") and d not in want_devices
+                and d != "/dev/nvidia-uvm-tools" for d in devices):
+        raise AssertionError(f"hook devices {devices}")
+    want_env = {"CUDA_VISIBLE_DEVICES": gpu.uuid,
+                "NVIDIA_VISIBLE_DEVICES": gpu.uuid, "MASTER_ADDR": "127.0.0.1",
+                "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    if any(env.get(k) != v for k, v in want_env.items()) or \
+            "MASTER_PORT" not in env:
+        raise AssertionError(f"hook env {env}")
+    # 5. the pod: the parent's environment with every variable of the
+    # device and process contract replaced by exactly the hook's
+    child_env = {k: v for k, v in os.environ.items() if k not in (
+        "CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER",
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    child_env.update(env)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    seen = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; print(torch.cuda.device_count(), "
+         "torch.cuda.get_device_properties(0).uuid)"],
+        env=child_env, cwd=root, capture_output=True, text=True, timeout=120)
+    if seen.returncode != 0:
+        raise AssertionError(f"the pod's probe failed: {seen.stderr[-2000:]}")
+    count, uuid = seen.stdout.split()
+    if count != "1" or f"GPU-{uuid}" != gpu.uuid:
+        raise AssertionError(f"the pod sees {count} card(s), "
+                             f"GPU-{uuid} against {gpu.uuid}")
+    probe_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cmd = [sys.executable, "-c", POD_RUNNER,
+           "--steps", str(DEVICE_STEPS), "--batch", str(TRAIN_BATCH),
+           "--seq", str(TRAIN_SEQ), "--vocab", str(TRAIN_MODEL["vocab"]),
+           "--d-model", str(TRAIN_MODEL["d_model"]),
+           "--d-ff", str(TRAIN_MODEL["d_ff"]),
+           "--n-layers", str(TRAIN_MODEL["n_layers"]),
+           "--n-heads", str(TRAIN_MODEL["n_heads"])]
+    run = subprocess.run(cmd, env=child_env, cwd=root, capture_output=True,
+                         text=True, timeout=300)
+    if run.returncode != 0:
+        raise AssertionError(f"train_demo exited {run.returncode}: "
+                             f"{run.stderr[-3000:]}")
+    lines = run.stdout.strip().splitlines()
+    out, counted = json.loads(lines[-2]), json.loads(lines[-1])
+    losses = out["losses_full"]
+    import math
+
+    if len(losses) != DEVICE_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_demo losses {losses}")
+    # one K1, K2 and K3 a layer and step, all on the Hopper instance
+    want = TRAIN_MODEL["n_layers"] * DEVICE_STEPS
+    if counted["launches"] != [want] * 3 or any(
+            by.get("sm90") != want for by in counted["by_instance"]):
+        raise AssertionError(f"the pod's K1-K3 launches {counted}")
+    row = {"phase": "device_side",
+           "inventory": [{"index": g.index, "uuid": g.uuid, "minor": g.minor,
+                          "memory_bytes": g.memory_bytes,
+                          "pci_bus_id": g.pci_bus_id} for g in inv.gpus],
+           "nvidia_smi": smi, "nvml_enumerate_ms": enumerate_ms,
+           "advertised": sorted(info.allocatable),
+           "allocation": alloc, "score": score,
+           "too_many_reasons": [str(r) for r in reasons2],
+           "devices": devices, "env": env, "pod_uuid": f"GPU-{uuid}",
+           "pod_probe_s": probe_s,
+           "launches_fwd_dq_dkv": counted["launches"],
+           "launches_by_instance": counted["by_instance"], "train_demo": {
+               k: out[k] for k in ("devices", "losses_full", "tokens_per_s",
+                                   "device", "loader")},
+           "train_demo_s": time.perf_counter() - t,
+           "seconds": time.perf_counter() - t0, "ok": True}
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2016,6 +2257,7 @@ def main() -> int:
     with world_of_one(dev) as tmp:
         mesh = train_mesh_phase(dev, train, tmp)
         serve_mesh = serve_mesh_phase(dev, serve, ckpt, tmp)
+    device = device_side_phase()
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
     # and MoE steps' are their last step's; the ring's its kernel pass at
@@ -2050,6 +2292,7 @@ def main() -> int:
         "launches_ring_pass_sp2": ring_pass_sp2[0],
         "launches_train_mesh_step": mesh_step[0],
         "launches_serve_mesh_step": resume_step[0],
+        "launches_device_side_run": device["launches_fwd_dq_dkv"][0],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
         "op_ms": k1["op_ms"], "previous_ms": k1["previous_ms"],
         "serve_shape_previous_ms": k1["previous_ms"],
@@ -2072,6 +2315,7 @@ def main() -> int:
         "launches_ring_pass_sp2": ring_pass_sp2[1],
         "launches_train_mesh_step": mesh_step[1],
         "launches_serve_mesh_step": resume_step[1],
+        "launches_device_side_run": device["launches_fwd_dq_dkv"][1],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
         "delta_max_abs_err": kb["delta_max_abs_err"], "ms": kb["dq_ms"],
         "previous_ms": kb["dq_previous_ms"], "delta_ms": kb["delta_ms"],
@@ -2092,6 +2336,7 @@ def main() -> int:
         "launches_ring_pass_sp2": ring_pass_sp2[2],
         "launches_train_mesh_step": mesh_step[2],
         "launches_serve_mesh_step": resume_step[2],
+        "launches_device_side_run": device["launches_fwd_dq_dkv"][2],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
         "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
         "plain_ms": kb["dkv_plain_ms"],

@@ -7,7 +7,11 @@ its paths (``workload/model.py``, ``workload/decode.py``,
 ``workload/ulysses.py``, ``workload/pipeline.py``,
 ``workload/kernels/flash.py``,
 ``cmd/serve_demo.py``, ``cmd/train_demo.py``) so each module has an
-obvious counterpart. It
+obvious counterpart. The device side for NVIDIA cards mirrors the
+reference's node and scheduler paths too (``core/``, ``node/``,
+``runtime/hook.py``, ``topology/tree.py``, ``allocator/``,
+``scheduler/gpu_scheduler.py``), and ``plugins/`` holds the two files the
+JAX package's node agent and scheduler load to carry GPUs. It
 imports torch and numpy, never JAX and nothing of ``kubegpu_tpu``: what it
 needs from there it keeps as its own copy (``metrics.py``,
 ``workload/presets.py``, ``workload/data.py``).

@@ -62,6 +62,8 @@ def main(argv=None) -> int:
     ap.add_argument("--vocab", type=int, default=None, help="default 512")
     ap.add_argument("--d-model", type=int, default=None,
                     help="default 128 (d_ff follows at 4x)")
+    ap.add_argument("--d-ff", type=int, default=None,
+                    help="the FFN width, when not 4x d_model")
     ap.add_argument("--n-layers", type=int, default=None, help="default 2")
     ap.add_argument("--n-heads", type=int, default=None, help="default 4")
     ap.add_argument("--dp", type=int, default=None,
@@ -125,6 +127,8 @@ def main(argv=None) -> int:
     if args.d_model is not None:
         explicit["d_model"] = args.d_model
         explicit["d_ff"] = 4 * args.d_model
+    if args.d_ff is not None:
+        explicit["d_ff"] = args.d_ff
     if args.n_layers is not None:
         explicit["n_layers"] = args.n_layers
     if args.n_heads is not None:

@@ -195,7 +195,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "workload.speculative", "workload.keys", "native",
                  "workload.lora", "workload.checkpoint", "workload.moe",
                  "workload.spmd", "workload.ring", "workload.ulysses",
-                 "workload.pipeline", "entry"):
+                 "workload.pipeline", "entry", "core.types", "core.grammar",
+                 "core.codec", "utils", "node.backend", "node.fake",
+                 "node.nvml", "node.manager", "runtime.hook", "topology.tree",
+                 "allocator.translate", "allocator.scorers",
+                 "allocator.grpalloc", "scheduler.gpu_scheduler",
+                 "plugins.device.gpu_device",
+                 "plugins.scheduler.gpu_scheduler_plugin"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -435,3 +435,17 @@ def job_mesh4(rank: int, in_dir: str) -> dict:
     out["one_rank_unreadable"] = (state is None, at)
     dist.barrier()
     return out
+
+
+def job_gang_env(rank: int, in_dir: str) -> dict:
+    """Leave the spawned world and form a new one from the environment the
+    GPU runtime hook wrote for this rank's pod (`MASTER_ADDR`,
+    `MASTER_PORT`, `WORLD_SIZE`, `RANK`, `LOCAL_RANK`), as a scheduled
+    pod's binary does; then one all-reduce over it."""
+    env = _load(in_dir)["envs"][rank]
+    dist.destroy_process_group()
+    formed = spmd.distributed_init_from_env(env, device="cpu")
+    x = torch.tensor([float(rank + 1)])
+    dist.all_reduce(x)
+    return {"formed": formed, "rank": dist.get_rank(),
+            "world": dist.get_world_size(), "sum": float(x.item())}
