@@ -128,11 +128,32 @@ T = 2048, no remat), random weights from a seed:
    ``nvidia-uvm``; ``CUDA_VISIBLE_DEVICES`` = the UUID, ``MASTER_ADDR``,
    ``MASTER_PORT``, ``WORLD_SIZE`` 1, ``RANK`` 0, ``LOCAL_RANK`` 0); then,
    with exactly the hook's env, a subprocess that sees one card whose UUID
-   is the allocated one, and ``python -m kubegpu_tpu_torch.cmd.train_demo``
-   at the training config for 3 steps (a gang of one: the sharded step
-   over an NCCL group formed from that env), exiting 0 with finite losses
-   and 18 sm90 launches each of K1, K2 and K3, counted in that process
-   from zero (``launches_device_side_run``).
+   is the allocated one. Then the port's own node agent
+   (``python -m kubegpu_tpu_torch.cmd.node_agent --backend nvml``, started
+   without the device and process variables, from the checkout's root)
+   over a dict-backed stub of the API server's JSON paths: its advertised
+   inventory equals the in-process one, with a heartbeat, and ``/healthz``
+   answers 200; ``python -m kubegpu_tpu_torch.cmd.cri_hook --server``
+   rewrites the stale config as the in-process hook does, and exits
+   non-zero with a 409 naming ``AllocationMismatch`` for a pod that asks
+   for one card more than it was allocated; ``POST
+   /v1/launch-container`` runs ``python -m kubegpu_tpu_torch.cmd.train_demo``
+   at the training config for 3 steps (a gang of one: the sharded step over
+   an NCCL group formed from the hook's env), which exits 0 with finite
+   losses and 18 sm90 launches each of K1, K2 and K3, counted in that
+   process from zero (``launches_node_agent_run``), and whose
+   ``pod.alpha/ContainerStatus`` in the stub says exited 0; SIGTERM stops
+   the agent with exit 0 within 10 s;
+21. checkers: under the dispatch/sync/build counter
+   (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
+   phase's traffic at full width, fused and through the per-token oracle:
+   equal streams, the fused syncs one a chunk plus one an admission and
+   within 1.5/chunk a token, the oracle's at least one a decode step, no
+   kernel build after a warm-up drain; then one training step at the
+   training config, whose ``kgt.flash_fwd`` and ``kgt.flash_bwd``
+   dispatches (the backward's on the autograd engine's thread) equal K1's
+   and K2's own launch counts, 6 each (``launches_checkers_step``,
+   ``dispatches_checkers_step``).
 
 The ``kernels`` line names each kernel's instance on the main path and
 the launches that went to each instance (``launches_serve_mesh_step``:
@@ -2033,6 +2054,131 @@ class _StubAPI:
         return json.loads(json.dumps(self.nodes[name]))
 
 
+class _StubAPIServer:
+    """A dict-backed stand-in of the control plane's API server, over
+    HTTP on loopback: the JSON paths the port's client calls (``POST`` and
+    ``GET /nodes``, ``GET /nodes/<n>``, ``PATCH /nodes/<n>/metadata``,
+    ``GET /pods/<n>``, ``PUT /pods/<n>/annotations``)."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.nodes, self.pods = {}, {}
+        lock = threading.Lock()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _reply(self, code, body):
+                blob = json.dumps(body).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(blob)))
+                self.end_headers()
+                self.wfile.write(blob)
+
+            def _body(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                return json.loads(self.rfile.read(n) or b"{}")
+
+            def _route(self, method):
+                parts = self.path.strip("/").split("/")
+                body = self._body() if method in ("POST", "PATCH",
+                                                  "PUT") else None
+                with lock:
+                    if parts == ["nodes"] and method == "GET":
+                        return 200, {"items": list(outer.nodes.values())}
+                    if parts == ["nodes"] and method == "POST":
+                        name = body["metadata"]["name"]
+                        if name in outer.nodes:
+                            return 409, {"error": f"node {name} exists"}
+                        outer.nodes[name] = body
+                        return 200, body
+                    kind, name = (parts + [None, None])[:2]
+                    table = {"nodes": outer.nodes,
+                             "pods": outer.pods}.get(kind)
+                    if table is None or name not in table:
+                        return 404, {"error": f"{kind} {name} not found"}
+                    obj = table[name]
+                    meta = obj.setdefault("metadata", {})
+                    if method == "GET" and len(parts) == 2:
+                        return 200, obj
+                    if method == "PATCH" and parts[2:] == ["metadata"]:
+                        for key, val in body.items():
+                            if isinstance(val, dict):
+                                meta.setdefault(key, {}).update(val)
+                            else:
+                                meta[key] = val
+                        return 200, obj
+                    if method == "PUT" and parts[2:] == ["annotations"]:
+                        meta["annotations"] = dict(body)
+                        return 200, obj
+                return 404, {"error": f"no route {method} {self.path}"}
+
+            def do_GET(self):
+                self._reply(*self._route("GET"))
+
+            def do_POST(self):
+                self._reply(*self._route("POST"))
+
+            def do_PATCH(self):
+                self._reply(*self._route("PATCH"))
+
+            def do_PUT(self):
+                self._reply(*self._route("PUT"))
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
+        threading.Thread(target=self._server.serve_forever,
+                         daemon=True).start()
+
+    def close(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def _wait_for(pred, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(0.05)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+def _http_json(url: str, body=None) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _pod_result(logs: str) -> tuple:
+    """The pod runner's two result lines in its log: train_demo's JSON
+    summary and the launch counts it prints last."""
+    docs = []
+    for line in logs.splitlines():
+        try:
+            doc = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(doc, dict):
+            docs.append(doc)
+    summary = [d for d in docs if "losses_full" in d]
+    counted = [d for d in docs if "launches" in d and "by_instance" in d]
+    if not summary or not counted:
+        raise AssertionError(f"the pod's log has no result: {logs[-3000:]}")
+    return summary[-1], counted[-1]
+
+
 def _smi_inventory() -> list:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=index,uuid,memory.total,pci.bus_id",
@@ -2140,12 +2286,12 @@ def device_side_phase() -> dict:
     if any(env.get(k) != v for k, v in want_env.items()) or \
             "MASTER_PORT" not in env:
         raise AssertionError(f"hook env {env}")
-    # 5. the pod: the parent's environment with every variable of the
+    # 5. the probe: the parent's environment with every variable of the
     # device and process contract replaced by exactly the hook's
-    child_env = {k: v for k, v in os.environ.items() if k not in (
+    base_env = {k: v for k, v in os.environ.items() if k not in (
         "CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER",
         "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
-    child_env.update(env)
+    child_env = dict(base_env, **env)
     root = os.path.dirname(os.path.abspath(__file__))
     t = time.perf_counter()
     seen = subprocess.run(
@@ -2160,31 +2306,8 @@ def device_side_phase() -> dict:
         raise AssertionError(f"the pod sees {count} card(s), "
                              f"GPU-{uuid} against {gpu.uuid}")
     probe_s = time.perf_counter() - t
-    t = time.perf_counter()
-    cmd = [sys.executable, "-c", POD_RUNNER,
-           "--steps", str(DEVICE_STEPS), "--batch", str(TRAIN_BATCH),
-           "--seq", str(TRAIN_SEQ), "--vocab", str(TRAIN_MODEL["vocab"]),
-           "--d-model", str(TRAIN_MODEL["d_model"]),
-           "--d-ff", str(TRAIN_MODEL["d_ff"]),
-           "--n-layers", str(TRAIN_MODEL["n_layers"]),
-           "--n-heads", str(TRAIN_MODEL["n_heads"])]
-    run = subprocess.run(cmd, env=child_env, cwd=root, capture_output=True,
-                         text=True, timeout=300)
-    if run.returncode != 0:
-        raise AssertionError(f"train_demo exited {run.returncode}: "
-                             f"{run.stderr[-3000:]}")
-    lines = run.stdout.strip().splitlines()
-    out, counted = json.loads(lines[-2]), json.loads(lines[-1])
-    losses = out["losses_full"]
-    import math
-
-    if len(losses) != DEVICE_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"train_demo losses {losses}")
-    # one K1, K2 and K3 a layer and step, all on the Hopper instance
-    want = TRAIN_MODEL["n_layers"] * DEVICE_STEPS
-    if counted["launches"] != [want] * 3 or any(
-            by.get("sm90") != want for by in counted["by_instance"]):
-        raise AssertionError(f"the pod's K1-K3 launches {counted}")
+    # 6. the port's node agent, over a stub API server, runs the pod
+    agent = _node_agent_run(root, base_env, info, mgr, config)
     row = {"phase": "device_side",
            "inventory": [{"index": g.index, "uuid": g.uuid, "minor": g.minor,
                           "memory_bytes": g.memory_bytes,
@@ -2194,14 +2317,321 @@ def device_side_phase() -> dict:
            "allocation": alloc, "score": score,
            "too_many_reasons": [str(r) for r in reasons2],
            "devices": devices, "env": env, "pod_uuid": f"GPU-{uuid}",
-           "pod_probe_s": probe_s,
-           "launches_fwd_dq_dkv": counted["launches"],
-           "launches_by_instance": counted["by_instance"], "train_demo": {
-               k: out[k] for k in ("devices", "losses_full", "tokens_per_s",
-                                   "device", "loader")},
-           "train_demo_s": time.perf_counter() - t,
+           "pod_probe_s": probe_s, **agent,
            "seconds": time.perf_counter() - t0, "ok": True}
     emit(row)
+    return row
+
+
+def _node_agent_run(root, base_env, info, mgr, config) -> dict:
+    """``python -m kubegpu_tpu_torch.cmd.node_agent --backend nvml`` over a
+    stub API server: its advertised inventory equals the in-process one
+    (``info``), ``/healthz`` answers 200, ``cmd.cri_hook --server`` rewrites
+    ``config`` as the in-process hook does and exits non-zero with a 409
+    naming AllocationMismatch for a pod short of a card, ``launch-container``
+    runs the training pod (train_demo at the training config, DEVICE_STEPS
+    steps, a gang of one) to exit 0 with finite losses, 18 sm90 launches
+    each of K1-K3 and the pod's ``pod.alpha/ContainerStatus`` in the stub,
+    and SIGTERM stops the agent with exit 0 within 10 s. Returns the
+    fields of the device_side row."""
+    import math
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    from kubegpu_tpu_torch.core import codec, grammar
+    from kubegpu_tpu_torch.core.types import ContainerInfo, PodInfo
+    from kubegpu_tpu_torch.runtime.hook import (GANG_PROCESS_ANNOTATION,
+                                                GPURuntimeHook)
+    from kubegpu_tpu_torch.runtime.launcher import STATUS_ANNOTATION_KEY
+    from kubegpu_tpu_torch.scheduler.gpu_scheduler import GPUScheduler
+
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-agent-")
+    stub = _StubAPIServer()
+    healthz = _free_port()
+    err = open(os.path.join(tmp, "agent.err"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubegpu_tpu_torch.cmd.node_agent",
+         "--api", stub.url, "--node-name", NODE, "--node-address",
+         "127.0.0.1", "--backend", "nvml", "--register-node", "--cri-port",
+         "0", "--healthz-port", str(healthz), "--advertise-interval", "1",
+         "--launch-log-dir", os.path.join(tmp, "logs")],
+        cwd=root, env=base_env, stdout=subprocess.PIPE, stderr=err, text=True)
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    try:
+        cri = None
+        for line in proc.stdout:
+            if line.startswith("cri-hook serving on "):
+                cri = "http://" + line.split()[-1]
+            if line.startswith("node-agent advertising"):
+                break
+        if cri is None:
+            proc.wait(timeout=10)
+            with open(err.name) as f:
+                raise AssertionError(f"the agent exited {proc.returncode}: "
+                                     f"{f.read()[-3000:]}")
+
+        def advertised_annotations():
+            ann = (stub.nodes.get(NODE, {}).get("metadata") or {}).get(
+                "annotations") or {}
+            return ann if codec.NODE_ANNOTATION_KEY in ann else None
+
+        ann = _wait_for(advertised_annotations, 60,
+                        "the agent's first advertise")
+        first_advertise_s = time.perf_counter() - t0
+        advertised = codec.annotation_to_node_info({"annotations": ann})
+        if advertised.to_json() != info.to_json():
+            raise AssertionError(f"the agent advertised {advertised.to_json()}"
+                                 f", in-process {info.to_json()}")
+        heartbeat = codec.annotation_to_heartbeat({"annotations": ann})
+        if heartbeat is None:
+            raise AssertionError(f"no heartbeat in {sorted(ann)}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{healthz}/healthz",
+                                    timeout=10) as r:
+            healthz_status = r.status
+        # place the pod on the advertised node, a one-rank gang; and a pod
+        # that asks for one card more than it was allocated
+        sched = GPUScheduler()
+        sched.add_node(NODE, advertised)
+        pod = PodInfo(name="agent-pod", running_containers={
+            "main": ContainerInfo(requests={grammar.RESOURCE_NUM_GPU: 1})})
+        fits, reasons, _ = sched.pod_fits_device(advertised, pod, True, True)
+        alloc = pod.running_containers["main"].allocate_from
+        if not fits or not alloc:
+            raise AssertionError(f"the pod did not fit the agent's node: "
+                                 f"{reasons}")
+        short = PodInfo(name="agent-short", running_containers={
+            "main": ContainerInfo(
+                requests={grammar.RESOURCE_NUM_GPU: 2},
+                allocate_from=dict(alloc))})
+        for p in (pod, short):
+            meta = {"name": p.name, "annotations": {
+                GANG_PROCESS_ANNOTATION: json.dumps({
+                    "gang": 1, "rank": 0, "count": 1,
+                    "coordinator_node": NODE,
+                    "coordinator_port": _free_port()})}}
+            codec.pod_info_to_annotation(meta, p)
+            stub.pods[p.name] = {"metadata": meta, "spec": {
+                "nodeName": NODE, "containers": [{"name": "main"}]}}
+
+        def hook_cli(name):
+            return subprocess.run(
+                [sys.executable, "-m", "kubegpu_tpu_torch.cmd.cri_hook",
+                 "--server", cri, "--pod", name, "--container", "main"],
+                input=json.dumps(config), cwd=root, env=base_env,
+                capture_output=True, text=True, timeout=120)
+
+        served = hook_cli(pod.name)
+        if served.returncode != 0:
+            raise AssertionError(f"cri_hook failed: {served.stderr[-2000:]}")
+        in_process = GPURuntimeHook(_StubAPI(stub.pods, stub.nodes),
+                                    mgr).create_container(
+            pod.name, "main", json.loads(json.dumps(config)))
+        served_cfg = json.loads(served.stdout)
+        if served_cfg != in_process:
+            raise AssertionError(f"served {served_cfg} != in-process "
+                                 f"{in_process}")
+        refused = hook_cli(short.name)
+        if refused.returncode == 0 or "409" not in refused.stderr or \
+                "AllocationMismatch" not in refused.stderr:
+            raise AssertionError(f"numgpu 2 on one card was not refused: "
+                                 f"{refused.returncode} {refused.stderr}")
+        # the training pod, launched through the agent
+        t = time.perf_counter()
+        launched = _http_json(f"{cri}/v1/launch-container", {
+            "pod": pod.name, "container": "main", "config": config,
+            "command": [
+                sys.executable, "-c", POD_RUNNER, "--steps",
+                str(DEVICE_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--vocab", str(TRAIN_MODEL["vocab"]),
+                "--d-model", str(TRAIN_MODEL["d_model"]),
+                "--d-ff", str(TRAIN_MODEL["d_ff"]),
+                "--n-layers", str(TRAIN_MODEL["n_layers"]),
+                "--n-heads", str(TRAIN_MODEL["n_heads"])]})
+        cid = launched["id"]
+
+        def exited():
+            st = _http_json(f"{cri}/v1/container-status?id={cid}")
+            return st if st["state"] == "exited" else None
+
+        status = _wait_for(exited, 300, "the training pod to exit")
+        pod_s = time.perf_counter() - t
+        logs = _http_json(f"{cri}/v1/container-logs?id={cid}")["logs"]
+        if status["exit_code"] != 0:
+            raise AssertionError(f"the pod exited {status['exit_code']}: "
+                                 f"{logs[-3000:]}")
+        out, counted = _pod_result(logs)
+        losses = out["losses_full"]
+        if len(losses) != DEVICE_STEPS or \
+                not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_demo losses {losses}")
+        # one K1, K2 and K3 a layer and step, all on the Hopper instance
+        want = TRAIN_MODEL["n_layers"] * DEVICE_STEPS
+        if counted["launches"] != [want] * 3 or any(
+                by.get("sm90") != want for by in counted["by_instance"]):
+            raise AssertionError(f"the pod's K1-K3 launches {counted}")
+
+        def reported_exit():
+            raw = stub.pods[pod.name]["metadata"]["annotations"].get(
+                STATUS_ANNOTATION_KEY)
+            main = json.loads(raw or "{}").get("main") or {}
+            return main if main.get("state") == "exited" else None
+
+        reported = _wait_for(reported_exit, 30, "the pod's status annotation")
+        if reported["exit_code"] != 0:
+            raise AssertionError(f"status annotation {reported}")
+        # SIGTERM: the agent stops cleanly
+        t = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=10)
+        stop_s = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"the agent exited {rc} on SIGTERM")
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        err.close()
+        stub.close()
+    return {"agent_first_advertise_s": first_advertise_s,
+            "agent_healthz": healthz_status, "agent_heartbeat": heartbeat,
+            "served_config": served_cfg,
+            "refused": refused.stderr.strip().splitlines()[-1],
+            "pod_s": pod_s, "pod_status": reported,
+            "launches_fwd_dq_dkv": counted["launches"],
+            "launches_by_instance": counted["by_instance"], "train_demo": {
+                k: out[k] for k in ("devices", "losses_full", "tokens_per_s",
+                                    "device", "loader")},
+            "agent_stop_s": stop_s}
+
+
+def _counted_drain(cfg, params, prompts, fused) -> dict:
+    """One greedy drain of ``prompts`` under the counter, in the section
+    "fused" or "oracle": the streams, the server's decode steps (a chunk
+    each when fused, a token step each on the oracle) and the section's
+    counts."""
+    import torch
+
+    from kubegpu_tpu_torch.analysis import dispatchcount as dc
+    from kubegpu_tpu_torch.workload.serve import DecodeServer
+
+    os.environ["KGTPU_FUSED_SERVE"] = "1" if fused else "0"
+    try:
+        srv = DecodeServer(cfg, params, slots=SERVE_SLOTS)
+    finally:
+        os.environ.pop("KGTPU_FUSED_SERVE", None)
+    name = "fused" if fused else "oracle"
+    steps = 0
+    t0 = time.perf_counter()
+    with dc.section(name):
+        rids = [srv.submit(p, max_new=SERVE_MAX_NEW) for p in prompts]
+        while srv.pending:
+            srv.step()
+            steps += 1
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [srv.result(r) for r in rids]
+    tokens = sum(map(len, outs))
+    got = dc.section_counts(name)
+    return {"outs": outs, "tokens": tokens, "steps": steps,
+            "chunk": srv.chunk, "wall_s": wall, **got,
+            "dispatches_per_token": got["dispatches"] / tokens,
+            "syncs_per_token": got["syncs"] / tokens}
+
+
+def checkers_phase(dev) -> dict:
+    """The dispatch/sync/build counter on the card. Serving: a float32
+    greedy drain of the serve phase's traffic at full width, fused and
+    through the per-token oracle, after a warm-up drain: equal streams,
+    one sync a chunk plus one an admission on the fused path and its
+    syncs per token within the reference's 1.5/chunk budget, at least one
+    sync a decode step on the oracle (a step decodes every active slot at
+    once, so per generated token that is 1/slots), and no kernel build
+    after the warm-up. Training: one step at the training config, whose
+    ``kgt.flash_fwd`` and ``kgt.flash_bwd`` dispatches (the backward's on
+    the autograd engine's thread) equal the kernels' own launch counts,
+    6 each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.analysis import dispatchcount as dc
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  init_params)
+    from kubegpu_tpu_torch.workload.train import (init_sharded,
+                                                  make_train_step)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(TransformerConfig(**MODEL), dtype="float32")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompts = _serve_prompts(cfg)
+    _drain(cfg, params, prompts)                 # warm-up, not counted
+    tcfg = TransformerConfig(**TRAIN_MODEL)
+    dc.install()
+    try:
+        dc.reset()
+        fused = _counted_drain(cfg, params, prompts, True)
+        oracle = _counted_drain(cfg, params, prompts, False)
+        serve_builds = dc.counts()["builds_total"]
+        del params
+        torch.cuda.empty_cache()
+        tparams, opt_state, optimizer = init_sharded(
+            torch.Generator(device=dev).manual_seed(11), tcfg)
+        step = make_train_step(tcfg, optimizer=optimizer)
+        batch = torch.from_numpy(bigram_tokens(
+            tcfg.vocab, TRAIN_BATCH * (TRAIN_SEQ + 1), seed=13).astype(
+                np.int64).reshape(TRAIN_BATCH, -1)).to(dev)
+        _zero_launch_counts()
+        with dc.section("train"):
+            tparams, opt_state, loss = step(tparams, opt_state, batch)
+            loss = float(loss)
+        train_launches = list(_launch_counts())
+        train_ops = dc.op_counts("train")
+        train = dc.section_counts("train")
+    finally:
+        dc.uninstall()
+    del tparams, opt_state, optimizer
+    torch.cuda.empty_cache()
+    budget = 1.5 / fused["chunk"]
+    n = tcfg.n_layers
+    row = {"phase": "checkers", "slots": SERVE_SLOTS,
+           "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
+           "dtype": "float32", "tokens": fused["tokens"],
+           "fused_equals_oracle": fused["outs"] == oracle["outs"]}
+    for name, d in (("fused", fused), ("oracle", oracle)):
+        row.update({f"{name}_{k}": d[k] for k in (
+            "dispatches", "syncs", "builds", "steps", "wall_s",
+            "dispatches_per_token", "syncs_per_token")})
+    row.update({
+        "fused_sync_budget_per_token": budget,
+        "oracle_syncs_per_step": oracle["syncs"] / oracle["steps"],
+        "serve_builds_after_warmup": serve_builds,
+        "train_loss": loss, "train_dispatches": train["dispatches"],
+        "train_syncs": train["syncs"],
+        "train_kgt_flash_fwd": train_ops.get("kgt.flash_fwd", 0),
+        "train_kgt_flash_bwd": train_ops.get("kgt.flash_bwd", 0),
+        "launches_fwd_dq_dkv": train_launches,
+        "seconds": time.perf_counter() - t0})
+    row["ok"] = bool(
+        row["fused_equals_oracle"]
+        and all(len(o) == SERVE_MAX_NEW for o in fused["outs"])
+        and fused["syncs_per_token"] <= budget
+        and fused["syncs"] == fused["steps"] + SERVE_REQUESTS
+        and row["oracle_syncs_per_step"] >= 1.0
+        and serve_builds == 0 and train["builds"] == 0
+        and train_launches == [n] * 3
+        and row["train_kgt_flash_fwd"] == train_launches[0]
+        and row["train_kgt_flash_bwd"] == train_launches[1]
+        and np.isfinite(loss))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"checkers phase failed: {row}")
     return row
 
 
@@ -2258,6 +2688,7 @@ def main() -> int:
         mesh = train_mesh_phase(dev, train, tmp)
         serve_mesh = serve_mesh_phase(dev, serve, ckpt, tmp)
     device = device_side_phase()
+    checkers = checkers_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
     # and MoE steps' are their last step's; the ring's its kernel pass at
@@ -2292,7 +2723,9 @@ def main() -> int:
         "launches_ring_pass_sp2": ring_pass_sp2[0],
         "launches_train_mesh_step": mesh_step[0],
         "launches_serve_mesh_step": resume_step[0],
-        "launches_device_side_run": device["launches_fwd_dq_dkv"][0],
+        "launches_node_agent_run": device["launches_fwd_dq_dkv"][0],
+        "launches_checkers_step": checkers["launches_fwd_dq_dkv"][0],
+        "dispatches_checkers_step": checkers["train_kgt_flash_fwd"],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
         "op_ms": k1["op_ms"], "previous_ms": k1["previous_ms"],
         "serve_shape_previous_ms": k1["previous_ms"],
@@ -2315,7 +2748,9 @@ def main() -> int:
         "launches_ring_pass_sp2": ring_pass_sp2[1],
         "launches_train_mesh_step": mesh_step[1],
         "launches_serve_mesh_step": resume_step[1],
-        "launches_device_side_run": device["launches_fwd_dq_dkv"][1],
+        "launches_node_agent_run": device["launches_fwd_dq_dkv"][1],
+        "launches_checkers_step": checkers["launches_fwd_dq_dkv"][1],
+        "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
         "delta_max_abs_err": kb["delta_max_abs_err"], "ms": kb["dq_ms"],
         "previous_ms": kb["dq_previous_ms"], "delta_ms": kb["delta_ms"],
@@ -2336,7 +2771,9 @@ def main() -> int:
         "launches_ring_pass_sp2": ring_pass_sp2[2],
         "launches_train_mesh_step": mesh_step[2],
         "launches_serve_mesh_step": resume_step[2],
-        "launches_device_side_run": device["launches_fwd_dq_dkv"][2],
+        "launches_node_agent_run": device["launches_fwd_dq_dkv"][2],
+        "launches_checkers_step": checkers["launches_fwd_dq_dkv"][2],
+        "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),
         "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
         "plain_ms": kb["dkv_plain_ms"],

@@ -1,0 +1,197 @@
+"""A JSON-wire client of the JAX package's API server, for the node side.
+
+The port's copy of the subset of ``kubegpu_tpu/cluster/httpapi.py``'s
+``HTTPAPIClient`` that the node agent, the advertiser, the runtime hook
+and the workload supervisor call: nodes (``get_node``, ``create_node``,
+``patch_node_metadata``) and pods (``get_pod``,
+``update_pod_annotations``), on the same paths. The API server always
+serves the JSON wire; the binary stream wire and the watchers are not
+part of the port.
+
+Requests ride a per-thread keep-alive connection (HTTP/1.1). Idempotent
+verbs (GET, PUT, PATCH, DELETE) retry a transport fault up to three
+attempts with capped, jittered exponential backoff; POST is sent once (a
+blind resend of a create could apply twice). A 429 carries the server's
+advised ``retry_after_s``, which an idempotent verb waits out before it
+sends again. Error replies come back typed: 404 as `NotFound` (a
+``KeyError``), 409 as `Conflict`, 429 as `TooManyRequests`.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import random
+import socket
+import threading
+import urllib.parse
+
+
+class NotFound(KeyError):
+    """Object missing (HTTP 404). ``per_pod`` carries the server's
+    per-pod reasons for batched verbs."""
+
+    def __init__(self, message: str = "", per_pod: dict | None = None):
+        super().__init__(message)
+        self.per_pod = dict(per_pod or {})
+
+    def __str__(self) -> str:
+        return str(self.args[0]) if self.args else ""
+
+
+class Conflict(RuntimeError):
+    """The write would contradict committed state (HTTP 409)."""
+
+    def __init__(self, message: str = "", per_pod: dict | None = None):
+        super().__init__(message)
+        self.per_pod = dict(per_pod or {})
+
+
+class TooManyRequests(RuntimeError):
+    """Flow-control rejection (HTTP 429) with the server's advised
+    backoff."""
+
+    def __init__(self, message: str = "", per_pod: dict | None = None,
+                 retry_after_s: float = 0.0):
+        super().__init__(message)
+        self.per_pod = dict(per_pod or {})
+        self.retry_after_s = float(retry_after_s)
+
+
+class HTTPAPIClient:
+    """Nodes and pods of the API server at ``base_url``, over HTTP."""
+
+    IDEMPOTENT_METHODS = frozenset({"GET", "PUT", "PATCH", "DELETE"})
+    RETRY_ATTEMPTS = 3
+    RETRY_BASE_S = 0.05
+    RETRY_CAP_S = 0.5
+
+    def __init__(self, base_url: str, timeout: float = 30.0):
+        self.base_url = base_url.rstrip("/")
+        self.timeout = timeout
+        self._stop = threading.Event()
+        self._local = threading.local()   # this thread's connection
+        self._conn_lock = threading.Lock()
+        self._conns: set = set()          # every live connection
+        self.retry_count = 0              # transport retries, under _conn_lock
+        self.throttled_count = 0          # 429s honoured, under _conn_lock
+
+    def _roundtrip(self, method: str, path: str, data, timeout: float):
+        """One request over this thread's keep-alive connection; returns
+        ``(status, body bytes)``. A transport fault closes the connection
+        so the next attempt dials again."""
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            if self._stop.is_set():
+                raise ConnectionError("client is closed")
+            split = urllib.parse.urlsplit(self.base_url)
+            cls = http.client.HTTPSConnection if split.scheme == "https" \
+                else http.client.HTTPConnection
+            conn = cls(split.hostname, split.port, timeout=timeout)
+            self._local.conn = conn
+            with self._conn_lock:
+                self._conns.add(conn)
+        try:
+            if conn.sock is None:
+                conn.timeout = timeout
+                conn.connect()
+                conn.sock.setsockopt(socket.IPPROTO_TCP,
+                                     socket.TCP_NODELAY, 1)
+            conn.sock.settimeout(timeout)
+            conn.request(method, path, body=data,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            return resp.status, resp.read()
+        except Exception:
+            self._local.conn = None
+            with self._conn_lock:
+                self._conns.discard(conn)
+            conn.close()
+            raise
+
+    def _backoff(self, attempt: int) -> float:
+        return min(self.RETRY_CAP_S, self.RETRY_BASE_S * 2 ** attempt)
+
+    def _req(self, method: str, path: str, body=None):
+        """One API round trip under the retry policy of the module
+        docstring; returns the decoded document."""
+        attempts = self.RETRY_ATTEMPTS \
+            if method in self.IDEMPOTENT_METHODS else 1
+        data = json.dumps(body).encode() if body is not None else None
+        for attempt in range(attempts):
+            try:
+                status, payload = self._roundtrip(method, path, data,
+                                                  self.timeout)
+            except (http.client.HTTPException, OSError):
+                # ConnectionError and TimeoutError are OSErrors
+                if attempt + 1 >= attempts:
+                    raise
+                with self._conn_lock:
+                    self.retry_count += 1
+                # jitter, so a fleet of clients does not resend in step
+                self._stop.wait(self._backoff(attempt)
+                                * (0.5 + random.random() / 2.0))
+                continue
+            text = payload.decode()
+            try:
+                doc = json.loads(text) if text else {}
+            except ValueError:
+                doc = {"error": text}
+            if status < 400:
+                return doc if isinstance(doc, dict) else {}
+            if status == 429 and attempt + 1 < attempts:
+                advised = float(doc.get("retry_after_s") or 0.0) \
+                    if isinstance(doc, dict) else 0.0
+                with self._conn_lock:
+                    self.throttled_count += 1
+                # the server's advice wins; jitter only above it
+                delay = advised if advised > 0 else self._backoff(attempt)
+                self._stop.wait(delay * (1.0 + random.random() / 4.0))
+                continue
+            if status == 429:
+                raise self._server_error(TooManyRequests, doc)
+            if status == 404:
+                raise self._server_error(NotFound, doc)
+            if status == 409:
+                raise self._server_error(Conflict, doc)
+            detail = doc.get("error", doc) if isinstance(doc, dict) else doc
+            raise RuntimeError(f"HTTP {status}: {detail}")
+
+    @staticmethod
+    def _server_error(cls, doc):
+        """The typed error from the server's error document, its per-pod
+        detail and advised ``retry_after_s`` kept."""
+        per_pod, text, retry_after = None, str(doc), None
+        if isinstance(doc, dict):
+            per_pod = doc.get("per_pod")
+            text = doc.get("error", text)
+            retry_after = doc.get("retry_after_s")
+        if cls is TooManyRequests:
+            return cls(text, per_pod=per_pod,
+                       retry_after_s=float(retry_after or 0.0))
+        return cls(text, per_pod=per_pod)
+
+    def close(self) -> None:
+        """Close every connection; later requests raise."""
+        self._stop.set()
+        with self._conn_lock:
+            conns, self._conns = list(self._conns), set()
+        for conn in conns:
+            conn.close()
+
+    # -- nodes and pods ------------------------------------------------------
+
+    def create_node(self, node: dict) -> dict:
+        return self._req("POST", "/nodes", node)
+
+    def get_node(self, name: str) -> dict:
+        return self._req("GET", f"/nodes/{name}")
+
+    def patch_node_metadata(self, name: str, patch: dict) -> dict:
+        return self._req("PATCH", f"/nodes/{name}/metadata", patch)
+
+    def get_pod(self, name: str) -> dict:
+        return self._req("GET", f"/pods/{name}")
+
+    def update_pod_annotations(self, name: str, annotations: dict) -> dict:
+        return self._req("PUT", f"/pods/{name}/annotations", annotations)

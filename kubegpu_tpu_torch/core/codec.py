@@ -24,6 +24,15 @@ POD_ANNOTATION_KEY = "pod.alpha/DeviceInformation"
 # inventory; the runtime hook resolves a gang's coordinator node through
 # it (node names need not resolve).
 NODE_ADDRESS_ANNOTATION = "node.alpha/Address"
+# Wall-clock seconds the advertiser stamps on every pass that lands: the
+# liveness signal the JAX control plane's NodeLifecycle ages into
+# Ready/Stale/Lost. Wall clock, since the stamp crosses hosts.
+NODE_HEARTBEAT_ANNOTATION = "node.alpha/Heartbeat"
+# Per-card health map {uuid: "healthy" | ...} from the device backend; a
+# card that is not healthy is withheld from the advertised allocatable.
+NODE_CHIP_HEALTH_ANNOTATION = "node.alpha/ChipHealth"
+# Per-device dead-link bitmask map {id: mask}; zero masks are dropped.
+NODE_LINK_HEALTH_ANNOTATION = "node.alpha/LinkHealth"
 
 # Kubernetes quantity suffixes -> multiplier; the reference reads requests
 # through resource.Quantity.Value(), which rounds up to a whole int64.
@@ -79,6 +88,71 @@ def annotation_to_node_info(meta: dict, existing: NodeInfo | None = None) -> Nod
         for key, val in existing.used.items():
             node_info.used[key] = val
     return node_info
+
+
+def heartbeat_to_annotation(meta: dict, timestamp: float) -> None:
+    """Stamp the advertiser's liveness heartbeat (wall-clock seconds)."""
+    _annotations(meta)[NODE_HEARTBEAT_ANNOTATION] = json.dumps(
+        round(float(timestamp), 3))
+
+
+def annotation_to_heartbeat(meta: dict) -> float | None:
+    """The heartbeat timestamp; None when there is none or it does not
+    parse (liveness is then not tracked for the node)."""
+    raw = (meta.get("annotations") or {}).get(NODE_HEARTBEAT_ANNOTATION)
+    if raw is None:
+        return None
+    try:
+        return float(json.loads(raw))
+    except (TypeError, ValueError):
+        return None
+
+
+def chip_health_to_annotation(meta: dict, health: dict) -> None:
+    """Serialize the backend's per-card health map."""
+    _annotations(meta)[NODE_CHIP_HEALTH_ANNOTATION] = json.dumps(
+        dict(health), sort_keys=True)
+
+
+def annotation_to_chip_health(meta: dict) -> dict:
+    """Decode the per-card health map; {} = everything healthy."""
+    raw = (meta.get("annotations") or {}).get(NODE_CHIP_HEALTH_ANNOTATION)
+    if not raw:
+        return {}
+    try:
+        decoded = json.loads(raw)
+    except (TypeError, ValueError):
+        return {}
+    return decoded if isinstance(decoded, dict) else {}
+
+
+def link_health_to_annotation(meta: dict, dead_links: dict) -> None:
+    """Serialize the per-device dead-link bitmask map, zero masks
+    dropped (absence means every link up)."""
+    _annotations(meta)[NODE_LINK_HEALTH_ANNOTATION] = json.dumps(
+        {k: int(v) for k, v in dict(dead_links).items() if int(v)},
+        sort_keys=True)
+
+
+def annotation_to_link_health(meta: dict) -> dict:
+    """Decode the dead-link map; {} = every link up."""
+    raw = (meta.get("annotations") or {}).get(NODE_LINK_HEALTH_ANNOTATION)
+    if not raw:
+        return {}
+    try:
+        decoded = json.loads(raw)
+    except (TypeError, ValueError):
+        return {}
+    if not isinstance(decoded, dict):
+        return {}
+    out = {}
+    for dev_id, mask in decoded.items():
+        try:
+            if int(mask):
+                out[str(dev_id)] = int(mask)
+        except (TypeError, ValueError):
+            continue
+    return out
 
 
 def pod_info_to_annotation(meta: dict, pod_info: PodInfo) -> None:

@@ -1,8 +1,9 @@
 """The serving metrics: a minimal copy of ``kubegpu_tpu/metrics.py``.
 
 Only what the serving path reads: the exponential-bucket ``Histogram``,
-the settable ``Gauge`` and the four serving metrics (time to first
-token, inter-token latency, queue depth, slot utilization).
+the settable ``Gauge``, the four serving metrics (time to first token,
+inter-token latency, queue depth, slot utilization) and their Prometheus
+exposition, which the node agent serves on ``/metrics``.
 """
 
 from __future__ import annotations
@@ -92,3 +93,24 @@ _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
 def reset_all() -> None:
     for m in _ALL:
         m.reset()
+
+
+def prometheus_text() -> str:
+    """Every metric above in Prometheus exposition format."""
+    lines = []
+    for m in _ALL:
+        if isinstance(m, Histogram):
+            lines.append(f"# TYPE {m.name} histogram")
+            with m._lock:
+                cumulative = 0
+                for bound, count in zip(m.buckets, m.counts):
+                    cumulative += count
+                    lines.append(f'{m.name}_bucket{{le="{bound:g}"}} '
+                                 f"{cumulative}")
+                lines.append(f'{m.name}_bucket{{le="+Inf"}} {m.n}')
+                lines.append(f"{m.name}_sum {m.total:.6g}")
+                lines.append(f"{m.name}_count {m.n}")
+        else:
+            lines.append(f"# TYPE {m.name} gauge")
+            lines.append(f"{m.name} {m.value}")
+    return "\n".join(lines) + "\n"

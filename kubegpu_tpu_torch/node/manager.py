@@ -8,17 +8,25 @@ container-create time turns ``allocate_from`` into device nodes plus the
 ``CUDA_VISIBLE_DEVICES`` env. It works as a device of the JAX package's
 ``DevicesManager`` (``get_name``, ``start``, ``update_node_info``,
 ``chip_health``, ``allocate``), which loads it from
-``plugins/device/gpu_device.py``.
+``plugins/device/gpu_device.py``, and of the port's own `DevicesManager`,
+which the port's node agent builds.
 """
 
 from __future__ import annotations
 
+import importlib.util
+import logging
 import os
 
 from kubegpu_tpu_torch.core import grammar
 from kubegpu_tpu_torch.core.types import add_group_resource
 from kubegpu_tpu_torch.node import nvml
 from kubegpu_tpu_torch.node.backend import CHIP_HEALTHY, GPUBackend, GPUInventory
+
+log = logging.getLogger(__name__)
+
+# The factory a device plugin file exports (`devicemanager.go:46-77`).
+DEVICE_PLUGIN_SYMBOL = "create_device_plugin"
 
 # Device nodes every CUDA container needs beside its cards (the reference's
 # Allocate adds them from nvidia-docker's volume/device list,
@@ -180,3 +188,111 @@ class GPUDeviceManager:
         visible = ",".join(g.uuid for g in gpus)
         env = {"CUDA_VISIBLE_DEVICES": visible, "NVIDIA_VISIBLE_DEVICES": visible}
         return [], devices, env
+
+
+def load_device_plugins(directory: str) -> list:
+    """Import every ``*.py`` in ``directory`` (sorted; names starting with
+    ``_`` skipped) and call its `DEVICE_PLUGIN_SYMBOL` factory. A file
+    that fails to import, lacks the factory or whose factory raises is
+    skipped with a log line: one broken plugin must not take the node
+    agent down (the copy of ``kubegpu_tpu/plugins.py``)."""
+    plugins: list = []
+    if not directory or not os.path.isdir(directory):
+        return plugins
+    for fname in sorted(os.listdir(directory)):
+        if not fname.endswith(".py") or fname.startswith("_"):
+            continue
+        path = os.path.join(directory, fname)
+        try:
+            spec = importlib.util.spec_from_file_location(
+                f"kubegpu_tpu_torch_plugin_{fname[:-3]}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            factory = getattr(mod, DEVICE_PLUGIN_SYMBOL)
+            plugins.append(factory())
+        except Exception:
+            log.exception("device plugin %s failed to load, skipping", path)
+    return plugins
+
+
+class DevicesManager:
+    """Registry that fans out to the node's devices
+    (`crishim/pkg/device/devicemanager.go:13-122`; the port's copy of
+    ``kubegpu_tpu/node/manager.py``'s). A device that fails to start is
+    marked non-operational and skipped: the node keeps advertising what
+    still works."""
+
+    def __init__(self):
+        self.devices: list = []
+        self.operational: dict = {}
+
+    def add_device(self, device) -> None:
+        name = device.get_name()  # probe before mutating
+        self.devices.append(device)
+        self.operational[name] = False
+
+    def add_devices_from_plugins(self, directory: str) -> int:
+        """Register the devices of a plugin directory (the agent's
+        ``--device-plugins-dir``); returns how many registered."""
+        n = 0
+        for plugin in load_device_plugins(directory):
+            try:
+                self.add_device(plugin)
+                n += 1
+            except Exception:
+                log.exception("device plugin %r failed to register, "
+                              "skipping", plugin)
+        return n
+
+    def start(self) -> None:
+        for dev in self.devices:
+            try:
+                dev.start()
+                self.operational[dev.get_name()] = True
+            except Exception:
+                log.exception("device %s failed to start", dev.get_name())
+                self.operational[dev.get_name()] = False
+
+    def _live(self) -> list:
+        return [d for d in self.devices if self.operational.get(d.get_name())]
+
+    def update_node_info(self, node_info) -> None:
+        for dev in self._live():
+            dev.update_node_info(node_info)
+
+    def _merged(self, probe_name: str) -> dict:
+        """One probe merged over the operational devices; a device whose
+        probe fails reports nothing (healthy, every link up)."""
+        out: dict = {}
+        for dev in self._live():
+            probe = getattr(dev, probe_name, None)
+            if probe is None:
+                continue
+            try:
+                out.update(probe() or {})
+            except Exception:
+                log.warning("%s probe failed for device %s", probe_name,
+                            dev.get_name(), exc_info=True)
+        return out
+
+    def chip_health(self) -> dict:
+        """Per-device health merged across operational devices (card
+        UUIDs are unique)."""
+        return self._merged("chip_health")
+
+    def link_health(self) -> dict:
+        """Per-device dead-link masks merged across operational devices."""
+        return self._merged("link_health")
+
+    def allocate_devices(self, pod, container) -> tuple[list, list, dict]:
+        """Every operational device's (volumes, device paths, env) for one
+        container, concatenated (`devicemanager.go:104-122`)."""
+        volumes: list = []
+        devices: list = []
+        env: dict = {}
+        for dev in self._live():
+            v, d, e = dev.allocate(pod, container)
+            volumes.extend(v)
+            devices.extend(d)
+            env.update(e)
+        return volumes, devices, env

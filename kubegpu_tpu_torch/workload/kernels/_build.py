@@ -11,7 +11,9 @@ checkout, keyed by a hash of every source and header, so an edited
 kernel never loads a stale library. nvcc's output (``-Xptxas -v``: the
 registers, shared memory and spills of each kernel) is kept beside each
 library as ``<name>.log``. Nothing is downloaded and nothing outside
-``csrc/`` is built.
+``csrc/`` is built. Each callable in `build_listeners` is called with a
+source's name as its nvcc starts (``analysis/dispatchcount.py`` counts
+builds so).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict = {}
+build_listeners: list = []
 
 
 def _nvcc() -> str:
@@ -73,6 +76,8 @@ def build_all() -> dict:
     procs = []
     try:
         for src, lib in todo:
+            for listener in build_listeners:
+                listener(src.stem)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                    str(src)]

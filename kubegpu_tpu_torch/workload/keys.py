@@ -59,6 +59,13 @@ def fold(key, data):
     return _mix32((_mix32(key) + _mix32((data & _M32) ^ _GOLDEN)) & _M32)
 
 
+def fold_int(key: int, data: int) -> int:
+    """`fold` of two Python ints, as a Python int: the same arithmetic on
+    the host, with no tensor to read back (a request's key root)."""
+    return _mix32((_mix32(key & _M32) + _mix32((data & _M32) ^ _GOLDEN))
+                  & _M32)
+
+
 def bits(key, n: int):
     """``[..., n]`` 32-bit values: counter ``0..n-1`` folded into each key."""
     key = torch.as_tensor(key, dtype=torch.int64)

@@ -274,8 +274,8 @@ class DecodeServer:
         rkeys = keys.fold(up[2], up[1]) if self.sampling else None
         nxt = _select_token_rows(logits[:, -1, :], rkeys, self.temperature,
                                  self.top_k, self.top_p)
-        # one batched [S] readback per step (every rank's rows): the token
-        # is the product here
+        # host-sync: allowed -- one batched [S] readback per step (every
+        # rank's rows): the token is the product here
         nxt = gather_rows(self.mesh, nxt).cpu().numpy()
         itl_ms = (time.perf_counter() - t0) * 1e3
         for s in active:
@@ -328,7 +328,8 @@ class DecodeServer:
         amask_t = torch.from_numpy(amask).to(self.device)
         self.cache, toks, n_emit, tok_n, pos_n, _ = self._chunk_step(
             self.params, self.cache, up[0], up[1], amask_t, up[2], up[3])
-        # one readback per chunk: emitted tokens, counts and carry state
+        # host-sync: allowed -- one readback per chunk: emitted tokens,
+        # counts and carry state
         got = torch.cat([toks, n_emit[:, None], tok_n[:, None],
                          pos_n[:, None]], dim=1).cpu().numpy()
         toks, n_emit = got[:, :self.chunk], got[:, self.chunk]
@@ -466,6 +467,7 @@ class DecodeServer:
         amask_t = self._local(torch.from_numpy(amask).to(self.device))
         buf, n_tot, *state = self._spec_rounds(up[0], up[1], up[2], amask_t,
                                                up[3], up[4])
+        # host-sync: allowed -- one readback per dispatch of rounds, of
         # every rank's rows, so the tallies and commits agree everywhere
         got = gather_rows(self.mesh, torch.cat(
             [buf] + [x.long()[:, None] for x in [n_tot, *state]],
@@ -500,7 +502,8 @@ class DecodeServer:
         drafts, q_rows = self._spec_propose(up[0], up[1], up[2], up[3])
         chunk = torch.cat([up[1][:, None], drafts], 1)
         n_acc, extra = self._spec_verify(chunk, up[2], up[3], q_rows)
-        # one batched readback per round, of every rank's rows
+        # host-sync: allowed -- one batched readback per round, of every
+        # rank's rows
         got = gather_rows(self.mesh, torch.cat(
             [n_acc[:, None], extra[:, None], chunk], 1)).cpu().numpy()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -610,7 +613,7 @@ class DecodeServer:
                 hit = None
         # the request's key root: every selection of this request, on
         # every path, folds its position into this key
-        req_key = int(keys.fold(self.rng, req.rid))
+        req_key = keys.fold_int(self.rng, req.rid)
         if hit is not None:
             row = self._row_cache(self.cfg, self.max_seq)
             for rw, st in zip(row, stored):
@@ -639,9 +642,9 @@ class DecodeServer:
                                    torch.from_numpy(padded), 0)
             self._install(self.dcache, small, slot, bucket)
             self.prev[slot] = req.prompt[-1]        # draft catch-up anchor
-        # one scalar readback per admitted request: the host needs the
-        # first token for EOS and the output (from logits gathered over
-        # model, the same on every rank)
+        # host-sync: allowed -- one scalar readback per admitted request:
+        # the host needs the first token for EOS and the output (from
+        # logits gathered over model, the same on every rank)
         first = int(first_t)
         metrics.SERVE_TTFT_MS.observe(
             (time.perf_counter() - req.t_submit) * 1e3)

@@ -185,7 +185,8 @@ def make_speculative_generate(target_cfg: TransformerConfig,
                                                keys.fold(rkey, 10_000))
             else:
                 extra = tout[n_acc]
-            # one readback a round: the acceptance length bounds the loop
+            # host-sync: allowed -- one readback a round: the acceptance
+            # length bounds the loop
             got = torch.cat([n_acc[None], extra[None], drafts]).tolist()
             n, new = got[0], got[2:2 + got[0]] + [got[1]]
             out.extend(new)

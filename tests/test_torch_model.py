@@ -201,7 +201,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "allocator.translate", "allocator.scorers",
                  "allocator.grpalloc", "scheduler.gpu_scheduler",
                  "plugins.device.gpu_device",
-                 "plugins.scheduler.gpu_scheduler_plugin"):
+                 "plugins.scheduler.gpu_scheduler_plugin",
+                 "cluster.httpapi", "node.advertiser", "runtime.server",
+                 "runtime.launcher", "cmd.common", "cmd.node_agent",
+                 "cmd.cri_hook", "analysis.dispatchcount", "analysis.engine",
+                 "analysis.dataflow", "analysis.rules.hostsync",
+                 "analysis.rules.suppressions", "analysis.__main__"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
