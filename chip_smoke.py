@@ -95,13 +95,26 @@ T = 2048, no remat), random weights from a seed:
    single-shard kernels' error, the gradients within the same ratios of
    the same ring run through the plain versions; its forward + backward
    ms beside the single-shard kernels';
-18. train_mesh: a world-size-1 NCCL process group (a ``file://`` store
+18. tp_heads: K1, K2 and K3 on the head spans of tensor parallelism over
+   head counts tp does not divide, at the training shape (B 4, T 2048, 18
+   heads, head_dim 128, bf16, causal) with tp = 4 (576 columns a rank,
+   4.5 heads; each rank attends the 5 heads its columns overlap) and tp =
+   2, every virtual rank in one process (``model.tp_attention_in_process``:
+   every virtual rank's ``model.span_attention`` times its ``wo`` rows,
+   summed; autograd sums the ranks' q/k/v cotangents as the sharded
+   block's reduce-scatter does): the sum and the q/k/v gradients against a
+   float32 plain reference, within 1.25x (mean) and 2x (max) of the
+   error of the single-device kernels over all 18 heads (the product with
+   ``wo`` split into the same partial sums) and of the same in-process
+   pass through the plain versions; tp sm90 launches of each kernel a pass;
+   each rank's K1 and K2 + K3 ms beside the 18-head kernels' ms over tp;
+19. train_mesh: a world-size-1 NCCL process group (a ``file://`` store
    in a temporary directory), ``dryrun_multichip`` over the card, then the
    sharded train step at the training config (dp = sp = tp = 1): its loss
    and per-leaf gradients on one batch against the single-device step's
    (the remat tolerances), 6 K1, K2 and K3 sm90 launches, and 5 AdamW
    steps from the native loader, median step ms beside the train phase's;
-19. serve_mesh: in the same group, the serving config in float32 over the
+20. serve_mesh: in the same group, the serving config in float32 over the
    (1, 1, 1) mesh: the sharded ``make_generate`` on 4 rows of the serve
    phase's prompts, the sharded server on its traffic and the sharded
    speculative server (the serve_spec phase's draft, sharded over the same
@@ -114,7 +127,7 @@ T = 2048, no remat), random weights from a seed:
    K2 and K3 sm90 launches a step; the save and restore seconds beside the
    checkpoint phase's. Last, ``dryrun_multichip`` over the card, with its
    serving leg;
-20. device_side: ``NVMLBackend().enumerate()`` on the card, its index,
+21. device_side: ``NVMLBackend().enumerate()`` on the card, its index,
    UUID, memory (MiB) and PCI bus id equal to what ``nvidia-smi
    --query-gpu=index,uuid,memory.total,pci.bus_id`` prints (N/A where the
    NVML withholds the bus id, on both sides) and ``/dev/nvidia<minor>``
@@ -144,7 +157,7 @@ T = 2048, no remat), random weights from a seed:
    process from zero (``launches_node_agent_run``), and whose
    ``pod.alpha/ContainerStatus`` in the stub says exited 0; SIGTERM stops
    the agent with exit 0 within 10 s;
-21. checkers: under the dispatch/sync/build counter
+22. checkers: under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
    equal streams, the fused syncs one a chunk plus one an admission and
@@ -157,7 +170,8 @@ T = 2048, no remat), random weights from a seed:
 
 The ``kernels`` line names each kernel's instance on the main path and
 the launches that went to each instance (``launches_serve_mesh_step``:
-the last resumed sharded step's). Every phase prints one JSON line
+the last resumed sharded step's; ``launches_tp_heads_pass`` (``_tp2``):
+the tp_heads in-process pass at tp = 4 (2)). Every phase prints one JSON line
 and raises on failure. The last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -1736,6 +1750,156 @@ def ring_kernels_phase(dev) -> dict:
     return out
 
 
+# tp_heads: tensor parallelism over the training config's 18 heads, tp = 4
+# (576 columns a rank, 4.5 heads; each attends the 5 they overlap) and 2
+TP_HEADS_TPS = (4, 2)
+
+
+def tp_heads_pass(cfg, leaves, wo, do, tp: int, attend) -> list:
+    """One pass of every virtual rank of a tensor-parallel group of ``tp``
+    in this process (``model.tp_attention_in_process``: each rank's heads
+    ``[lo, hi)`` attended, its columns of the output times its ``wo``
+    rows, summed) on the whole q, k, v (``leaves``): ``[out, dq, dk,
+    dv]``, the gradients of ``out`` against the cotangent ``do``."""
+    import torch
+
+    from kubegpu_tpu_torch.workload.model import tp_attention_in_process
+
+    out = tp_attention_in_process(cfg, *leaves, wo, tp, attend)
+    return [out, *torch.autograd.grad(out, leaves, do)]
+
+
+def tp_heads_phase(dev) -> dict:
+    """K1, K2 and K3 on the head spans of tensor parallelism over head
+    counts tp does not divide, at the training shape (18 heads, tp = 4 and
+    2), every virtual rank in one process: one pass (tp launches of each)
+    held against the single-device kernels over all 18 heads and against
+    the same pass through the plain versions, then each rank's kernel times
+    beside the 18-head kernels' over tp."""
+    import torch
+
+    from kubegpu_tpu_torch.workload.kernels.flash import (
+        flash_attention, flash_attention_bwd_plain, flash_attention_plain,
+        flash_attention_with_lse, flash_bwd_dkv, flash_bwd_dq)
+    from kubegpu_tpu_torch.workload.model import (TransformerConfig,
+                                                  head_span)
+
+    cfg = TransformerConfig(**TRAIN_MODEL)
+    b, t, h, d = TRAIN_SHAPE
+    width = h * d
+    bf16 = torch.bfloat16
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = case_qkv(gen, dev, b, t, t, h, d, bf16)
+    wo = (torch.randn((width, width), generator=gen, device=dev)
+          * width ** -0.5).to(bf16)
+    do = torch.randn((b, t, width), generator=gen, device=dev).to(bf16)
+
+    # the float32 plain reference over all heads
+    qf, kf, vf, wof = (x.float() for x in (q, k, v, wo))
+    o_ref, lse_ref = flash_attention_plain(qf, kf, vf, scale)
+    refs = [o_ref.reshape(b, t, width) @ wof, *flash_attention_bwd_plain(
+        qf, kf, vf, o_ref, lse_ref,
+        (do.float() @ wof.T).reshape(b, t, h, d), None, scale)]
+    del qf, kf, vf, wof, o_ref, lse_ref
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def kernels(q, k, v):
+        return flash_attention(q, k, v, scale)
+
+    def plain(q, k, v):
+        return _plain_flash_with_lse(q, k, v, scale)[0]
+
+    def single(tp):
+        """The single-device kernels over all 18 heads, the product with
+        ``wo`` split into the pass's tp partial sums (so the comparison
+        sees the head spans, not the bf16 rounding of the partials)."""
+        o = flash_attention(*leaves, scale).reshape(b, t, width)
+        out = sum(o[..., c0:c1] @ wo[c0:c1] for c0, c1, _, _ in
+                  (head_span(cfg, tp, r) for r in range(tp)))
+        return [out, *torch.autograd.grad(out, leaves, do)]
+
+    # the 18-head kernels' times: K1, and K2 + K3 on its output
+    o_all, lse_all = flash_attention_with_lse(*leaves, scale)
+    do_all = torch.randn((b, t, h, d), generator=gen, device=dev).to(bf16)
+    dlse = torch.zeros((b, h, t), device=dev)
+
+    def bwd(q, k, v, o, dob, lse, dl):
+        delta = flash_bwd_dq(q, k, v, o, dob, lse, dl, scale)[1]
+        flash_bwd_dkv(q, k, v, dob, lse, delta, scale)
+
+    with torch.no_grad():
+        fwd_all_ms = time_ms(lambda: flash_attention_with_lse(q, k, v,
+                                                              scale))
+        bwd_all_ms = time_ms(lambda: bwd(q, k, v, o_all.detach(), do_all,
+                                         lse_all.detach(), dlse))
+    out = {}
+    for tp in TP_HEADS_TPS:
+        one = single(tp)
+        err_single = [_errors(g, r) for g, r in zip(one, refs)]
+        _zero_launch_counts()
+        got = tp_heads_pass(cfg, leaves, wo, do, tp, kernels)
+        torch.cuda.synchronize()
+        launches = list(_launch_counts())
+        by_instance = _instance_counts()
+        err_got = [_errors(g, r) for g, r in zip(got, refs)]
+        err_plain = [_errors(g, r) for g, r in
+                     zip(tp_heads_pass(cfg, leaves, wo, do, tp, plain),
+                         refs)]
+        max_vs_single = [(a.float() - w.float()).abs().max().item()
+                         for a, w in zip(got, one)]
+        finite = all(bool(torch.isfinite(x).all()) for x in got)
+        within = all(
+            g[0] <= TOL_FWD_MEAN_RATIO * base[0]
+            and g[1] <= TOL_FWD_MAX_RATIO * base[1]
+            for errs in (err_single, err_plain)
+            for g, base in zip(err_got, errs))
+        ranks = []
+        with torch.no_grad():
+            for r in range(tp):
+                c0, c1, lo, hi = head_span(cfg, tp, r)
+                qs, ks, vs = (x[:, :, lo:hi] for x in (q, k, v))
+                o_r, lse_r = flash_attention_with_lse(qs, ks, vs, scale)
+                dl_r = dlse[:, lo:hi]
+                ranks.append({
+                    "rank": r, "columns": [c0, c1], "heads": [lo, hi],
+                    "k1_ms": time_ms(lambda: flash_attention_with_lse(
+                        qs, ks, vs, scale)),
+                    "k2_k3_ms": time_ms(lambda: bwd(
+                        qs, ks, vs, o_r, do_all[:, :, lo:hi], lse_r,
+                        dl_r))})
+        pass_ms = time_ms(lambda: tp_heads_pass(cfg, leaves, wo, do, tp,
+                                                kernels), runs=10, batch=2)
+        single_ms = time_ms(lambda: single(tp), runs=10, batch=2)
+        row = {"phase": "tp_heads", "tp": tp, "shape": [b, t, h, d],
+               "dtype": "bfloat16", "columns_per_rank": width // tp,
+               "heads_attended": sum(x["heads"][1] - x["heads"][0]
+                                     for x in ranks),
+               "err_mean_max_out_dq_dk_dv": {
+                   "in_process": err_got, "plain_in_process": err_plain,
+                   "single_device": err_single},
+               "ratio_to_single_mean_out_dq_dk_dv": [
+                   g[0] / s[0] for g, s in zip(err_got, err_single)],
+               "max_abs_diff_to_single_out_dq_dk_dv": max_vs_single,
+               "launches_fwd_dq_dkv_per_pass": launches,
+               "launches_by_instance": by_instance,
+               "ranks": ranks,
+               "k1_18_heads_ms_over_tp": fwd_all_ms / tp,
+               "k2_k3_18_heads_ms_over_tp": bwd_all_ms / tp,
+               "k1_ranks_ms_sum": sum(x["k1_ms"] for x in ranks),
+               "k2_k3_ranks_ms_sum": sum(x["k2_k3_ms"] for x in ranks),
+               "k1_18_heads_ms": fwd_all_ms, "k2_k3_18_heads_ms": bwd_all_ms,
+               "pass_fwd_bwd_ms": pass_ms, "single_fwd_bwd_ms": single_ms}
+        row["ok"] = (within and finite and launches == [tp] * 3
+                     and all(c["sm90"] == tp for c in by_instance))
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"tp_heads failed at tp={tp}: {row}")
+        out[tp] = row
+        del got, one
+    return out
+
+
 @contextlib.contextmanager
 def world_of_one(dev):
     """A world-size-1 process group (NCCL on the card; a ``file://`` store
@@ -2684,6 +2848,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(dev)
     ring_rows = ring_kernels_phase(dev)
+    tp_rows = tp_heads_phase(dev)
     with world_of_one(dev) as tmp:
         mesh = train_mesh_phase(dev, train, tmp)
         serve_mesh = serve_mesh_phase(dev, serve, ckpt, tmp)
@@ -2703,6 +2868,10 @@ def main() -> int:
     # the last sharded step's
     ring_pass = ring_rows[4]["launches_fwd_dq_dkv_per_pass"]
     ring_pass_sp2 = ring_rows[2]["launches_fwd_dq_dkv_per_pass"]
+    # the in-process tensor-parallel pass over 18 heads (tp launches of
+    # each) at tp = 4 (and 2)
+    tp_pass = tp_rows[4]["launches_fwd_dq_dkv_per_pass"]
+    tp_pass_tp2 = tp_rows[2]["launches_fwd_dq_dkv_per_pass"]
     mesh_step = mesh["launches_fwd_dq_dkv_per_step"][-1]
     resume_step = serve_mesh["launches_fwd_dq_dkv_per_step"][-1]
     k1_run, k2_run, k3_run = train["run_by_instance"]
@@ -2721,6 +2890,8 @@ def main() -> int:
         "launches_moe_forward": moe["forward_launches_fwd_dq_dkv"][0],
         "launches_ring_pass": ring_pass[0],
         "launches_ring_pass_sp2": ring_pass_sp2[0],
+        "launches_tp_heads_pass": tp_pass[0],
+        "launches_tp_heads_pass_tp2": tp_pass_tp2[0],
         "launches_train_mesh_step": mesh_step[0],
         "launches_serve_mesh_step": resume_step[0],
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][0],
@@ -2746,6 +2917,8 @@ def main() -> int:
         "launches_lora_step": lora_step[1], "launches_moe_step": moe_step[1],
         "launches_ring_pass": ring_pass[1],
         "launches_ring_pass_sp2": ring_pass_sp2[1],
+        "launches_tp_heads_pass": tp_pass[1],
+        "launches_tp_heads_pass_tp2": tp_pass_tp2[1],
         "launches_train_mesh_step": mesh_step[1],
         "launches_serve_mesh_step": resume_step[1],
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][1],
@@ -2769,6 +2942,8 @@ def main() -> int:
         "launches_lora_step": lora_step[2], "launches_moe_step": moe_step[2],
         "launches_ring_pass": ring_pass[2],
         "launches_ring_pass_sp2": ring_pass_sp2[2],
+        "launches_tp_heads_pass": tp_pass[2],
+        "launches_tp_heads_pass_tp2": tp_pass_tp2[2],
         "launches_train_mesh_step": mesh_step[2],
         "launches_serve_mesh_step": resume_step[2],
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][2],

@@ -45,7 +45,8 @@ import torch.distributed as dist
 from kubegpu_tpu_torch._device import resolve_device
 from kubegpu_tpu_torch.workload import keys, spmd
 from kubegpu_tpu_torch.workload.model import (TransformerConfig, _ffn,
-                                              _rmsnorm, _rope)
+                                              _rmsnorm, _rope, gather_span,
+                                              span_attention, whole_heads)
 
 NEG_INF = -1e30
 
@@ -56,8 +57,8 @@ def cache_pspecs(cfg: TransformerConfig, mesh=None) -> list:
     ``[B, max_seq, kv_heads, head_dim]`` is split over (None: replicated),
     as the reference's ``PartitionSpec``: the batch over ``data``, the kv
     heads over ``model``, or replicated when ``tp > 1`` does not divide
-    them (the reference's rule; the port's forward still refuses such a
-    config, `spmd.check_tp`)."""
+    them (the reference's rule): then every rank of ``model`` writes every
+    kv head, gathered over ``model`` (`make_forward_step`)."""
     head_axis = spmd.AXIS_MODEL
     tp = spmd.axis_size(mesh, spmd.AXIS_MODEL)
     if tp > 1 and cfg.kv_heads % tp:
@@ -123,11 +124,17 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
     Over a mesh ``params`` are this rank's shards (`spmd.shard_params`),
     ``cache`` its block (`init_cache` with the mesh), ``tokens`` and
     ``start_pos`` its rows; attention runs on its ``H/tp`` heads and the
-    logits come back whole over the vocabulary, for its rows."""
+    logits come back whole over the vocabulary, for its rows. Where ``tp``
+    does not divide the head counts, the rank gathers the new K/V (and,
+    for ``n_heads``, Q) over ``model``, writes every kv head into its
+    replicated cache block and attends the heads its columns overlap
+    (`model.span_attention`)."""
     if mesh is not None:
         spmd.check_mesh(mesh)
         spmd.check_tp(cfg, spmd.axis_size(mesh, spmd.AXIS_MODEL))
     tp = spmd.axis_size(mesh, spmd.AXIS_MODEL)
+    tp_rank = spmd.axis_rank(mesh, spmd.AXIS_MODEL)
+    whole = whole_heads(cfg, tp)
     heads, kv_heads = cfg.n_heads // tp, cfg.kv_heads // tp
 
     def step(params, cache, tokens, start_pos):
@@ -161,40 +168,49 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
                 p0 = int(start_pos)
                 buf[:, p0:p0 + t] = new
 
-        x = params["embed"].to(dt)[tokens]
-        for layer, kv in zip(params["layers"], cache):
-            h = spmd.copy_to(mesh, _rmsnorm(x, layer["ln1"]))
-            q = (h @ layer["wq"].to(dt)).reshape(b, t, heads, cfg.head_dim)
-            k = (h @ layer["wk"].to(dt)).reshape(b, t, kv_heads,
-                                                 cfg.head_dim)
-            v = (h @ layer["wv"].to(dt)).reshape(b, t, kv_heads,
-                                                 cfg.head_dim)
-            q = _rope(q, positions, cfg.rope_theta)
-            k = _rope(k, positions, cfg.rope_theta)
-            write(kv["k"], k.to(dt))
-            write(kv["v"], v.to(dt))
-            ck, cv = kv["k"].float(), kv["v"].float()
-
-            # float32 products of the bf16 values (float32 accumulation,
-            # as the reference). With GQA the query heads are grouped
-            # against the narrow cache (g = kv head, r = query head in the
-            # group), so the full-width K/V is never materialized.
-            if kv_heads != heads:
-                rep = heads // kv_heads
-                qg = q.reshape(b, t, kv_heads, rep, cfg.head_dim)
+        def attend(q, ck, cv):
+            """float32 products of the bf16 values (float32 accumulation,
+            as the reference). With GQA the query heads are grouped
+            against the narrow cache (g = kv head, r = query head in the
+            group), so the full-width K/V is never materialized."""
+            hq, hk = q.shape[2], ck.shape[2]
+            if hk != hq:
+                rep = hq // hk
+                qg = q.reshape(b, t, hk, rep, cfg.head_dim)
                 s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), ck) * scale
                 s = s.masked_fill(~mask[:, None, None], NEG_INF)
                 p = torch.softmax(s, dim=-1)
                 attn = torch.einsum("bgrqk,bkgd->bqgrd",
                                     p.to(dt).float(), cv)
-                attn = attn.reshape(b, t, heads, cfg.head_dim)
+                return attn.reshape(b, t, hq, cfg.head_dim)
+            s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck) * scale
+            s = s.masked_fill(~mask[:, None], NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            return torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), cv)
+
+        x = params["embed"].to(dt)[tokens]
+        for layer, kv in zip(params["layers"], cache):
+            h = spmd.copy_to(mesh, _rmsnorm(x, layer["ln1"]))
+            q = h @ layer["wq"].to(dt)
+            k, v = h @ layer["wk"].to(dt), h @ layer["wv"].to(dt)
+            if whole:
+                q = q.reshape(b, t, heads, cfg.head_dim)
+                k = k.reshape(b, t, kv_heads, cfg.head_dim)
+                v = v.reshape(b, t, kv_heads, cfg.head_dim)
             else:
-                s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck) * scale
-                s = s.masked_fill(~mask[:, None], NEG_INF)
-                p = torch.softmax(s, dim=-1)
-                attn = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), cv)
+                # the cache holds every kv head (cache_pspecs)
+                q, k, v = gather_span(cfg, mesh, q, k, v)
+            q = _rope(q, positions, cfg.rope_theta)
+            k = _rope(k, positions, cfg.rope_theta)
+            write(kv["k"], k.to(dt))
+            write(kv["v"], v.to(dt))
+            ck, cv = kv["k"].float(), kv["v"].float()
+            if whole:
+                attn = attend(q, ck, cv).reshape(b, t, -1)
+            else:
+                attn = span_attention(cfg, q, ck, cv, tp, tp_rank, attend)
             x = x + spmd.reduce_from(
-                mesh, attn.to(dt).reshape(b, t, -1) @ layer["wo"].to(dt))
+                mesh, attn.to(dt) @ layer["wo"].to(dt))
 
             x = x + _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg, mesh)[0]
 

@@ -39,12 +39,20 @@ Over a mesh (`spmd.make_mesh`, reference ``model.py:210-329``) every rank
 runs the same eager program on its own shards (`spmd.shard_params`) and
 calls the collectives GSPMD would insert:
 
-- tensor parallelism over ``model``: each rank holds ``H/tp`` heads and
-  ``d_ff/tp`` FFN columns (or ``E/tp`` experts); a column-parallel input
-  passes `spmd.copy_to` (identity forward, all-reduce backward), a
-  row-parallel output (``wo``, ``w_down``) `spmd.reduce_from` (all-reduce
-  forward, identity backward); the vocabulary-split logits are gathered
-  over ``model`` before the loss;
+- tensor parallelism over ``model``: each rank holds ``1/tp`` of the
+  ``wq``/``wk``/``wv`` columns (``H/tp`` heads when ``tp`` divides the
+  head counts) and ``d_ff/tp`` FFN columns (or ``E/tp`` experts); a
+  column-parallel input passes `spmd.copy_to` (identity forward,
+  all-reduce backward), a row-parallel output (``wo``, ``w_down``)
+  `spmd.reduce_from` (all-reduce forward, identity backward); the
+  vocabulary-split logits are gathered over ``model`` before the loss;
+- where ``tp`` does not divide ``n_heads`` or ``kv_heads``, a rank's
+  columns cut heads in the middle, as GSPMD cuts them in the reference:
+  it gathers the projections it needs over ``model``
+  (`spmd.gather_columns`, whose backward sums the ranks' partial
+  cotangents), applies RoPE to whole heads, attends the heads its columns
+  overlap (`head_span`, `span_attention`) and hands its ``wo`` rows the
+  columns of the output they take;
 - sequence parallelism over ``seq``: each rank takes its ``T/sp`` block of
   the tokens at global positions, and attention runs as ring attention
   (`ring`) or Ulysses (`ulysses`) by ``seq_impl`` when ``sp > 1``;
@@ -235,6 +243,90 @@ def _expand_kv(cfg: TransformerConfig, k, v):
     return (k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2))
 
 
+def whole_heads(cfg: TransformerConfig, tp: int) -> bool:
+    """Whether ``tp`` divides both head counts, so each rank holds whole
+    heads and attends its own; else its columns cut heads
+    (`span_attention`)."""
+    return not (cfg.n_heads % tp or cfg.kv_heads % tp)
+
+
+def head_span(cfg: TransformerConfig, tp: int, r: int) -> tuple:
+    """Rank ``r``'s part of the attention under tensor parallelism over
+    ``tp``: ``(c0, c1, lo, hi)``, its columns ``[c0, c1)`` of the
+    ``n_heads·head_dim`` attention width (``C = n_heads·head_dim / tp``
+    of them: its ``wq`` columns and ``wo`` rows) and the heads ``[lo,
+    hi)`` those columns overlap. When ``tp`` does not divide ``n_heads``
+    the spans of neighbouring ranks share the head they cut."""
+    c = cfg.n_heads * cfg.head_dim // tp
+    c0, c1 = r * c, (r + 1) * c
+    return c0, c1, c0 // cfg.head_dim, -(-c1 // cfg.head_dim)
+
+
+def _span_kv(cfg: TransformerConfig, k, v, lo: int, hi: int):
+    """The K/V heads of query heads ``[lo, hi)`` from every kv head: query
+    head ``j`` reads kv head ``j // (n_heads / kv_heads)``, counted over
+    the whole model, not within a rank."""
+    rep = cfg.n_heads // cfg.kv_heads
+    if rep == 1:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.arange(lo, hi, device=k.device) // rep
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def gather_span(cfg: TransformerConfig, mesh, q, k, v) -> tuple:
+    """A rank's projections ``q [B, T, C]``, ``k, v [B, T, C_kv]`` (its
+    columns) as `span_attention` takes them: its query heads ``[lo, hi)``
+    (gathered over ``model`` where ``tp`` does not divide ``n_heads``, so a
+    cut head is whole again; its own ``n_heads/tp`` heads otherwise) and
+    every kv head, gathered, as ``[B, T, heads, D]``. RoPE rotates the two
+    halves of a head against each other, so it comes after."""
+    tp = spmd.axis_size(mesh, spmd.AXIS_MODEL)
+    b, t, d = *q.shape[:2], cfg.head_dim
+    if cfg.n_heads % tp:
+        lo, hi = head_span(cfg, tp, spmd.axis_rank(mesh, spmd.AXIS_MODEL))[2:]
+        q = spmd.gather_columns(mesh, q).reshape(b, t, cfg.n_heads,
+                                                 d)[:, :, lo:hi]
+    else:
+        q = q.reshape(b, t, cfg.n_heads // tp, d)
+    k, v = (spmd.gather_columns(mesh, x).reshape(b, t, cfg.kv_heads, d)
+            for x in (k, v))
+    return q, k, v
+
+
+def span_attention(cfg: TransformerConfig, q, k, v, tp: int, r: int,
+                   attend):
+    """Rank ``r``'s attention under tensor parallelism over ``tp`` when
+    ``tp`` does not divide ``n_heads`` or ``kv_heads``: ``q [B, T, hi -
+    lo, D]`` its query heads ``[lo, hi)`` (`head_span`), ``k, v [B, T,
+    kv_heads, D]`` every kv head, all RoPE'd; ``attend(q, k, v)`` the
+    attention over heads (flash, plain, ring or Ulysses). Returns ``[B,
+    T, C]``, the columns ``[c0, c1)`` of the attention output, which the
+    rank's ``wo`` rows take."""
+    c0, c1, lo, hi = head_span(cfg, tp, r)
+    out = attend(q, *_span_kv(cfg, k, v, lo, hi))
+    off = c0 - lo * cfg.head_dim
+    return out.reshape(*q.shape[:2], -1)[..., off:off + c1 - c0]
+
+
+def tp_attention_in_process(cfg: TransformerConfig, q, k, v, wo, tp: int,
+                            attend):
+    """Every rank of a tensor-parallel group of ``tp`` in turn, in one
+    process: the sum over ``r`` of rank ``r``'s `span_attention` times its
+    ``wo`` rows ``[c0, c1)``, which `spmd.reduce_from` sums over
+    ``model`` in the sharded block. ``q [B, T, n_heads, D]``, ``k, v [B,
+    T, kv_heads, D]`` whole and RoPE'd, ``wo [n_heads·D, d]``. Autograd
+    adds the ranks' cotangents of q, k and v before each rank's slice is
+    taken, as `spmd.gather_columns`' backward sums them over ``model``.
+    ``chip_smoke.py`` holds the kernels' head spans on one card with it."""
+    total = None
+    for r in range(tp):
+        c0, c1, lo, hi = head_span(cfg, tp, r)
+        part = span_attention(cfg, q[:, :, lo:hi], k, v, tp, r,
+                              attend) @ wo[c0:c1]
+        total = part if total is None else total + part
+    return total
+
+
 def _ffn(layer: dict, h: torch.Tensor, dt: torch.dtype,
          cfg: TransformerConfig, mesh=None) -> tuple:
     """A layer's FFN on the normed ``h``: ``(out, aux)``, the SwiGLU FFN
@@ -268,7 +360,8 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
     ``seq`` block, ``[B/dp, T/sp, vocab]``, whole over the vocabulary."""
     if mesh is not None:
         spmd.check_mesh(mesh)
-        spmd.check_tp(cfg, spmd.axis_size(mesh, spmd.AXIS_MODEL))
+        spmd.check_tp(cfg, spmd.axis_size(mesh, spmd.AXIS_MODEL),
+                      spmd.axis_size(mesh, spmd.AXIS_SEQ))
     if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat mode {cfg.remat!r}")
     if cfg.seq_impl not in ("ring", "ulysses"):
@@ -281,6 +374,8 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
     scale = cfg.head_dim ** -0.5
     tp = spmd.axis_size(mesh, spmd.AXIS_MODEL)
     sp = spmd.axis_size(mesh, spmd.AXIS_SEQ)
+    tp_rank = spmd.axis_rank(mesh, spmd.AXIS_MODEL)
+    whole = whole_heads(cfg, tp)
     heads, kv_heads = cfg.n_heads // tp, cfg.kv_heads // tp
 
     def attention_fn(t: int, device: torch.device):
@@ -309,14 +404,22 @@ def make_forward_with_aux(cfg: TransformerConfig, mesh=None):
         dt = cfg.compute_dtype()
         b, t = x.shape[:2]
         h = spmd.copy_to(mesh, _rmsnorm(x, layer["ln1"]))
-        q = (h @ layer["wq"].to(dt)).reshape(b, t, heads, cfg.head_dim)
-        k = (h @ layer["wk"].to(dt)).reshape(b, t, kv_heads, cfg.head_dim)
-        v = (h @ layer["wv"].to(dt)).reshape(b, t, kv_heads, cfg.head_dim)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-        k, v = _expand_kv(cfg, k, v)
-        x = x + spmd.reduce_from(
-            mesh, attend(q, k, v).reshape(b, t, -1) @ layer["wo"].to(dt))
+        q = h @ layer["wq"].to(dt)
+        k, v = h @ layer["wk"].to(dt), h @ layer["wv"].to(dt)
+        if whole:
+            q = _rope(q.reshape(b, t, heads, cfg.head_dim), positions,
+                      cfg.rope_theta)
+            k = _rope(k.reshape(b, t, kv_heads, cfg.head_dim), positions,
+                      cfg.rope_theta)
+            k, v = _expand_kv(cfg, k, v.reshape(b, t, kv_heads,
+                                                cfg.head_dim))
+            attn = attend(q, k, v).reshape(b, t, -1)
+        else:
+            q, k, v = gather_span(cfg, mesh, q, k, v)
+            attn = span_attention(
+                cfg, _rope(q, positions, cfg.rope_theta),
+                _rope(k, positions, cfg.rope_theta), v, tp, tp_rank, attend)
+        x = x + spmd.reduce_from(mesh, attn @ layer["wo"].to(dt))
         out, aux = _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg, mesh)
         return x + out, aux
 

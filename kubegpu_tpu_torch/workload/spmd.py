@@ -191,9 +191,19 @@ def param_pspecs(cfg) -> dict:
                        for _ in range(cfg.n_layers)]}
 
 
-def check_tp(cfg, tp: int) -> None:
-    """Refuse a config whose split dimensions do not divide by ``tp``."""
-    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.kv_heads,
+def check_tp(cfg, tp: int, sp: int = 1) -> None:
+    """Refuse a config that tensor parallelism over ``tp`` cannot split,
+    where the reference refuses it: a split width that ``tp`` does not
+    divide (``wq``'s ``n_heads·head_dim`` columns, ``wk``/``wv``'s
+    ``kv_heads·head_dim``, ``vocab``, and ``d_ff`` or ``n_experts``). A
+    head count ``tp`` does not divide is split mid-head, as GSPMD splits
+    it (`model.head_span`), except under sequence parallelism (``sp >
+    1``): ring and Ulysses attention take whole heads a rank, as the
+    reference's ``shard_map`` over ``model`` does, so there ``tp`` must
+    divide ``n_heads`` (``kv_heads`` need not: K/V are widened to the
+    query heads first)."""
+    dims = {"n_heads*head_dim": cfg.n_heads * cfg.head_dim,
+            "n_kv_heads*head_dim": cfg.kv_heads * cfg.head_dim,
             "vocab": cfg.vocab}
     if cfg.n_experts > 0:
         dims["n_experts"] = cfg.n_experts
@@ -201,12 +211,13 @@ def check_tp(cfg, tp: int) -> None:
         dims["d_ff"] = cfg.d_ff
     bad = [f"{k} {v}" for k, v in dims.items() if v % tp]
     if bad:
-        # a kv_heads tp does not divide would need wk/wv (and the cache's
-        # heads) replicated, their gradients reduced over model: not ported
-        hint = (" (a GQA layout with replicated wk/wv is not supported)"
-                if cfg.kv_heads % tp and not cfg.n_heads % tp else "")
         raise ValueError(f"tensor parallelism over tp={tp} needs "
-                         f"{', '.join(bad)} to divide by {tp}{hint}")
+                         f"{', '.join(bad)} to divide by {tp}")
+    if sp > 1 and cfg.n_heads % tp:
+        raise ValueError(
+            f"tensor parallelism over tp={tp} under sequence parallelism "
+            f"(sp={sp}) needs n_heads {cfg.n_heads} to divide by {tp}: "
+            f"ring and Ulysses attention take whole heads a model rank")
 
 
 def map_specs(fn, tree, specs):
@@ -255,7 +266,8 @@ def gather_tree(local, specs, mesh) -> dict:
 def shard_params(full, cfg, mesh) -> dict:
     """This rank's shards of the full parameter tree ``full`` (the port's
     `init_params`, or a JAX tree carried across as numpy) under
-    `param_pspecs`. Raises for a config ``tp`` does not divide."""
+    `param_pspecs`. Raises for a config whose split widths ``tp`` does not
+    divide (`check_tp`)."""
     check_mesh(mesh)
     check_tp(cfg, axis_size(mesh, AXIS_MODEL))
     return shard_tree(full, param_pspecs(cfg), mesh)
@@ -308,7 +320,7 @@ class _GatherLast(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         n, r = dist.get_world_size(group), dist.get_rank(group)
-        ctx.n, ctx.r = n, r
+        ctx.n, ctx.r, ctx.group = n, r, group
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
         dist.all_gather(parts, x, group=group)
@@ -316,6 +328,20 @@ class _GatherLast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        return g.chunk(ctx.n, -1)[ctx.r].contiguous(), None
+
+
+class _GatherColumns(_GatherLast):
+    """All-gather along the last dimension forward; backward sums the
+    cotangent over ``group`` and keeps this rank's slice (a reduce-scatter,
+    as an all-reduce and a chunk: gloo has none). Each rank's consumer of
+    the gathered value differs (it attends its own heads), so each rank's
+    cotangent is a partial, where `_GatherLast` takes them as equal."""
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
         return g.chunk(ctx.n, -1)[ctx.r].contiguous(), None
 
 
@@ -339,6 +365,15 @@ def gather_last(mesh, x, axis: str = AXIS_MODEL):
     """``x`` all-gathered over ``axis`` along its last dimension (``x``
     itself without a mesh)."""
     return x if mesh is None else _GatherLast.apply(x, mesh.get_group(axis))
+
+
+def gather_columns(mesh, x):
+    """``x`` all-gathered over ``model`` along its last dimension, its
+    gradient summed over ``model`` and sliced back in the backward (``x``
+    itself without a mesh): a rank's column block of q/k/v gathered for
+    attention over heads that differ from rank to rank."""
+    return x if mesh is None else _GatherColumns.apply(
+        x, mesh.get_group(AXIS_MODEL))
 
 
 def all_reduce_grads(leaves, mesh, axes=(AXIS_DATA, AXIS_SEQ)) -> None:

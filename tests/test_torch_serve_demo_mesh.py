@@ -2,9 +2,9 @@
 under ``torchrun --nproc-per-node 2 --device cpu`` every rank joins one
 gloo group and serves over a (1, 1, 2) mesh, and rank 0 prints the
 single-process run's first output and token count, greedy, with the
-speculative server, and from a checkpoint train_demo wrote (every rank
-restoring its shards). float32, so the sharded sums give the same
-tokens."""
+speculative server, from a checkpoint train_demo wrote (every rank
+restoring its shards), and with 3 heads that tp = 2 does not divide.
+float32, so the sharded sums give the same tokens."""
 
 import json
 import os
@@ -46,12 +46,16 @@ def _one_process(argv: list, capsys) -> dict:
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("mode", ["serve", "spec-server", "checkpoint"])
+@pytest.mark.parametrize("mode", ["serve", "spec-server", "checkpoint",
+                                  "split-heads"])
 def test_serve_demo_under_torchrun_equals_one_process(capsys, tmp_path,
                                                       mode):
     argv = list(ARGS)
     if mode == "spec-server":
         argv += ["--spec-server", "--lookahead", "3"]
+    if mode == "split-heads":
+        # 3 heads at d_model 24 over tp = 2: a head and a half a rank
+        argv += ["--d-model", "24", "--n-heads", "3"]
     if mode == "checkpoint":
         # a full fine-tune's checkpoint of the same dimensions, float32
         assert train_demo.main(

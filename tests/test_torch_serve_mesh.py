@@ -61,8 +61,11 @@ def jax_params():
 @pytest.fixture(scope="module")
 def world(tmp_path_factory, jax_params):
     tmp = tmp_path_factory.mktemp("serve_mesh8")
+    gqa = jmodel.init_params(jax.random.PRNGKey(1),
+                             jmodel.TransformerConfig(**GQA_CFG))
     torch.save({"cfg": CFG, "gqa_cfg": GQA_CFG,
                 "params": jax.tree.map(np.asarray, jax_params),
+                "gqa_params": jax.tree.map(np.asarray, gqa),
                 "reqs": REQS, "prefix_reqs": PREFIX_REQS,
                 "serve_cases": SERVE_CASES}, tmp / "inputs.pt")
     return run_world("tests.torch_worlds.job_serve_mesh8", 8, str(tmp),
@@ -122,8 +125,9 @@ def test_cache_pspecs_match_cache_structure_and_reference():
 
 def test_cache_pspecs_replicate_undividable_kv_heads(world, cpu8):
     """At tp = 8 two kv heads are replicated and eight split, leaf for leaf
-    as the reference's rule; the sharded forward still refuses the
-    replicated layout, naming it."""
+    as the reference's rule; the sharded server serves the replicated
+    layout (kv 2 over tp 8: `shard_params` splits wk/wv mid-head), its
+    greedy streams equal to one device's and to the reference's."""
     mesh = jspmd.make_mesh(8, dp=1, sp=1, tp=8, devices=cpu8)
     for kv in (2, 8):
         ref = jcache_pspecs(jmodel.TransformerConfig(
@@ -132,8 +136,16 @@ def test_cache_pspecs_replicate_undividable_kv_heads(world, cpu8):
         assert [{k: tuple(s) for k, s in x.items()} for x in ref] == got
     assert got[0]["k"][2] == "model"
     assert world[0]["cache_pspecs"][2][0]["k"][2] is None
-    assert "n_kv_heads 2" in world[0]["gqa_refusal"]
-    assert "replicated wk/wv" in world[0]["gqa_refusal"]
+    srv = JaxServer(jmodel.TransformerConfig(**GQA_CFG),
+                    jmodel.init_params(jax.random.PRNGKey(1),
+                                       jmodel.TransformerConfig(**GQA_CFG)),
+                    slots=4, prefill_buckets=BUCKETS)
+    rids = [srv.submit(p, max_new=n) for p, n in REQS]
+    srv.run()
+    want = [srv.result(r) for r in rids]
+    for res in world:
+        mesh, one = res["gqa_tp8"]
+        assert mesh == one == want
 
 
 def test_mesh_refusals(world):

@@ -234,11 +234,26 @@ def test_param_pspecs_match_the_reference(kind):
 
 
 def test_tensor_parallelism_refuses_indivisible_widths():
+    """Where the reference refuses: a split width tp does not divide (its
+    jit refuses ``unembed`` at vocab 62 and ``w_down`` at d_ff 66 over tp
+    = 4), and under sp > 1 an n_heads tp does not divide (its ring's and
+    Ulysses' ``shard_map`` split whole heads over ``model``). Head counts
+    tp does not divide are split mid-head at sp = 1, and kv heads at any
+    sp, as GSPMD splits them."""
     gqa = tmodel.TransformerConfig(**{**CFG, "n_heads": 8},
                                    n_kv_heads=2)
-    with pytest.raises(ValueError, match="n_kv_heads 2"):
-        spmd.check_tp(gqa, 4)
-    spmd.check_tp(gqa, 2)
+    for tp, sp in ((4, 1), (4, 2), (2, 1), (2, 2)):
+        spmd.check_tp(gqa, tp, sp)
+    six = tmodel.TransformerConfig(**{**CFG, "d_model": 24, "n_heads": 6})
+    spmd.check_tp(six, 4)
+    with pytest.raises(ValueError, match=r"\(sp=2\) needs n_heads 6"):
+        spmd.check_tp(six, 4, sp=2)
+    with pytest.raises(ValueError, match="n_kv_heads\\*head_dim 8"):
+        spmd.check_tp(tmodel.TransformerConfig(**CFG, n_kv_heads=1), 16)
+    with pytest.raises(ValueError, match="vocab 62"):
+        spmd.check_tp(tmodel.TransformerConfig(**{**CFG, "vocab": 62}), 4)
+    with pytest.raises(ValueError, match="d_ff 66"):
+        spmd.check_tp(tmodel.TransformerConfig(**{**CFG, "d_ff": 66}), 4)
     with pytest.raises(ValueError, match="n_experts 3"):
         spmd.check_tp(tmodel.TransformerConfig(**CFG, n_experts=3), 2)
 

@@ -6,7 +6,9 @@ keeps its rows, and rank 0's losses equal the single-process run's within
 single-device attention's bf16-rounded ones would differ by more in
 bf16). Over (2, 1, 2), --checkpoint-dir saves and resumes sharded (4
 steps equal 2 plus a resumed 2) and --generate decodes the global prompt
-rows as the single-process run does. Also the mesh flags' refusals."""
+rows as the single-process run does. Over (1, 1, 2) on two ranks, 3 heads
+that tp does not divide train to the single-process losses. Also the
+mesh flags' refusals."""
 
 import json
 import os
@@ -26,15 +28,17 @@ ARGS = ["--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "32",
         "--dtype", "float32"]
 
 
-def _torchrun(argv: list) -> dict:
-    """rank 0's JSON line of train_demo under torchrun on 4 ranks."""
+def _torchrun(argv: list, nproc: int = 4) -> dict:
+    """rank 0's JSON line of train_demo under torchrun on ``nproc``
+    ranks."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "WORLD_SIZE", "RANK", "MASTER_ADDR",
                         "MASTER_PORT", "LOCAL_RANK")}
     env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "4", "-m", "kubegpu_tpu_torch.cmd.train_demo",
+         "--nproc-per-node", str(nproc), "-m",
+         "kubegpu_tpu_torch.cmd.train_demo",
          *argv], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=WORLD_TIMEOUT_S)
     assert r.returncode == 0, r.stderr[-3000:]
@@ -75,6 +79,20 @@ def test_train_demo_checkpoint_and_generate_under_torchrun(capsys,
     assert whole["generated"] == one["generated"]
     for a, b in zip(whole["losses_full"], one["losses_full"]):
         assert abs(a - b) <= 1e-4 * abs(b), (whole, one)
+
+
+def test_train_demo_splits_heads_tp_does_not_divide(capsys):
+    """3 heads at d_model 24 over tp = 2 (two ranks): each rank's wq/wk/wv
+    columns hold a head and a half; the losses equal one process's."""
+    argv = [*ARGS, "--d-model", "24", "--n-heads", "3"]
+    mesh_run = _torchrun([*argv, "--dp", "1", "--sp", "1", "--tp", "2"],
+                         nproc=2)
+    assert train_demo.main(argv) == 0
+    one = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert mesh_run["devices"] == 2 and one["devices"] == 1
+    assert len(mesh_run["losses_full"]) == 3
+    for a, b in zip(mesh_run["losses_full"], one["losses_full"]):
+        assert abs(a - b) <= 1e-4 * abs(b), (mesh_run, one)
 
 
 @pytest.mark.parametrize("flags,message", [

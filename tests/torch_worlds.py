@@ -22,6 +22,8 @@ import torch.distributed as dist
 from kubegpu_tpu_torch.workload import spmd
 
 WORLD_TIMEOUT_S = 240.0
+# the prefill buckets of the servers the worlds run
+BUCKETS = (8, 16)
 
 
 @contextlib.contextmanager
@@ -276,8 +278,8 @@ def _serve_streams(cfg, params, reqs, **kw) -> tuple:
 def job_serve_mesh8(rank: int, in_dir: str) -> dict:
     """The 8-rank world of tests/test_torch_serve_mesh.py: the server over
     (2, 1, 4) against the same server on one device (greedy, the per-token
-    oracle, the prefix cache, the speculative server), and the cache
-    layout over (1, 1, 8)."""
+    oracle, the prefix cache, the speculative server), the cache layout
+    over (1, 1, 8), and the server of a kv 2 config over (1, 1, 8)."""
     from kubegpu_tpu_torch.workload.decode import cache_pspecs
     from kubegpu_tpu_torch.workload.model import params_from_jax
 
@@ -318,11 +320,14 @@ def job_serve_mesh8(rank: int, in_dir: str) -> dict:
     out["cache_pspecs"] = {
         kv: cache_pspecs(_cfg({**inp["gqa_cfg"], "n_kv_heads": kv}), tp8)
         for kv in (2, 8)}
-    try:
-        spmd.shard_params(full, gqa, tp8)
-        out["gqa_refusal"] = None
-    except ValueError as exc:
-        out["gqa_refusal"] = str(exc)
+    # kv 2 over tp 8: wk/wv split mid-head, the cache's heads replicated;
+    # the sharded greedy server against one device
+    gqa_full = inp["gqa_params"]
+    out["gqa_tp8"] = [
+        _serve_streams(gqa, p, inp["reqs"], mesh=m, slots=4,
+                       prefill_buckets=BUCKETS)[0]
+        for m, p in ((tp8, spmd.shard_params(gqa_full, gqa, tp8)),
+                     (None, params_from_jax(gqa_full, device="cpu")))]
     return out
 
 
@@ -433,6 +438,173 @@ def job_mesh4(rank: int, in_dir: str) -> dict:
     path = os.path.join(in_dir, "missing") if rank == 1 else ckpt
     state, at = restore_checkpoint(path, like, mesh=mesh, specs=specs)
     out["one_rank_unreadable"] = (state is None, at)
+    dist.barrier()
+    return out
+
+
+# -- tensor parallelism over head counts tp does not divide ----------------
+
+# the configs of tests/test_torch_tp_heads*.py: name -> ((dp, sp, tp), the
+# config's head geometry); at tp 4, 8 heads with kv 2 and kv 1 split the kv
+# heads mid-head, 6 heads at d_model 24 the query heads too; at tp 2 (dp
+# 2), kv 1 and 3 heads
+TP_HEADS_BASE = dict(vocab=64, n_layers=2, d_ff=64, max_seq=64,
+                     dtype="float32")
+TP_HEADS_CASES = {
+    "gqa_tp4": ((1, 1, 4), dict(d_model=32, n_heads=8, n_kv_heads=2)),
+    "mqa_tp4": ((1, 1, 4), dict(d_model=32, n_heads=8, n_kv_heads=1)),
+    "h6_tp4": ((1, 1, 4), dict(d_model=24, n_heads=6)),
+    "mqa_dp2_tp2": ((2, 1, 2), dict(d_model=32, n_heads=8, n_kv_heads=1)),
+    "h3_dp2_tp2": ((2, 1, 2), dict(d_model=24, n_heads=3))}
+# sequence parallelism at (1, 2, 2): kv 1 under ring and Ulysses, and the
+# 3-head config, which both packages refuse there
+TP_HEADS_SP = ((1, 2, 2), dict(d_model=32, n_heads=8, n_kv_heads=1))
+TP_HEADS_SP_REFUSED = ((1, 2, 2), dict(d_model=24, n_heads=3))
+
+
+def tp_heads_cfg(kw: dict, **extra):
+    return _cfg({**TP_HEADS_BASE, **kw, **extra})
+
+
+def _adamw_run(cfg, mesh, full, batches) -> tuple:
+    """The losses of AdamW steps over ``batches`` from ``full``, and the
+    gathered params after them."""
+    from kubegpu_tpu_torch.workload.train import (default_optimizer,
+                                                  make_train_step)
+
+    local = spmd.shard_params(full, cfg, mesh)
+    step = make_train_step(cfg, mesh, default_optimizer())
+    opt, losses = None, []
+    for batch in batches:
+        local, opt, loss = step(local, opt, batch)
+        losses.append(loss.item())
+    return losses, _numpy_tree(spmd.gather_params(local, cfg, mesh))
+
+
+def _gather_columns_case(mesh) -> dict:
+    """``y = gather(x)`` over ``model`` consumed by a different weight on
+    each rank (``sum(y * w_r)``, as each rank attends its own heads):
+    this rank's gradient of its ``x`` through `spmd.gather_columns` and
+    through `spmd.gather_last`."""
+    r, tp = (spmd.axis_rank(mesh, spmd.AXIS_MODEL),
+             spmd.axis_size(mesh, spmd.AXIS_MODEL))
+    g = torch.Generator().manual_seed(5)
+    xs = torch.randn((tp, 2, 3), generator=g)
+    ws = torch.randn((tp, 2, 3 * tp), generator=g)
+    out = {"rank": r, "x": xs.numpy(), "w": ws.numpy()}
+    for name, fn in (("columns", spmd.gather_columns),
+                     ("last", spmd.gather_last)):
+        x = xs[r].clone().requires_grad_()
+        (fn(mesh, x) * ws[r]).sum().backward()
+        out[name] = x.grad.numpy()
+    return out
+
+
+def job_tp_heads4(rank: int, in_dir: str) -> dict:
+    """The 4-rank world of tests/test_torch_tp_heads.py: training where tp
+    does not divide the head counts. Per config: the first step's loss
+    and gradients, 3 AdamW steps and one LoRA step; at (1, 2, 2) kv 1
+    under ring and Ulysses, and the refusal of 3 heads; `gather_columns`
+    against `gather_last`."""
+    from kubegpu_tpu_torch.workload.lora import (lora_pspecs,
+                                                 make_lora_train_step)
+    from kubegpu_tpu_torch.workload.model import make_loss_fn
+    from kubegpu_tpu_torch.workload.train import param_leaves
+
+    inp = _load(in_dir)
+    batches = inp["batches"]
+    out = {}
+    for name, (shape, kw) in TP_HEADS_CASES.items():
+        cfg = tp_heads_cfg(kw)
+        mesh = spmd.make_mesh(4, *shape, device="cpu")
+        full = inp["params"][name]
+        out[("grads", name)] = sharded_loss_and_grads(cfg, mesh, full,
+                                                      batches[0])
+        out[("adamw", name)] = _adamw_run(cfg, mesh, full, batches)
+        base = spmd.shard_params(full, cfg, mesh)
+        specs = lora_pspecs(cfg)
+        lora = spmd.shard_tree(inp["lora"][name], specs, mesh)
+        step = make_lora_train_step(cfg, mesh, inp["lora_rank"])
+        lora, _, loss = step(lora, None, base, batches[0])
+        out[("lora", name)] = (
+            loss.item(),
+            _numpy_tree(spmd.gather_tree(_grad_tree(lora), specs, mesh)),
+            _numpy_tree(spmd.gather_tree(lora, specs, mesh)))
+        assert all(not x.requires_grad for x in param_leaves(base))
+    shape, kw = TP_HEADS_SP
+    mesh = spmd.make_mesh(4, *shape, device="cpu")
+    for impl in ("ring", "ulysses"):
+        out[("sp", impl)] = _adamw_run(tp_heads_cfg(kw, seq_impl=impl),
+                                       mesh, inp["params"]["sp"],
+                                       batches)[0]
+    shape, kw = TP_HEADS_SP_REFUSED
+    mesh = spmd.make_mesh(4, *shape, device="cpu")
+    try:
+        make_loss_fn(tp_heads_cfg(kw), mesh)
+        out["sp_refusal"] = None
+    except ValueError as exc:
+        out["sp_refusal"] = str(exc)
+    out["gather"] = _gather_columns_case(
+        spmd.make_mesh(4, 1, 1, 4, device="cpu"))
+    return out
+
+
+def job_tp_heads_serve4(rank: int, in_dir: str) -> dict:
+    """The 4-rank world of tests/test_torch_tp_heads_serve.py: decoding
+    where tp does not divide the head counts. Per config: `make_generate`,
+    the greedy server, the speculative server (a 1-layer draft sharded
+    over the same mesh) and the prefix-cached server, each over the mesh
+    and on one device; the sampled server over the mesh; and a sharded
+    checkpoint saved and restored into fresh shards."""
+    from kubegpu_tpu_torch.workload.checkpoint import (restore_checkpoint,
+                                                       save_checkpoint)
+    from kubegpu_tpu_torch.workload.decode import make_generate
+    from kubegpu_tpu_torch.workload.model import params_from_jax
+    from kubegpu_tpu_torch.workload.train import init_sharded
+
+    inp = _load(in_dir)
+    out = {}
+    for name, (shape, kw) in TP_HEADS_CASES.items():
+        cfg = tp_heads_cfg(kw)
+        dcfg = tp_heads_cfg(kw, n_layers=1)
+        mesh = spmd.make_mesh(4, *shape, device="cpu")
+        full, draft = inp["params"][name], inp["draft"][name]
+        local = spmd.shard_params(full, cfg, mesh)
+        one = params_from_jax(full, device="cpu")
+        res = {"generate": [make_generate(cfg, m)(
+            p, inp["prompt"], inp["n_new"]).numpy()
+            for m, p in ((mesh, local), (None, one))]}
+        res["greedy"] = [_serve_streams(cfg, p, inp["reqs"], mesh=m,
+                                        **inp["serve"])[0]
+                         for m, p in ((mesh, local), (None, one))]
+        res["speculative"] = []
+        for m, p, d in ((mesh, local, spmd.shard_params(draft, dcfg, mesh)),
+                        (None, one, params_from_jax(draft, device="cpu"))):
+            streams, srv = _serve_streams(cfg, p, inp["reqs"], mesh=m,
+                                          draft_params=d, draft_cfg=dcfg,
+                                          lookahead=3, **inp["serve"])
+            res["speculative"].append(
+                (streams, srv.spec_accepted, srv.spec_proposed))
+        res["prefix"] = []
+        for m, p in ((mesh, local), (None, one)):
+            streams, srv = _serve_streams(cfg, p, inp["prefix_reqs"], mesh=m,
+                                          slots=2, prefill_buckets=BUCKETS,
+                                          prefix_cache_size=4)
+            res["prefix"].append((streams, srv.prefix_hits,
+                                  srv.prefix_misses))
+        res["sampled"] = _serve_streams(cfg, local, inp["reqs"], mesh=mesh,
+                                        **inp["serve"], **inp["sampled"])[0]
+        # save the shards, restore them into fresh ones
+        specs = {"params": spmd.param_pspecs(cfg)}
+        ckpt = os.path.join(in_dir, f"ckpt_{name}")
+        save_checkpoint(ckpt, {"params": local}, 1, mesh=mesh, specs=specs)
+        fresh = init_sharded(torch.Generator().manual_seed(9), cfg, mesh,
+                             init_optimizer=False)[0]
+        state, at = restore_checkpoint(ckpt, {"params": fresh}, mesh=mesh,
+                                       specs=specs)
+        res["restored"] = (at, _numpy_tree(
+            spmd.gather_params(state["params"], cfg, mesh)))
+        out[name] = res
     dist.barrier()
     return out
 
