@@ -144,9 +144,16 @@ T = 2048, no remat), random weights from a seed:
    is the allocated one. Then the port's own node agent
    (``python -m kubegpu_tpu_torch.cmd.node_agent --backend nvml``, started
    without the device and process variables, from the checkout's root)
-   over a dict-backed stub of the API server's JSON paths: its advertised
-   inventory equals the in-process one, with a heartbeat, and ``/healthz``
-   answers 200; ``python -m kubegpu_tpu_torch.cmd.cri_hook --server``
+   on its default wire, the stream wire, over a dict-backed stub of the
+   API server that serves both wires (its frames through the port's
+   ``cluster/stream.py`` and codec): the stub served the agent's frames
+   and the agent's ``/metrics`` shows ``transport_bytes_total`` under
+   ``wire="stream"`` alone; its advertised inventory equals the
+   in-process one, with a heartbeat, and ``/healthz`` answers 200; the
+   tx and rx bytes of an advertise pass, and the median round trip of 50
+   ``patch_node_metadata`` calls carrying the card's real annotation on
+   each wire in turns (the port's client in this process);
+   ``python -m kubegpu_tpu_torch.cmd.cri_hook --server``
    rewrites the stale config as the in-process hook does, and exits
    non-zero with a 409 naming ``AllocationMismatch`` for a pod that asks
    for one card more than it was allocated; ``POST
@@ -156,7 +163,13 @@ T = 2048, no remat), random weights from a seed:
    losses and 18 sm90 launches each of K1, K2 and K3, counted in that
    process from zero (``launches_node_agent_run``), and whose
    ``pod.alpha/ContainerStatus`` in the stub says exited 0; SIGTERM stops
-   the agent with exit 0 within 10 s;
+   the agent with exit 0 within 10 s, and the stub met no protocol fault.
+   Last, a second agent against a stub that answers the upgrade with plain
+   HTTP: it negotiates down to JSON once (one refused upgrade, no frame,
+   no stream byte) and advertises the same annotations. The
+   ``control_plane_wire`` line gives, for each wire, start to first
+   advertise, bytes per advertise pass and the patch round trip, beside
+   the card's name and power limit;
 22. checkers: under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
@@ -2219,86 +2232,154 @@ class _StubAPI:
 
 
 class _StubAPIServer:
-    """A dict-backed stand-in of the control plane's API server, over
-    HTTP on loopback: the JSON paths the port's client calls (``POST`` and
-    ``GET /nodes``, ``GET /nodes/<n>``, ``PATCH /nodes/<n>/metadata``,
-    ``GET /pods/<n>``, ``PUT /pods/<n>/annotations``)."""
+    """A dict-backed stand-in of the control plane's API server on
+    loopback, on both of its wires: the JSON paths the port's client calls
+    (``POST`` and ``GET /nodes``, ``GET /nodes/<n>``, ``PATCH
+    /nodes/<n>/metadata``, ``GET /pods/<n>``, ``PUT /pods/<n>/annotations``)
+    over HTTP/1.1, and the same routes as ``REQ`` frames after ``GET
+    /stream`` with ``Upgrade: kgtpu-stream``, answered through the port's
+    own frame and codec functions. With ``stream_wire=False`` the upgrade
+    gets a plain HTTP 404, as a server without the stream wire answers.
+    Counts the frames it served, the upgrades it refused, the protocol
+    faults it met and the ``PATCH /nodes/<n>/metadata`` it applied on
+    either wire."""
 
-    def __init__(self):
+    def __init__(self, stream_wire: bool = True):
         import threading
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+        from kubegpu_tpu_torch.cluster import stream
+        from kubegpu_tpu_torch.core import codec
+
         self.nodes, self.pods = {}, {}
+        self.frames_served = self.upgrades_refused = self.patches = 0
+        self.faults = 0
         lock = threading.Lock()
+        self._lock = lock
         outer = self
 
+        def dispatch(method, path, body, encode):
+            """``encode(status, obj)`` of the route's answer, under the
+            lock: another thread's PATCH must not change ``obj`` while it
+            is encoded."""
+            with lock:
+                return encode(*route(method, path, body))
+
+        def route(method, path, body):
+            parts = path.strip("/").split("/")
+            if parts == ["nodes"] and method == "GET":
+                return 200, {"items": list(outer.nodes.values())}
+            if parts == ["nodes"] and method == "POST":
+                name = body["metadata"]["name"]
+                if name in outer.nodes:
+                    return 409, {"error": f"node {name} exists"}
+                outer.nodes[name] = body
+                return 200, body
+            kind, name = (parts + [None, None])[:2]
+            table = {"nodes": outer.nodes, "pods": outer.pods}.get(kind)
+            if table is None or name not in table:
+                return 404, {"error": f"{kind} {name} not found"}
+            obj = table[name]
+            meta = obj.setdefault("metadata", {})
+            if method == "GET" and len(parts) == 2:
+                return 200, obj
+            if method == "PATCH" and parts[2:] == ["metadata"]:
+                for key, val in body.items():
+                    if isinstance(val, dict):
+                        meta.setdefault(key, {}).update(val)
+                    else:
+                        meta[key] = val
+                outer.patches += 1
+                return 200, obj
+            if method == "PUT" and parts[2:] == ["annotations"]:
+                meta["annotations"] = dict(body)
+                return 200, obj
+            return 404, {"error": f"no route {method} {path}"}
+
         class Handler(BaseHTTPRequestHandler):
+            # keep-alive and no Nagle, as the JAX API server: a reply's
+            # headers and body go out in two writes, which Nagle would hold
+            # for the client's delayed ACK
+            protocol_version = "HTTP/1.1"
+            disable_nagle_algorithm = True
+
             def log_message(self, *args):
                 pass
 
-            def _reply(self, code, body):
-                blob = json.dumps(body).encode()
+            def _reply(self, code, blob):
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(blob)))
                 self.end_headers()
                 self.wfile.write(blob)
 
-            def _body(self):
+            def _json(self, method):
                 n = int(self.headers.get("Content-Length") or 0)
-                return json.loads(self.rfile.read(n) or b"{}")
+                body = json.loads(self.rfile.read(n) or b"{}") \
+                    if method in ("POST", "PATCH", "PUT") else None
+                self._reply(*dispatch(
+                    method, self.path, body,
+                    lambda code, obj: (code, json.dumps(obj).encode())))
 
-            def _route(self, method):
-                parts = self.path.strip("/").split("/")
-                body = self._body() if method in ("POST", "PATCH",
-                                                  "PUT") else None
-                with lock:
-                    if parts == ["nodes"] and method == "GET":
-                        return 200, {"items": list(outer.nodes.values())}
-                    if parts == ["nodes"] and method == "POST":
-                        name = body["metadata"]["name"]
-                        if name in outer.nodes:
-                            return 409, {"error": f"node {name} exists"}
-                        outer.nodes[name] = body
-                        return 200, body
-                    kind, name = (parts + [None, None])[:2]
-                    table = {"nodes": outer.nodes,
-                             "pods": outer.pods}.get(kind)
-                    if table is None or name not in table:
-                        return 404, {"error": f"{kind} {name} not found"}
-                    obj = table[name]
-                    meta = obj.setdefault("metadata", {})
-                    if method == "GET" and len(parts) == 2:
-                        return 200, obj
-                    if method == "PATCH" and parts[2:] == ["metadata"]:
-                        for key, val in body.items():
-                            if isinstance(val, dict):
-                                meta.setdefault(key, {}).update(val)
-                            else:
-                                meta[key] = val
-                        return 200, obj
-                    if method == "PUT" and parts[2:] == ["annotations"]:
-                        meta["annotations"] = dict(body)
-                        return 200, obj
-                return 404, {"error": f"no route {method} {self.path}"}
+            def _serve_stream(self):
+                self.send_response(101, "Switching Protocols")
+                self.send_header("Upgrade", stream.UPGRADE_TOKEN)
+                self.send_header("Connection", "Upgrade")
+                self.end_headers()
+                self.wfile.flush()
+                self.close_connection = True
+                try:
+                    while True:
+                        ftype, rid, payload = stream.read_frame(self.rfile)
+                        if ftype == stream.PING:
+                            continue
+                        if ftype != stream.REQ:
+                            raise stream.FrameError(f"frame type {ftype}")
+                        method, path, body, _ = codec.decode_request(payload)
+                        stream.send_frame(
+                            self.connection, stream.RESP, rid,
+                            dispatch(method, path, body,
+                                     codec.encode_response))
+                        with lock:
+                            outer.frames_served += 1
+                except (stream.FrameError, codec.CodecError):
+                    # a protocol fault the client's retry would hide: the
+                    # phase fails on any
+                    with lock:
+                        outer.faults += 1
+                except (stream.StreamClosed, OSError):
+                    pass
 
             def do_GET(self):
-                self._reply(*self._route("GET"))
+                if self.path == stream.UPGRADE_PATH and \
+                        (self.headers.get("Upgrade") or "").lower() == \
+                        stream.UPGRADE_TOKEN:
+                    if stream_wire:
+                        return self._serve_stream()
+                    with lock:
+                        outer.upgrades_refused += 1
+                    # the client hangs up once it has read the status
+                    self.close_connection = True
+                self._json("GET")
 
             def do_POST(self):
-                self._reply(*self._route("POST"))
+                self._json("POST")
 
             def do_PATCH(self):
-                self._reply(*self._route("PATCH"))
+                self._json("PATCH")
 
             def do_PUT(self):
-                self._reply(*self._route("PUT"))
+                self._json("PUT")
 
         self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self._server.daemon_threads = True
         self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
         threading.Thread(target=self._server.serve_forever,
                          daemon=True).start()
+
+    def count(self, name: str) -> int:
+        with self._lock:
+            return getattr(self, name)
 
     def close(self) -> None:
         self._server.shutdown()
@@ -2350,6 +2431,131 @@ def _smi_inventory() -> list:
         timeout=60, check=True).stdout
     return [[f.strip() for f in ln.split(",")]
             for ln in out.strip().splitlines()]
+
+
+def _agent_transport_bytes(healthz: int) -> dict:
+    """The agent's ``transport_bytes_total`` from its ``/metrics``, as
+    ``{(wire, dir): bytes}``."""
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{healthz}/metrics",
+                                timeout=10) as r:
+        text = r.read().decode()
+    return {(m[1], m[2]): int(m[3]) for m in re.finditer(
+        r'^transport_bytes_total\{wire="(\w+)",dir="(\w+)"\} (\d+)$', text,
+        re.M)}
+
+
+def _bytes_per_advertise(stub, healthz: int, wire: str,
+                         passes: int = 2) -> dict:
+    """The tx and rx bytes one advertise pass (GET the node, PATCH its
+    metadata) moves on ``wire``, from the agent's own counters read at two
+    quiet points ``passes`` passes apart: the agent advertises every
+    second, and each point is read 0.2 s after a pass landed in the
+    stub."""
+    def quiet_point(after: int):
+        _wait_for(lambda: stub.count("patches") > after, 10,
+                  "an advertise pass")
+        time.sleep(0.2)
+        return stub.count("patches"), _agent_transport_bytes(healthz)
+
+    c0, b0 = quiet_point(stub.count("patches"))
+    c1, b1 = quiet_point(c0 + passes - 1)
+    return {d + "_bytes_per_advertise":
+            (b1.get((wire, d), 0) - b0.get((wire, d), 0)) / (c1 - c0)
+            for d in ("tx", "rx")}
+
+
+def _patch_round_trips(url: str, annotations: dict, calls: int = 50) -> dict:
+    """Median ms of the port client's ``patch_node_metadata`` carrying
+    ``annotations`` (the card's real advertisement) to the stub at ``url``
+    over ``calls`` calls on each wire, the wires in turns, each client
+    warmed by one call first."""
+    import statistics
+
+    from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
+
+    name = NODE + "-wire"
+    clients = {w: HTTPAPIClient(url, wire=w) for w in ("json", "stream")}
+    times = {w: [] for w in clients}
+    patch = {"annotations": dict(annotations)}
+    try:
+        clients["json"].create_node({"metadata": {"name": name}})
+        for c in clients.values():
+            c.patch_node_metadata(name, patch)
+        for _ in range(calls):
+            for w, c in clients.items():
+                t = time.perf_counter()
+                c.patch_node_metadata(name, patch)
+                times[w].append((time.perf_counter() - t) * 1e3)
+        if clients["stream"].wire != "stream":
+            raise AssertionError("the stream client negotiated down")
+    finally:
+        for c in clients.values():
+            c.close()
+    return {w: statistics.median(v) for w, v in times.items()}
+
+
+def _negotiation_leg(root: str, base_env: dict, want: dict) -> dict:
+    """The port's node agent on its default wire against a stub that
+    answers the upgrade with plain HTTP: it negotiates down once (one
+    refused upgrade, no frame, no stream byte), advertises ``want`` (the
+    stream run's annotations, heartbeat aside) over JSON, and stops on
+    SIGTERM with exit 0. Returns the JSON wire's first advertise and bytes
+    per advertise pass."""
+    import signal
+    import tempfile
+
+    from kubegpu_tpu_torch.core import codec
+
+    stub = _StubAPIServer(stream_wire=False)
+    healthz = _free_port()
+    err = tempfile.TemporaryFile(mode="w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubegpu_tpu_torch.cmd.node_agent",
+         "--api", stub.url, "--node-name", NODE, "--node-address",
+         "127.0.0.1", "--backend", "nvml", "--register-node",
+         "--healthz-port", str(healthz), "--advertise-interval", "1"],
+        cwd=root, env=base_env, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        def advertised():
+            ann = (stub.nodes.get(NODE, {}).get("metadata") or {}).get(
+                "annotations") or {}
+            return ann if codec.NODE_ANNOTATION_KEY in ann else None
+
+        try:
+            ann = _wait_for(advertised, 60, "the negotiated advertise")
+        except AssertionError:
+            err.seek(0)
+            raise AssertionError(f"no advertise over the negotiated wire: "
+                                 f"{err.read()[-3000:]}") from None
+        first_advertise_s = time.perf_counter() - t0
+        strip = {codec.NODE_HEARTBEAT_ANNOTATION}
+        got = {k: v for k, v in ann.items() if k not in strip}
+        if got != {k: v for k, v in want.items() if k not in strip}:
+            raise AssertionError(f"over json the agent advertised {got}, "
+                                 f"over stream {want}")
+        per_pass = _bytes_per_advertise(stub, healthz, "json")
+        moved = _agent_transport_bytes(healthz)
+        refused, frames = (stub.count("upgrades_refused"),
+                           stub.count("frames_served"))
+        if (refused, frames) != (1, 0) or any(w != "json" for w, _ in moved):
+            raise AssertionError(f"negotiation: {refused} upgrades refused, "
+                                 f"{frames} frames, {moved}")
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=10) != 0:
+            raise AssertionError(f"the agent exited {proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+        stub.close()
+    return {"first_advertise_s": first_advertise_s,
+            "upgrades_refused": refused, **per_pass,
+            "seconds": time.perf_counter() - t0}
 
 
 def device_side_phase() -> dict:
@@ -2472,6 +2678,18 @@ def device_side_phase() -> dict:
     probe_s = time.perf_counter() - t
     # 6. the port's node agent, over a stub API server, runs the pod
     agent = _node_agent_run(root, base_env, info, mgr, config)
+    # 7. against a server without the stream wire it negotiates down
+    json_wire = _negotiation_leg(root, base_env,
+                                 agent.pop("advertised_annotations"))
+    stream_wire = agent["wire_stream"]
+    emit({"phase": "control_plane_wire", "nvidia_smi": smi_line(),
+          "note": "host times on the card's machine; stream bytes are whole "
+                  "frames (13-byte header included), json bytes are HTTP "
+                  "bodies only (headers left out); json's first advertise "
+                  "includes the refused upgrade",
+          "wires": {w: dict(leg, patch_rtt_ms_median=agent["patch_rtt_ms"][w])
+                    for w, leg in (("stream", stream_wire),
+                                   ("json", json_wire))}})
     row = {"phase": "device_side",
            "inventory": [{"index": g.index, "uuid": g.uuid, "minor": g.minor,
                           "memory_bytes": g.memory_bytes,
@@ -2481,7 +2699,7 @@ def device_side_phase() -> dict:
            "allocation": alloc, "score": score,
            "too_many_reasons": [str(r) for r in reasons2],
            "devices": devices, "env": env, "pod_uuid": f"GPU-{uuid}",
-           "pod_probe_s": probe_s, **agent,
+           "pod_probe_s": probe_s, **agent, "wire_json": json_wire,
            "seconds": time.perf_counter() - t0, "ok": True}
     emit(row)
     return row
@@ -2556,6 +2774,19 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         with urllib.request.urlopen(f"http://127.0.0.1:{healthz}/healthz",
                                     timeout=10) as r:
             healthz_status = r.status
+        # the agent's default wire: it upgraded, the stub served its frames,
+        # and its own counters moved under wire="stream" alone
+        moved = _agent_transport_bytes(healthz)
+        if stub.count("frames_served") == 0 or \
+                not moved.get(("stream", "tx")) or \
+                not moved.get(("stream", "rx")) or \
+                any(w != "stream" for w, _ in moved):
+            raise AssertionError(f"the agent did not advertise over the "
+                                 f"stream wire: {stub.count('frames_served')}"
+                                 f" frames served, {moved}")
+        stream_wire = {"first_advertise_s": first_advertise_s,
+                       **_bytes_per_advertise(stub, healthz, "stream")}
+        patch_rtt_ms = _patch_round_trips(stub.url, ann)
         # place the pod on the advertised node, a one-rank gang; and a pod
         # that asks for one card more than it was allocated
         sched = GPUScheduler()
@@ -2654,6 +2885,11 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         stop_s = time.perf_counter() - t
         if rc != 0:
             raise AssertionError(f"the agent exited {rc} on SIGTERM")
+        if stub.count("faults") or stub.count("upgrades_refused"):
+            raise AssertionError(f"stream wire: {stub.count('faults')} "
+                                 f"protocol faults, "
+                                 f"{stub.count('upgrades_refused')} refusals")
+        frames_served = stub.count("frames_served")
     finally:
         watchdog.cancel()
         if proc.poll() is None:
@@ -2663,6 +2899,9 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         err.close()
         stub.close()
     return {"agent_first_advertise_s": first_advertise_s,
+            "agent_wire": "stream", "stub_frames_served": frames_served,
+            "wire_stream": stream_wire, "patch_rtt_ms": patch_rtt_ms,
+            "advertised_annotations": ann,
             "agent_healthz": healthz_status, "agent_heartbeat": heartbeat,
             "served_config": served_cfg,
             "refused": refused.stderr.strip().splitlines()[-1],

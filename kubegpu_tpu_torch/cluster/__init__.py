@@ -1,1 +1,2 @@
-"""The port's client of the JAX package's API server (JSON wire)."""
+"""The port's client of the JAX package's API server, on its JSON and
+stream wires."""

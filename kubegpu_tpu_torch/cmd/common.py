@@ -4,8 +4,8 @@ metrics endpoint, and the device backends.
 The port's copy of ``kubegpu_tpu/cmd/common.py``'s node-side half: a
 ``--config`` file (JSON, or YAML where PyYAML is installed) fills in the
 flags left at their defaults, and one HTTP server answers ``/healthz``
-and ``/metrics`` (the serving metrics of ``kubegpu_tpu_torch.metrics`` in
-Prometheus text). The JAX package's ``/metrics/history`` and ``/debug/*``
+and ``/metrics`` (the serving and control-plane wire metrics of
+``kubegpu_tpu_torch.metrics`` in Prometheus text). The JAX package's ``/metrics/history`` and ``/debug/*``
 endpoints serve its control plane's observability package and are not
 part of the port.
 """

@@ -5,7 +5,9 @@ The port's counterpart of ``kubegpu_tpu/cmd/node_agent.py`` (reference:
 `crishim/pkg/app/app.go`, and the persistent CRI endpoint of
 `docker_container.go:115-191`). It discovers the host's NVIDIA cards
 (``--backend nvml``, or a fake inventory), advertises them to the JAX
-package's API server over its JSON wire, serves ``/healthz`` and
+package's API server over its binary stream wire (``--wire stream``, the
+default, which negotiates down to JSON against a server without it; or
+``--wire json``), serves ``/healthz`` and
 ``/metrics`` on ``--healthz-port``, and on ``--cri-socket`` or
 ``--cri-port`` serves the port's `GPURuntimeHook` with a workload
 supervisor behind it. So a GPU pod that comes through it has its stale
@@ -73,8 +75,10 @@ def _primary_address() -> str | None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--api", default="http://127.0.0.1:8070")
-    parser.add_argument("--wire", choices=("json",), default="json",
-                        help="control-plane wire (the port speaks JSON only)")
+    parser.add_argument("--wire", choices=("stream", "json"),
+                        default="stream",
+                        help="control-plane wire (stream negotiates down "
+                             "to json against an older apiserver)")
     parser.add_argument("--node-name", default=None,
                         help="defaults to the hostname, like kubelet")
     parser.add_argument("--node-address", default=None,
@@ -112,7 +116,7 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, lambda *a: stop.set())
 
     node_name = args.node_name or socket.gethostname()
-    client = HTTPAPIClient(args.api)
+    client = HTTPAPIClient(args.api, wire=args.wire)
     if args.register_node:
         try:
             client.get_node(node_name)

@@ -6,8 +6,13 @@ node advertises its inventory as one JSON blob under
 as ``pod.alpha/DeviceInformation`` (`kubeinterface/kubeinterface.go:29-123`).
 Both are ``json.dumps(..., sort_keys=True)``, so the JAX codec and this
 one write the same bytes for the same object. Kubernetes objects are
-plain dicts in their JSON shape. The binary stream codec of the JAX
-package is not part of the port.
+plain dicts in their JSON shape.
+
+Below the annotations sits the compact binary value codec of the stream
+wire (``cluster/stream.py``): ``encode_value``/``decode_value`` and the
+request and response records built on them, byte for byte the JAX
+package's. Its watch records (pods, node snapshots, watch batches) are
+not ported: the node side never watches.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import struct
 
 from kubegpu_tpu_torch.core.types import ContainerInfo, NodeInfo, PodInfo
 
@@ -210,3 +216,297 @@ def kube_pod_to_pod_info(kube_pod: dict, invalidate_existing: bool) -> PodInfo:
     if invalidate_existing:
         pod_info.node_name = ""
     return pod_info
+
+
+# ---- binary value codec (the stream wire's payloads) -----------------------
+#
+# A tagged, length-prefixed encoding of JSON-shaped values with two
+# string interning tables: a STATIC table of protocol constants (object
+# keys, annotation keys, verbs) every peer knows, so they never ride the
+# wire as more than a 1-2 byte reference; and a DYNAMIC table scoped to
+# one frame, where a string's first occurrence is sent inline and gets
+# the next id and every repeat is a reference. Every frame decodes on its
+# own, so a reconnect has no interner state to resync.
+
+_F64 = struct.Struct("<d")
+
+_T_NONE = 0x00
+_T_TRUE = 0x01
+_T_FALSE = 0x02
+_T_INT = 0x03
+_T_FLOAT = 0x04
+_T_STR_NEW = 0x05   # inline utf-8, registers the next dynamic id
+_T_STR_REF = 0x06   # varint reference into static+dynamic table
+_T_LIST = 0x07
+_T_DICT = 0x08
+
+# Wire protocol: an id is a position in this tuple, so an entry missing,
+# added or moved decodes as another string without any error. Its order
+# is the JAX package's, the two groups appended last included.
+_STATIC_STRINGS: "tuple[str, ...]" = (
+    # object shape
+    "metadata", "name", "annotations", "labels", "spec", "status",
+    "nodeName", "containers", "initContainers", "resources", "requests",
+    "allocatable", "capacity", "cpu", "pods", "priority", "phase",
+    "volumes", "persistentVolumeClaim", "claimName", "volumeName",
+    "storageClassName", "nodeAffinity",
+    # annotation keys (the hot per-record payloads)
+    NODE_ANNOTATION_KEY, POD_ANNOTATION_KEY, NODE_ADDRESS_ANNOTATION,
+    NODE_HEARTBEAT_ANNOTATION, NODE_CHIP_HEALTH_ANNOTATION,
+    # verbs + routes
+    "GET", "POST", "PUT", "PATCH", "DELETE",
+    # watch stream
+    "node", "pod", "pv", "pvc", "added", "modified", "deleted",
+    "events", "seq", "coalesced", "relist", "epoch", "items",
+    # error detail
+    "error", "per_pod", "bindings", "holder", "ttl",
+    # multi-tenant front door (appended last: static ids are wire
+    # protocol, so existing indexes must never shift)
+    "retry_after_s", "tenant", "kgtpu.io/tenant", "quota", "weight",
+    "hard_chips", "chips_created",
+    # device-fault repair (appended last, by the same rule)
+    NODE_LINK_HEALTH_ANNOTATION,
+)
+_STATIC_INDEX = {s: i for i, s in enumerate(_STATIC_STRINGS)}
+
+
+class CodecError(ValueError):
+    """Malformed binary payload: truncated, a bad tag, or a dangling
+    intern reference. Raised by every ``decode_*`` function; a transport
+    treats it as a poisoned frame and never retries the bytes."""
+
+
+# Both varint halves share one magnitude cap (1024 bits: far beyond any
+# control-plane quantity, tight enough that a hostile frame cannot force
+# quadratic bigint work). The encoder refuses what the decoder would
+# reject, so the wire never carries a frame only one side understands.
+_VARINT_MAX_BITS = 1024
+
+
+def _encode_varint(buf: bytearray, n: int) -> None:
+    if n.bit_length() > _VARINT_MAX_BITS:
+        raise CodecError(f"integer too large for the wire "
+                         f"({n.bit_length()} bits > {_VARINT_MAX_BITS})")
+    while n > 0x7F:
+        buf.append((n & 0x7F) | 0x80)
+        n >>= 7
+    buf.append(n)
+
+
+def _encode_into(buf: bytearray, obj: object, table: "dict[str, int]") -> None:
+    # type checks ordered by frequency (strings dominate control-plane
+    # records), one-byte varints inlined
+    t = type(obj)
+    if t is str:
+        idx = table.get(obj)
+        if idx is not None:
+            buf.append(_T_STR_REF)
+            if idx < 0x80:
+                buf.append(idx)
+            else:
+                _encode_varint(buf, idx)
+        else:
+            table[obj] = len(table)  # type: ignore[index]
+            raw = obj.encode()  # type: ignore[union-attr]
+            buf.append(_T_STR_NEW)
+            n = len(raw)
+            if n < 0x80:
+                buf.append(n)
+            else:
+                _encode_varint(buf, n)
+            buf += raw
+    elif t is dict:
+        buf.append(_T_DICT)
+        _encode_varint(buf, len(obj))  # type: ignore[arg-type]
+        for key, val in obj.items():  # type: ignore[union-attr]
+            _encode_into(buf, key, table)
+            _encode_into(buf, val, table)
+    elif t is int:
+        buf.append(_T_INT)
+        # zigzag: the sign rides the low bit so magnitudes stay short
+        zz = (obj << 1) if obj >= 0 else ((-obj) << 1) - 1  # type: ignore
+        if zz < 0x80:
+            buf.append(zz)
+        else:
+            _encode_varint(buf, zz)
+    elif t is list or t is tuple:
+        buf.append(_T_LIST)
+        _encode_varint(buf, len(obj))  # type: ignore[arg-type]
+        for item in obj:  # type: ignore[union-attr]
+            _encode_into(buf, item, table)
+    elif obj is None:
+        buf.append(_T_NONE)
+    elif obj is True:
+        buf.append(_T_TRUE)
+    elif obj is False:
+        buf.append(_T_FALSE)
+    elif t is float:
+        buf.append(_T_FLOAT)
+        buf += _F64.pack(obj)  # type: ignore[arg-type]
+    else:
+        # a subclass coerces to its exact base type and re-enters the
+        # branches above; anything else is sent as its str
+        _encode_into(buf, _coerce(obj), table)
+
+
+def _coerce(obj: object) -> object:
+    if isinstance(obj, bool):
+        return bool(obj)
+    if isinstance(obj, str):
+        return str(obj)
+    if isinstance(obj, int):
+        return int(obj)
+    if isinstance(obj, float):
+        return float(obj)
+    if isinstance(obj, (list, tuple)):
+        return list(obj)
+    if isinstance(obj, dict):
+        return dict(obj)
+    return str(obj)
+
+
+def _decode_varint(data: bytes, pos: int) -> "tuple[int, int]":
+    out = 0
+    shift = 0
+    end = len(data)
+    while True:
+        if pos >= end:
+            raise CodecError("truncated varint")
+        byte = data[pos]
+        pos += 1
+        out |= (byte & 0x7F) << shift
+        if not byte & 0x80:
+            return out, pos
+        shift += 7
+        if shift > _VARINT_MAX_BITS:
+            raise CodecError("varint too long")
+
+
+def _decode_from(data: bytes, pos: int,
+                 table: "list[str]") -> "tuple[object, int]":
+    # branches ordered by frequency, one-byte varints inlined; an
+    # IndexError from truncation is wrapped into CodecError by
+    # decode_value
+    end = len(data)
+    if pos >= end:
+        raise CodecError("truncated value")
+    tag = data[pos]
+    pos += 1
+    if tag == _T_STR_REF:
+        idx = data[pos]
+        pos += 1
+        if idx & 0x80:
+            idx, pos = _decode_varint(data, pos - 1)
+        if idx >= len(table):
+            raise CodecError(f"dangling string reference {idx}")
+        return table[idx], pos
+    if tag == _T_STR_NEW:
+        n = data[pos]
+        pos += 1
+        if n & 0x80:
+            n, pos = _decode_varint(data, pos - 1)
+        if pos + n > end:
+            raise CodecError("truncated string")
+        s = data[pos:pos + n].decode()
+        table.append(s)
+        return s, pos + n
+    if tag == _T_DICT:
+        n = data[pos]
+        pos += 1
+        if n & 0x80:
+            n, pos = _decode_varint(data, pos - 1)
+        if n > end - pos:
+            raise CodecError("dict longer than payload")
+        out_d: "dict[object, object]" = {}
+        for _ in range(n):
+            key, pos = _decode_from(data, pos, table)
+            val, pos = _decode_from(data, pos, table)
+            out_d[key] = val
+        return out_d, pos
+    if tag == _T_LIST:
+        n = data[pos]
+        pos += 1
+        if n & 0x80:
+            n, pos = _decode_varint(data, pos - 1)
+        if n > end - pos:
+            raise CodecError("list longer than payload")
+        out_l: "list[object]" = []
+        for _ in range(n):
+            item, pos = _decode_from(data, pos, table)
+            out_l.append(item)
+        return out_l, pos
+    if tag == _T_INT:
+        zz = data[pos]
+        pos += 1
+        if zz & 0x80:
+            zz, pos = _decode_varint(data, pos - 1)
+        return (zz >> 1) ^ -(zz & 1), pos
+    if tag == _T_NONE:
+        return None, pos
+    if tag == _T_TRUE:
+        return True, pos
+    if tag == _T_FALSE:
+        return False, pos
+    if tag == _T_FLOAT:
+        if pos + 8 > end:
+            raise CodecError("truncated float")
+        return _F64.unpack_from(data, pos)[0], pos + 8
+    raise CodecError(f"unknown tag 0x{tag:02x}")
+
+
+def encode_value(obj: object) -> bytes:
+    """Encode one JSON-shaped value (the generic wire payload)."""
+    buf = bytearray()
+    _encode_into(buf, obj, dict(_STATIC_INDEX))
+    return bytes(buf)
+
+
+def decode_value(data: bytes) -> object:
+    """Decode one value. Raises :class:`CodecError` on malformed bytes
+    (truncation, bad tags, dangling intern references) and on trailing
+    bytes: a frame is exactly one value."""
+    try:
+        val, pos = _decode_from(data, 0, list(_STATIC_STRINGS))
+    except IndexError:
+        raise CodecError("truncated value") from None
+    except RecursionError:
+        raise CodecError("value nested too deeply") from None
+    except UnicodeDecodeError:
+        raise CodecError("string payload is not valid utf-8") from None
+    except TypeError:
+        # e.g. a decoded list arriving in dict-key position
+        raise CodecError("unhashable dict key in payload") from None
+    if pos != len(data):
+        raise CodecError(f"{len(data) - pos} trailing byte(s) after value")
+    return val
+
+
+def encode_request(method: str, path: str, body: object,
+                   trace: "str | None" = None) -> bytes:
+    """One framed API request: verb, route, body and an optional trace
+    context."""
+    return encode_value([method, path, body, trace])
+
+
+def decode_request(data: bytes) -> "tuple[str, str, object, str | None]":
+    val = decode_value(data)
+    if not isinstance(val, list) or len(val) != 4 or \
+            not isinstance(val[0], str) or not isinstance(val[1], str) or \
+            not (val[3] is None or isinstance(val[3], str)):
+        raise CodecError("malformed request frame")
+    return val[0], val[1], val[2], val[3]
+
+
+def encode_response(status: int, body: object) -> bytes:
+    """One framed API response: an HTTP status and the body (an error body
+    carries the same ``{"error", "per_pod"}`` detail as on the JSON
+    wire)."""
+    return encode_value([status, body])
+
+
+def decode_response(data: bytes) -> "tuple[int, object]":
+    val = decode_value(data)
+    if not isinstance(val, list) or len(val) != 2 or \
+            not isinstance(val[0], int):
+        raise CodecError("malformed response frame")
+    return val[0], val[1]

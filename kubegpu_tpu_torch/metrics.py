@@ -1,9 +1,12 @@
-"""The serving metrics: a minimal copy of ``kubegpu_tpu/metrics.py``.
+"""The serving and transport metrics: a minimal copy of
+``kubegpu_tpu/metrics.py``.
 
-Only what the serving path reads: the exponential-bucket ``Histogram``,
-the settable ``Gauge``, the four serving metrics (time to first token,
-inter-token latency, queue depth, slot utilization) and their Prometheus
-exposition, which the node agent serves on ``/metrics``.
+Only what the port records: the exponential-bucket ``Histogram``, the
+settable ``Gauge``, the labelled ``LabeledCounter``; the four serving
+metrics (time to first token, inter-token latency, queue depth, slot
+utilization), the control-plane wire's bytes and frame codec times under
+the JAX package's names, and their Prometheus exposition, which the node
+agent serves on ``/metrics``.
 """
 
 from __future__ import annotations
@@ -81,13 +84,65 @@ class Gauge:
             self.value = 0
 
 
+class Counter:
+    """A count that only grows (a `LabeledCounter`'s child)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0
+        self._lock = threading.Lock()
+
+    def inc(self, by: int = 1) -> None:
+        with self._lock:
+            self.value += by
+
+
+class LabeledCounter:
+    """A family of counters keyed by label values (Prometheus
+    ``name{a="x",b="y"}``); a child is created on first use."""
+
+    def __init__(self, name: str, label_names: tuple):
+        self.name = name
+        self.label_names = tuple(label_names)
+        self._children: dict = {}
+        self._lock = threading.Lock()
+
+    def labels(self, *values: str) -> Counter:
+        if len(values) != len(self.label_names):
+            raise ValueError(f"{self.name} takes labels "
+                             f"{self.label_names}, got {values}")
+        with self._lock:
+            child = self._children.get(values)
+            if child is None:
+                child = self._children[values] = Counter(self.name)
+            return child
+
+    def children(self) -> list:
+        """[(label values, child)] sorted by the values."""
+        with self._lock:
+            return sorted(self._children.items())
+
+    def reset(self) -> None:
+        with self._lock:
+            self._children = {}
+
+
 SERVE_TTFT_MS = Histogram("serve_ttft_ms", start_us=0.25)
 SERVE_ITL_MS = Histogram("serve_itl_ms", start_us=0.01)
 SERVE_QUEUE_DEPTH = Gauge("serve_queue_depth")
 SERVE_SLOT_UTILIZATION = Gauge("serve_slot_utilization")  # 0..1 ratio
 
+# The control-plane wire (cluster/stream.py, cluster/httpapi.py): bytes
+# this process moved per wire ("json"/"stream") and direction ("tx"/"rx"),
+# frame headers included on the stream wire and HTTP headers left out on
+# the JSON wire (bodies only); and the binary codec's time per frame.
+TRANSPORT_BYTES = LabeledCounter("transport_bytes_total", ("wire", "dir"))
+FRAME_ENCODE_MS = Histogram("frame_encode_ms", start_us=0.002)
+FRAME_DECODE_MS = Histogram("frame_decode_ms", start_us=0.002)
+
 _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
-        SERVE_SLOT_UTILIZATION)
+        SERVE_SLOT_UTILIZATION, TRANSPORT_BYTES, FRAME_ENCODE_MS,
+        FRAME_DECODE_MS)
 
 
 def reset_all() -> None:
@@ -110,6 +165,12 @@ def prometheus_text() -> str:
                 lines.append(f'{m.name}_bucket{{le="+Inf"}} {m.n}')
                 lines.append(f"{m.name}_sum {m.total:.6g}")
                 lines.append(f"{m.name}_count {m.n}")
+        elif isinstance(m, LabeledCounter):
+            lines.append(f"# TYPE {m.name} counter")
+            for values, child in m.children():
+                rendered = ",".join(
+                    f'{k}="{v}"' for k, v in zip(m.label_names, values))
+                lines.append(f"{m.name}{{{rendered}}} {child.value}")
         else:
             lines.append(f"# TYPE {m.name} gauge")
             lines.append(f"{m.name} {m.value}")

@@ -202,7 +202,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "allocator.grpalloc", "scheduler.gpu_scheduler",
                  "plugins.device.gpu_device",
                  "plugins.scheduler.gpu_scheduler_plugin",
-                 "cluster.httpapi", "node.advertiser", "runtime.server",
+                 "cluster.httpapi", "cluster.stream", "node.advertiser",
+                 "runtime.server",
                  "runtime.launcher", "cmd.common", "cmd.node_agent",
                  "cmd.cri_hook", "analysis.dispatchcount", "analysis.engine",
                  "analysis.dataflow", "analysis.rules.hostsync",

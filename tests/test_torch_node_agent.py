@@ -8,6 +8,7 @@ subprocess on the ``fake-hgx`` backend (node/fake.py's HGX H100 board)."""
 
 import json
 import os
+import re
 import signal
 import socket
 import subprocess
@@ -38,7 +39,7 @@ from kubegpu_tpu.scheduler.registry import DevicesScheduler  # noqa: E402
 from kubegpu_tpu.scheduler.tpu_scheduler import TPUScheduler  # noqa: E402
 from kubegpu_tpu_torch.cmd import common  # noqa: E402
 from kubegpu_tpu_torch.cmd.node_agent import build_manager  # noqa: E402
-from kubegpu_tpu_torch.core import codec  # noqa: E402
+from kubegpu_tpu_torch.core import codec, grammar  # noqa: E402
 from kubegpu_tpu_torch.node import fake  # noqa: E402
 from kubegpu_tpu_torch.node.advertiser import DeviceAdvertiser  # noqa: E402
 from kubegpu_tpu_torch.node.manager import (DevicesManager,  # noqa: E402
@@ -174,10 +175,25 @@ def _jax_reference_annotations(address="127.0.0.1") -> dict:
     return api.get_node(NODE)["metadata"]["annotations"]
 
 
+def _transport_bytes(agent) -> dict:
+    """The agent's ``transport_bytes_total`` from its ``/metrics``, as
+    {(wire, dir): bytes}."""
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{agent.healthz}/metrics", timeout=5) as r:
+        text = r.read().decode()
+    assert "# TYPE serve_ttft_ms histogram" in text
+    out = {}
+    for m in re.finditer(r'^transport_bytes_total\{wire="(\w+)",dir="(\w+)"\}'
+                         r" (\d+)$", text, re.M):
+        out[m.group(1), m.group(2)] = int(m.group(3))
+    return out
+
+
+@pytest.mark.parametrize("wire", ["json", "stream"])
 def test_agent_advertises_what_the_jax_agent_advertises(control_plane,
-                                                        tmp_path):
+                                                        tmp_path, wire):
     api, url = control_plane
-    agent = Agent(url, tmp_path, "--register-node", cri=None)
+    agent = Agent(url, tmp_path, "--register-node", "--wire", wire, cri=None)
     try:
         got = _wait(lambda: _advertised(api), what="the first advertise")
         want = _jax_reference_annotations()
@@ -191,11 +207,71 @@ def test_agent_advertises_what_the_jax_agent_advertises(control_plane,
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{agent.healthz}/healthz", timeout=5) as r:
             assert r.status == 200 and r.read() == b"ok"
-        with urllib.request.urlopen(
-                f"http://127.0.0.1:{agent.healthz}/metrics", timeout=5) as r:
-            assert b"# TYPE serve_ttft_ms histogram" in r.read()
+        moved = _transport_bytes(agent)
+        other = "json" if wire == "stream" else "stream"
+        assert moved[wire, "tx"] > 0 and moved[wire, "rx"] > 0
+        assert moved.get((other, "tx"), 0) == 0
     finally:
         assert agent.stop() == 0
+
+
+def test_agent_negotiates_down_to_json_against_a_json_only_server(tmp_path):
+    api = InMemoryAPIServer()
+    server, url = serve_api(api, stream_wire=False)
+    agent = Agent(url, tmp_path, "--register-node", cri=None)
+    try:
+        got = _wait(lambda: _advertised(api), what="the first advertise")
+        strip = {codec.NODE_HEARTBEAT_ANNOTATION}
+        assert {k: v for k, v in got.items() if k not in strip} == \
+            {k: v for k, v in _jax_reference_annotations().items()
+             if k not in strip}
+        moved = _transport_bytes(agent)
+        assert moved["json", "tx"] > 0 and ("stream", "tx") not in moved
+    finally:
+        assert agent.stop() == 0
+        server.shutdown()
+
+
+@pytest.mark.parametrize("flag,wire", [((), "stream"),
+                                       (("--wire", "json"), "json"),
+                                       (("--wire", "stream"), "stream")])
+def test_wire_defaults_to_stream(monkeypatch, flag, wire):
+    from kubegpu_tpu_torch.cmd import node_agent
+
+    class Built(Exception):
+        pass
+
+    def client(api, wire):
+        raise Built(wire)
+
+    monkeypatch.setattr(node_agent, "HTTPAPIClient", client)
+    monkeypatch.setattr(node_agent.signal, "signal", lambda *a: None)
+    with pytest.raises(Built) as got:
+        node_agent.main(["--api", "http://127.0.0.1:1", "--node-name", NODE,
+                         *flag])
+    assert got.value.args == (wire,)
+    with pytest.raises(SystemExit):
+        node_agent.main(["--wire", "grpc"])
+
+
+def test_jax_scheduler_binds_a_pod_the_agent_advertised_over_stream(
+        control_plane, tmp_path):
+    api, url = control_plane
+    _registered(api)
+    agent = Agent(url, tmp_path, cri=None)
+    try:
+        _wait(lambda: _advertised(api), what="the first advertise")
+        moved = _transport_bytes(agent)
+        assert moved["stream", "tx"] > 0 and ("json", "tx") not in moved
+        pod = _placed(api, "bound", 2)
+    finally:
+        assert agent.stop() == 0
+    pi = codec.kube_pod_to_pod_info(pod, invalidate_existing=False)
+    cards = {grammar.gpu_id_from_path(p) for p in
+             pi.running_containers["main"].allocate_from.values()}
+    cards.discard(None)
+    assert len(cards) == 2 and \
+        cards <= {g.uuid for g in fake.hgx_h100_inventory().gpus}
 
 
 def test_jax_lifecycle_reads_the_port_heartbeat(control_plane, tmp_path):
