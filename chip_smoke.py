@@ -156,10 +156,14 @@ T = 2048, no remat), random weights from a seed:
    ``python -m kubegpu_tpu_torch.cmd.cri_hook --server``
    rewrites the stale config as the in-process hook does, and exits
    non-zero with a 409 naming ``AllocationMismatch`` for a pod that asks
-   for one card more than it was allocated; ``POST
-   /v1/launch-container`` runs ``python -m kubegpu_tpu_torch.cmd.train_demo``
-   at the training config for 3 steps (a gang of one: the sharded step over
-   an NCCL group formed from the hook's env), which exits 0 with finite
+   for one card more than it was allocated; the port's scheduling engine
+   (``scheduler/core.py``, in this process, over the stub's dicts through
+   its in-process face) places the agent's pod, a gang of one, on the
+   node from the annotation the agent advertised and writes its process
+   contract; ``POST /v1/launch-container`` runs ``python -m
+   kubegpu_tpu_torch.cmd.train_demo`` at the training config for 3 steps
+   (the sharded step over an NCCL group formed from the hook's env of the
+   engine's contract), which exits 0 with finite
    losses and 18 sm90 launches each of K1, K2 and K3, counted in that
    process from zero (``launches_node_agent_run``), and whose
    ``pod.alpha/ContainerStatus`` in the stub says exited 0; SIGTERM stops
@@ -170,7 +174,17 @@ T = 2048, no remat), random weights from a seed:
    ``control_plane_wire`` line gives, for each wire, start to first
    advertise, bytes per advertise pass and the patch round trip, beside
    the card's name and power limit;
-22. checkers: under the dispatch/sync/build counter
+22. scheduler: the port's scheduling engine in process, over dicts. A
+   gang of one 1-card pod more than the card's host (NVML) has cards
+   leaves every member unbound; with a ``fake.rig_inventory`` host added
+   the gang binds, one card each, ranks 0.. in name order, the count the
+   gang's size and the coordinator rank 0's node. Then host times of this
+   machine: p50, p95 and max ms of a scheduling cycle for 256 count-mode
+   pods of 1, 2, 4 and 8 cards over 64 ``fake.hgx_h100_inventory`` hosts,
+   the plan ms and commit ms of a 16-member gang of 8-card pods over 16
+   HGX hosts, and the auto-topology stream (4-card pods a and b on an HGX
+   board, then c) with c bound to the PCIe host;
+23. checkers: under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
    equal streams, the fused syncs one a chunk plus one an admission and
@@ -2231,6 +2245,169 @@ class _StubAPI:
         return json.loads(json.dumps(self.nodes[name]))
 
 
+def _free_gang_id() -> int:
+    """A gang id whose coordinator port (``scheduler/gang.py``) is free on
+    this machine: the engine's contract names it, and the pod's process
+    group binds it."""
+    import socket
+
+    from kubegpu_tpu_torch.scheduler.gang import gang_coordinator_port
+
+    for gid in range(733, 933):
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", gang_coordinator_port(gid)))
+                return gid
+            except OSError:
+                continue
+    raise AssertionError("no free gang coordinator port")
+
+
+def _gpu_pod(name: str, numgpu: int, gang: int | None = None,
+             size: int | None = None, auto: bool = False) -> dict:
+    """An unbound pod asking for ``numgpu`` cards (a gang member when
+    ``gang`` is given; auto-topology when ``auto``)."""
+    from kubegpu_tpu_torch.core import codec, grammar
+    from kubegpu_tpu_torch.core.types import ContainerInfo, PodInfo
+
+    info = PodInfo(name=name, running_containers={"main": ContainerInfo(
+        requests={grammar.RESOURCE_NUM_GPU: numgpu})})
+    if gang is not None:
+        info.requests[grammar.RESOURCE_GANG] = gang
+        info.requests[grammar.RESOURCE_GANG_SIZE] = size
+    if auto:
+        info.requests[grammar.GPU_TOPOLOGY_GENERATION] = 1
+    meta = {"name": name}
+    codec.pod_info_to_annotation(meta, info)
+    return {"metadata": meta, "spec": {"containers": [{"name": "main"}]}}
+
+
+def _gpu_node(name: str, backend) -> dict:
+    """A node object advertising ``backend``'s cards, as the node agent
+    writes it."""
+    from kubegpu_tpu_torch.core import codec
+    from kubegpu_tpu_torch.core.types import NodeInfo
+    from kubegpu_tpu_torch.node.manager import GPUDeviceManager
+
+    info = NodeInfo(name=name)
+    GPUDeviceManager(backend).update_node_info(info)
+    meta = {"name": name, "annotations": {
+        codec.NODE_ADDRESS_ANNOTATION: "127.0.0.1"}}
+    codec.node_info_to_annotation(meta, info)
+    return {"metadata": meta,
+            "status": {"allocatable": {"cpu": "64", "pods": 256}}}
+
+
+class _EngineFace:
+    """The in-process face of a dict-backed API server: the calls the
+    port's scheduling engine makes (nodes and pods listed and read; pods
+    created, bound, annotated and deleted; a gang bound at once with
+    ``bind_many``; events recorded; watch callbacks), over the dicts and the lock that the HTTP routes of
+    `_StubAPIServer` use. Callbacks run after the lock is released."""
+
+    def __init__(self, nodes: dict, pods: dict, lock):
+        self.nodes, self.pods, self._lock = nodes, pods, lock
+        self._watchers: list = []
+        self.events: dict = {}          # pod name -> [(reason, message)]
+
+    @staticmethod
+    def _copy(obj: dict) -> dict:
+        return json.loads(json.dumps(obj))
+
+    def add_watcher(self, fn) -> None:
+        self._watchers.append(fn)
+
+    def notify(self, kind: str, event: str, obj: dict) -> None:
+        for fn in list(self._watchers):
+            fn(kind, event, obj)
+
+    def _pod(self, name: str) -> dict:
+        from kubegpu_tpu_torch.cluster.httpapi import NotFound
+
+        if name not in self.pods:
+            raise NotFound(f"pod {name} not found")
+        return self.pods[name]
+
+    def list_nodes(self) -> list:
+        with self._lock:
+            return [self._copy(n) for n in self.nodes.values()]
+
+    def get_node(self, name: str) -> dict:
+        with self._lock:
+            return self._copy(self.nodes[name])
+
+    def add_node(self, node: dict) -> None:
+        with self._lock:
+            self.nodes[node["metadata"]["name"]] = node
+            obj = self._copy(node)
+        self.notify("node", "added", obj)
+
+    def list_pods(self, bound: bool = False) -> list:
+        with self._lock:
+            return [self._copy(p) for p in self.pods.values()
+                    if not bound or (p.get("spec") or {}).get("nodeName")]
+
+    def get_pod(self, name: str) -> dict:
+        with self._lock:
+            return self._copy(self._pod(name))
+
+    def create_pod(self, pod: dict) -> None:
+        with self._lock:
+            self.pods[pod["metadata"]["name"]] = self._copy(pod)
+            obj = self._copy(pod)
+        self.notify("pod", "added", obj)
+
+    def bind_pod(self, name: str, node_name: str) -> None:
+        from kubegpu_tpu_torch.cluster.httpapi import Conflict
+
+        with self._lock:
+            spec = self._pod(name).setdefault("spec", {})
+            if spec.get("nodeName") not in (None, node_name):
+                raise Conflict(f"pod {name} is bound to {spec['nodeName']}")
+            spec["nodeName"] = node_name
+            obj = self._copy(self.pods[name])
+        self.notify("pod", "modified", obj)
+
+    def bind_many(self, bindings: dict, annotations: dict) -> None:
+        """A gang's commit, all or nothing: every pod's annotations and
+        node, or none when any pod is missing or bound elsewhere."""
+        from kubegpu_tpu_torch.cluster.httpapi import Conflict
+
+        with self._lock:
+            for name, node_name in bindings.items():
+                bound = (self._pod(name).get("spec") or {}).get("nodeName")
+                if bound not in (None, node_name):
+                    raise Conflict(f"pod {name} is bound to {bound}",
+                                   per_pod={name: "bound elsewhere"})
+            changed = []
+            for name, node_name in sorted(bindings.items()):
+                pod = self.pods[name]
+                pod.setdefault("metadata", {})["annotations"] = dict(
+                    annotations.get(name) or {})
+                pod.setdefault("spec", {})["nodeName"] = node_name
+                changed.append(self._copy(pod))
+        for obj in changed:
+            self.notify("pod", "modified", obj)
+
+    def update_pod_annotations(self, name: str, annotations: dict) -> None:
+        with self._lock:
+            self._pod(name).setdefault("metadata", {})["annotations"] = \
+                dict(annotations)
+            obj = self._copy(self.pods[name])
+        self.notify("pod", "modified", obj)
+
+    def delete_pod(self, name: str) -> None:
+        with self._lock:
+            obj = self._pod(name)
+            del self.pods[name]
+        self.notify("pod", "deleted", obj)
+
+    def record_event(self, kind: str, name: str, event_type: str,
+                     reason: str, message: str) -> None:
+        with self._lock:
+            self.events.setdefault(name, []).append((reason, message))
+
+
 class _StubAPIServer:
     """A dict-backed stand-in of the control plane's API server on
     loopback, on both of its wires: the JSON paths the port's client calls
@@ -2242,7 +2419,9 @@ class _StubAPIServer:
     gets a plain HTTP 404, as a server without the stream wire answers.
     Counts the frames it served, the upgrades it refused, the protocol
     faults it met and the ``PATCH /nodes/<n>/metadata`` it applied on
-    either wire."""
+    either wire. ``face`` is its in-process face over the same dicts
+    (`_EngineFace`): what a client changes over either wire reaches the
+    face's watchers as a node or pod event."""
 
     def __init__(self, stream_wire: bool = True):
         import threading
@@ -2256,14 +2435,24 @@ class _StubAPIServer:
         self.faults = 0
         lock = threading.Lock()
         self._lock = lock
+        self.face = _EngineFace(self.nodes, self.pods, lock)
         outer = self
 
         def dispatch(method, path, body, encode):
             """``encode(status, obj)`` of the route's answer, under the
             lock: another thread's PATCH must not change ``obj`` while it
-            is encoded."""
+            is encoded. A write then reaches the face's watchers."""
             with lock:
-                return encode(*route(method, path, body))
+                status, obj = route(method, path, body)
+                out = encode(status, obj)
+                changed = status == 200 and method != "GET" and \
+                    json.loads(json.dumps(obj))
+            if changed:
+                kind = "node" if path.strip("/").startswith("nodes") \
+                    else "pod"
+                outer.face.notify(kind, "added" if method == "POST"
+                                  else "modified", changed)
+            return out
 
         def route(method, path, body):
             parts = path.strip("/").split("/")
@@ -2727,7 +2916,9 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
     from kubegpu_tpu_torch.runtime.hook import (GANG_PROCESS_ANNOTATION,
                                                 GPURuntimeHook)
     from kubegpu_tpu_torch.runtime.launcher import STATUS_ANNOTATION_KEY
-    from kubegpu_tpu_torch.scheduler.gpu_scheduler import GPUScheduler
+    from kubegpu_tpu_torch.scheduler.core import Scheduler
+    from kubegpu_tpu_torch.scheduler.gang import gang_coordinator_port
+    from kubegpu_tpu_torch.scheduler.registry import build_device_scheduler
 
     tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-agent-")
     stub = _StubAPIServer()
@@ -2787,30 +2978,44 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         stream_wire = {"first_advertise_s": first_advertise_s,
                        **_bytes_per_advertise(stub, healthz, "stream")}
         patch_rtt_ms = _patch_round_trips(stub.url, ann)
-        # place the pod on the advertised node, a one-rank gang; and a pod
-        # that asks for one card more than it was allocated
-        sched = GPUScheduler()
-        sched.add_node(NODE, advertised)
-        pod = PodInfo(name="agent-pod", running_containers={
-            "main": ContainerInfo(requests={grammar.RESOURCE_NUM_GPU: 1})})
-        fits, reasons, _ = sched.pod_fits_device(advertised, pod, True, True)
+        # the engine places the pod, a gang of one, on the node the agent
+        # advertised and writes its process contract; a pod that asks for
+        # one card more than it was allocated is written by hand
+        engine = Scheduler(stub.face, build_device_scheduler())
+        gid = _free_gang_id()
+        t = time.perf_counter()
+        stub.face.create_pod(_gpu_pod("agent-pod", 1, gang=gid, size=1))
+        engine.run_until_idle()
+        engine_place_ms = (time.perf_counter() - t) * 1e3
+        engine.stop()
+        placed = stub.face.get_pod("agent-pod")
+        contract = json.loads(placed["metadata"].get("annotations", {}).get(
+            GANG_PROCESS_ANNOTATION) or "{}")
+        want = {"gang": gid, "rank": 0, "count": 1, "coordinator_node": NODE,
+                "coordinator_port": gang_coordinator_port(gid)}
+        if placed["spec"].get("nodeName") != NODE or contract != want:
+            raise AssertionError(
+                f"the engine placed agent-pod on "
+                f"{placed['spec'].get('nodeName')} with contract {contract}"
+                f": {stub.face.events.get('agent-pod')}")
+        pod = codec.kube_pod_to_pod_info(placed, invalidate_existing=False)
         alloc = pod.running_containers["main"].allocate_from
-        if not fits or not alloc:
-            raise AssertionError(f"the pod did not fit the agent's node: "
-                                 f"{reasons}")
+        cards = [grammar.gpu_id_from_path(p) for p in alloc.values()
+                 if grammar.gpu_id_from_path(p)]
+        if len(cards) != 1 or cards[0] not in {
+                grammar.gpu_id_from_path(r) for r in advertised.allocatable}:
+            raise AssertionError(f"agent-pod's allocation {alloc}")
         short = PodInfo(name="agent-short", running_containers={
             "main": ContainerInfo(
                 requests={grammar.RESOURCE_NUM_GPU: 2},
                 allocate_from=dict(alloc))})
-        for p in (pod, short):
-            meta = {"name": p.name, "annotations": {
-                GANG_PROCESS_ANNOTATION: json.dumps({
-                    "gang": 1, "rank": 0, "count": 1,
-                    "coordinator_node": NODE,
-                    "coordinator_port": _free_port()})}}
-            codec.pod_info_to_annotation(meta, p)
-            stub.pods[p.name] = {"metadata": meta, "spec": {
-                "nodeName": NODE, "containers": [{"name": "main"}]}}
+        meta = {"name": short.name, "annotations": {
+            GANG_PROCESS_ANNOTATION: json.dumps({
+                "gang": 1, "rank": 0, "count": 1, "coordinator_node": NODE,
+                "coordinator_port": _free_port()})}}
+        codec.pod_info_to_annotation(meta, short)
+        stub.face.create_pod({"metadata": meta, "spec": {
+            "nodeName": NODE, "containers": [{"name": "main"}]}})
 
         def hook_cli(name):
             return subprocess.run(
@@ -2904,6 +3109,9 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
             "advertised_annotations": ann,
             "agent_healthz": healthz_status, "agent_heartbeat": heartbeat,
             "served_config": served_cfg,
+            "engine_placed": {"node": NODE, "contract": contract,
+                              "allocate_from": alloc,
+                              "ms": engine_place_ms},
             "refused": refused.stderr.strip().splitlines()[-1],
             "pod_s": pod_s, "pod_status": reported,
             "launches_fwd_dq_dkv": counted["launches"],
@@ -2911,6 +3119,152 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
                 k: out[k] for k in ("devices", "losses_full", "tokens_per_s",
                                     "device", "loader")},
             "agent_stop_s": stop_s}
+
+
+def scheduler_phase(backend=None) -> dict:
+    """The port's scheduling engine in process, over dicts
+    (`_EngineFace`): a gang of one pod more than this card's host has
+    cards binds none of its members, and all of them once a
+    ``fake.rig_inventory`` host joins; then the engine's host times on
+    this machine. ``backend`` stands in for the card's NVML (a CPU
+    rehearsal). Raises on any mismatch."""
+    import threading
+
+    import numpy as np
+
+    from kubegpu_tpu_torch import obs
+    from kubegpu_tpu_torch.core import codec, grammar
+    from kubegpu_tpu_torch.node import fake
+    from kubegpu_tpu_torch.scheduler.core import Scheduler
+    from kubegpu_tpu_torch.scheduler.gang import (GANG_PROCESS_ANNOTATION,
+                                                  gang_coordinator_port)
+    from kubegpu_tpu_torch.scheduler.registry import build_device_scheduler
+
+    t0 = time.perf_counter()
+    if backend is None:
+        from kubegpu_tpu_torch.node.nvml import NVMLBackend
+
+        backend = NVMLBackend()
+
+    def engine(nodes):
+        face = _EngineFace({n["metadata"]["name"]: n for n in nodes}, {},
+                           threading.Lock())
+        return face, Scheduler(face, build_device_scheduler())
+
+    def hgx(i):
+        return _gpu_node(f"hgx{i}", fake.FakeGPUBackend(
+            fake.hgx_h100_inventory(host=i)))
+
+    def cards_of(pod):
+        info = codec.kube_pod_to_pod_info(pod, invalidate_existing=False)
+        return [p for c in info.running_containers.values()
+                for p in c.allocate_from.values()
+                if grammar.gpu_id_from_path(p)]
+
+    # 1. all or nothing on the card's host, then with a rig host beside it
+    real = _gpu_node(NODE, backend)
+    n_cards = sum(1 for r in codec.annotation_to_node_info(
+        real["metadata"]).allocatable if grammar.gpu_id_from_path(r))
+    face, sched = engine([real])
+    members = [f"member{r}" for r in range(n_cards + 1)]
+    for m in members:
+        face.create_pod(_gpu_pod(m, 1, gang=21, size=len(members)))
+    sched.run_until_idle()
+    alone = [face.get_pod(m)["spec"].get("nodeName") for m in members]
+    if any(alone) or sched.gang_buffer.pending() != len(members):
+        raise AssertionError(f"a gang of {len(members)} on {n_cards} "
+                             f"card(s) bound {alone}")
+    face.add_node(_gpu_node("rig1", fake.FakeGPUBackend(
+        fake.rig_inventory(1))))
+    sched.run_until_idle()
+    sched.stop()
+    bound = {m: face.get_pod(m) for m in members}
+    contracts = {m: json.loads(p["metadata"]["annotations"][
+        GANG_PROCESS_ANNOTATION]) for m, p in bound.items()}
+    nodes = {m: p["spec"].get("nodeName") for m, p in bound.items()}
+    cards = [c for p in bound.values() for c in cards_of(p)]
+    want = [{"gang": 21, "rank": r, "count": len(members),
+             "coordinator_node": nodes[members[0]],
+             "coordinator_port": gang_coordinator_port(21)}
+            for r in range(len(members))]
+    if sorted(nodes.values()) != sorted([NODE] * n_cards + ["rig1"]) or \
+            len(set(cards)) != len(members) or \
+            [contracts[m] for m in members] != want:
+        raise AssertionError(f"the gang over {NODE} and rig1: {nodes}, "
+                             f"{cards}, {contracts}")
+
+    # 2. host times: 256 count-mode pods of 1, 2, 4 and 8 cards over 64
+    # HGX hosts, one scheduling cycle each
+    face, sched = engine([hgx(i) for i in range(64)])
+    for i in range(256):
+        face.create_pod(_gpu_pod(f"p{i}", (1, 2, 4, 8)[i % 4]))
+    cycle_ms = []
+    for _ in range(256):
+        t = time.perf_counter()
+        if not sched.schedule_one(timeout=0.0):
+            raise AssertionError("the queue ran dry before 256 cycles")
+        cycle_ms.append((time.perf_counter() - t) * 1e3)
+    sched.stop()
+    placed = [face.get_pod(f"p{i}") for i in range(256)]
+    n_bound = sum(1 for p in placed if p["spec"].get("nodeName"))
+    used = [c for p in placed for c in cards_of(p)]
+    if len(used) != len(set(used)) or len(used) > 512 or n_bound == 0:
+        raise AssertionError(f"{n_bound} bound over {len(used)} cards "
+                             f"({len(set(used))} distinct)")
+
+    # 3. a 16-member gang of 8-card pods over 16 HGX hosts
+    obs.RECORDER.clear()
+    face, sched = engine([hgx(i) for i in range(16)])
+    for r in range(16):
+        face.create_pod(_gpu_pod(f"g{r:02d}", 8, gang=5, size=16))
+    for _ in range(15):
+        sched.schedule_one(timeout=0.0)
+    if sched.gang_buffer.pending() != 15:
+        raise AssertionError(f"{sched.gang_buffer.pending()} buffered")
+    t = time.perf_counter()
+    sched.schedule_one(timeout=0.0)
+    gang_ms = (time.perf_counter() - t) * 1e3
+    sched.stop()
+    plan_ms = [sp.dur_s * 1e3 for sp in obs.RECORDER.spans()
+               if sp.name == "gang_plan"]
+    gang_pods = [face.get_pod(f"g{r:02d}") for r in range(16)]
+    gang_cards = [c for p in gang_pods for c in cards_of(p)]
+    if len(plan_ms) != 1 or \
+            len({p["spec"].get("nodeName") for p in gang_pods}) != 16 or \
+            len(set(gang_cards)) != 128:
+        raise AssertionError(f"the 16-member gang: {len(plan_ms)} plans, "
+                             f"{len(set(gang_cards))} cards")
+
+    # 4. auto-topology: a and b fill the HGX board, c lands on the PCIe host
+    face, sched = engine([
+        _gpu_node("host0", fake.FakeGPUBackend(fake.pcie_h100_inventory())),
+        _gpu_node("host1", fake.FakeGPUBackend(
+            fake.hgx_h100_inventory(host=1)))])
+    for name in ("a", "b", "c"):
+        face.create_pod(_gpu_pod(name, 4, auto=True))
+        sched.run_until_idle()
+    sched.stop()
+    auto = {n: face.get_pod(n)["spec"].get("nodeName") for n in "abc"}
+    if auto != {"a": "host1", "b": "host1", "c": "host0"}:
+        raise AssertionError(f"auto-topology stream {auto}")
+
+    row = {"phase": "scheduler", "nvidia_smi": smi_line(),
+           "note": "host times of the card's machine, the engine in one "
+                   "process over dicts",
+           "gang_on_card_host": {"cards": n_cards, "members": len(members),
+                                 "nodes": nodes, "contracts": contracts},
+           "cycle_ms_256_pods_64_hgx": {
+               "p50": float(np.percentile(cycle_ms, 50)),
+               "p95": float(np.percentile(cycle_ms, 95)),
+               "max": max(cycle_ms), "bound": n_bound,
+               "cards_used": len(used)},
+           "gang_16x8_on_16_hgx": {"plan_ms": plan_ms[0],
+                                   "commit_ms": gang_ms - plan_ms[0],
+                                   "cycle_ms": gang_ms},
+           "auto_topology": auto, "seconds": time.perf_counter() - t0,
+           "ok": True}
+    emit(row)
+    return row
 
 
 def _counted_drain(cfg, params, prompts, fused) -> dict:
@@ -3092,6 +3446,7 @@ def main() -> int:
         mesh = train_mesh_phase(dev, train, tmp)
         serve_mesh = serve_mesh_phase(dev, serve, ckpt, tmp)
     device = device_side_phase()
+    scheduler_phase()
     checkers = checkers_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA

@@ -19,7 +19,8 @@ POST is sent once (a blind resend of a create could apply twice). A 429
 (a ``REJECT`` frame on the stream wire) carries the server's advised
 ``retry_after_s``, which an idempotent verb waits out before it sends
 again. Error replies come back typed: 404 as `NotFound` (a ``KeyError``),
-409 as `Conflict`, 429 as `TooManyRequests`.
+403 as `QuotaExceeded`, 409 as `Conflict`, 429 as
+`TooManyRequests`.
 """
 
 from __future__ import annotations
@@ -50,6 +51,15 @@ class NotFound(KeyError):
 
 class Conflict(RuntimeError):
     """The write would contradict committed state (HTTP 409)."""
+
+    def __init__(self, message: str = "", per_pod: dict | None = None):
+        super().__init__(message)
+        self.per_pod = dict(per_pod or {})
+
+
+class QuotaExceeded(RuntimeError):
+    """A tenant is over its quota (HTTP 403): the API server's hard cap at
+    create time, or the scheduling engine's fair-share gate at admission."""
 
     def __init__(self, message: str = "", per_pod: dict | None = None):
         super().__init__(message)
@@ -215,6 +225,8 @@ class HTTPAPIClient:
                 continue
             if status == 429:
                 raise self._server_error(TooManyRequests, doc)
+            if status == 403:
+                raise self._server_error(QuotaExceeded, doc)
             if status == 404:
                 raise self._server_error(NotFound, doc)
             if status == 409:

@@ -26,6 +26,13 @@ Pod-level knobs (in the pod annotation's ``requests``):
   per requested card (the JAX package's ``alpha.tpu/hbm-per-chip``).
 - ``alpha.gpu/gpu-generate-topology``: 0 = translate requests as-is;
   1 = rewrite to the best-shaped inventory tree in the cluster.
+- ``alpha.tpu/gang`` and ``alpha.tpu/gang-size``: the gang id and member
+  count of a pod-set placed all-or-nothing. The keys are the JAX
+  package's (``kubegpu_tpu/scheduler/gang.py``), so both engines read one
+  wire.
+
+Any other ``alpha.tpu/`` knob asks for TPU chips, which no plugin of the
+port serves.
 """
 
 from __future__ import annotations
@@ -51,6 +58,9 @@ GPU_GRP1 = f"{GPU_GRP_STEM}1"    # every card that reaches the others: the host
 RESOURCE_NUM_GPU = "alpha.gpu/numgpu"
 RESOURCE_MEMORY_PER_GPU = "alpha.gpu/memory-per-gpu"
 GPU_TOPOLOGY_GENERATION = "alpha.gpu/gpu-generate-topology"
+RESOURCE_GANG = "alpha.tpu/gang"
+RESOURCE_GANG_SIZE = "alpha.tpu/gang-size"
+TPU_REQUEST_PREFIX = "alpha.tpu/"
 
 _ENUM_RE = re.compile(r"\S*/(\S*)")
 _GPU_FROM_PATH_RE = re.compile(rf".*/{GPU_LEAF}/([^/]+)/{CARDS_SUFFIX}$")

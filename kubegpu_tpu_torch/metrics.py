@@ -1,17 +1,20 @@
-"""The serving and transport metrics: a minimal copy of
-``kubegpu_tpu/metrics.py``.
+"""The serving, transport and scheduling metrics: a copy of the part of
+``kubegpu_tpu/metrics.py`` that the port records.
 
-Only what the port records: the exponential-bucket ``Histogram``, the
-settable ``Gauge``, the labelled ``LabeledCounter``; the four serving
-metrics (time to first token, inter-token latency, queue depth, slot
-utilization), the control-plane wire's bytes and frame codec times under
-the JAX package's names, and their Prometheus exposition, which the node
-agent serves on ``/metrics``.
+The exponential-bucket ``Histogram``, the ``Counter``, the settable
+``Gauge`` and their labelled families; the four serving metrics (time to
+first token, inter-token latency, queue depth, slot utilization), the
+control-plane wire's bytes and frame codec times, and the scheduling
+engine's counters and histograms, all under the JAX package's names, and
+their Prometheus exposition, which the node agent serves on ``/metrics``.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+
+log = logging.getLogger("kubegpu_tpu_torch")
 
 
 def bucket_percentile(bounds: list, counts: list, n: int,
@@ -85,7 +88,7 @@ class Gauge:
 
 
 class Counter:
-    """A count that only grows (a `LabeledCounter`'s child)."""
+    """A count that only grows."""
 
     def __init__(self, name: str):
         self.name = name
@@ -95,6 +98,10 @@ class Counter:
     def inc(self, by: int = 1) -> None:
         with self._lock:
             self.value += by
+
+    def reset(self) -> None:
+        with self._lock:
+            self.value = 0
 
 
 class LabeledCounter:
@@ -127,6 +134,60 @@ class LabeledCounter:
             self._children = {}
 
 
+class LabeledGauge:
+    """A gauge family keyed by one label (one scheduling queue's depth per
+    engine)."""
+
+    def __init__(self, name: str, label: str):
+        self.name = name
+        self.label = label
+        self._children: dict = {}
+        self._lock = threading.Lock()
+
+    def labels(self, value: str) -> Gauge:
+        with self._lock:
+            child = self._children.get(value)
+            if child is None:
+                child = self._children[value] = Gauge(self.name)
+            return child
+
+    def children(self) -> list:
+        with self._lock:
+            return sorted(self._children.items())
+
+    def reset(self) -> None:
+        with self._lock:
+            self._children = {}
+
+
+class LabeledHistogram:
+    """A histogram family keyed by one label (the scheduling phases)."""
+
+    def __init__(self, name: str, label: str, start_us: float = 1000.0,
+                 factor: float = 2.0, count: int = 15):
+        self.name = name
+        self.label = label
+        self._ctor = (start_us, factor, count)
+        self._children: dict = {}
+        self._lock = threading.Lock()
+
+    def labels(self, value: str) -> Histogram:
+        with self._lock:
+            child = self._children.get(value)
+            if child is None:
+                child = self._children[value] = Histogram(self.name,
+                                                          *self._ctor)
+            return child
+
+    def children(self) -> list:
+        with self._lock:
+            return sorted(self._children.items())
+
+    def reset(self) -> None:
+        with self._lock:
+            self._children = {}
+
+
 SERVE_TTFT_MS = Histogram("serve_ttft_ms", start_us=0.25)
 SERVE_ITL_MS = Histogram("serve_itl_ms", start_us=0.01)
 SERVE_QUEUE_DEPTH = Gauge("serve_queue_depth")
@@ -140,14 +201,62 @@ TRANSPORT_BYTES = LabeledCounter("transport_bytes_total", ("wire", "dir"))
 FRAME_ENCODE_MS = Histogram("frame_encode_ms", start_us=0.002)
 FRAME_DECODE_MS = Histogram("frame_decode_ms", start_us=0.002)
 
+# The scheduling engine (scheduler/core.py, cache.py, equivalence.py,
+# queue.py): the reference's three scheduler histograms
+# (`metrics.go:29-54`), attempts, failures and internal errors, the
+# equivalence memo's effectiveness, the binder's latency and in-flight
+# depth, commit conflicts, the per-phase times, the queue depth per engine
+# and the committed-bind rate.
+E2E_SCHEDULING_LATENCY = Histogram(
+    "scheduler_e2e_scheduling_latency_microseconds")
+ALGORITHM_LATENCY = Histogram(
+    "scheduler_scheduling_algorithm_latency_microseconds")
+BINDING_LATENCY = Histogram("scheduler_binding_latency_microseconds")
+SCHEDULE_ATTEMPTS = Counter("scheduler_schedule_attempts_total")
+SCHEDULE_FAILURES = Counter("scheduler_schedule_failures_total")
+PREEMPTION_VICTIMS = Counter("scheduler_preemption_victims_total")
+INTERNAL_ERRORS = Counter("scheduler_internal_errors_total")
+FIT_CACHE_HITS = Counter("fit_cache_hits_total")
+FIT_CACHE_MISSES = Counter("fit_cache_misses_total")
+FIT_CACHE_INVALIDATIONS = Counter("fit_cache_invalidations_total")
+FIT_VERDICT_TIMEOUTS = Counter("fit_verdict_timeouts_total")
+BIND_LATENCY_MS = Histogram("bind_latency_ms", start_us=0.25)
+BIND_INFLIGHT = Gauge("bind_inflight")
+SCHED_CONFLICTS = Counter("sched_conflicts_total")
+SCHED_PHASE_MS = LabeledHistogram("sched_phase_ms", "phase", start_us=0.01)
+SCHED_QUEUE_DEPTH = LabeledGauge("sched_queue_depth", "queue")
+SCHED_THROUGHPUT = Gauge("sched_throughput_pods_per_s")
+
 _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         SERVE_SLOT_UTILIZATION, TRANSPORT_BYTES, FRAME_ENCODE_MS,
-        FRAME_DECODE_MS)
+        FRAME_DECODE_MS, E2E_SCHEDULING_LATENCY, ALGORITHM_LATENCY,
+        BINDING_LATENCY, SCHEDULE_ATTEMPTS, SCHEDULE_FAILURES,
+        PREEMPTION_VICTIMS, INTERNAL_ERRORS, FIT_CACHE_HITS,
+        FIT_CACHE_MISSES, FIT_CACHE_INVALIDATIONS, FIT_VERDICT_TIMEOUTS,
+        BIND_LATENCY_MS, BIND_INFLIGHT, SCHED_CONFLICTS, SCHED_PHASE_MS,
+        SCHED_QUEUE_DEPTH, SCHED_THROUGHPUT)
 
 
 def reset_all() -> None:
     for m in _ALL:
         m.reset()
+
+
+def _histogram_lines(h: Histogram, labels: str = "") -> list:
+    """One histogram's exposition lines; ``labels`` is a pre-rendered
+    ``key="value",`` prefix for a family's child."""
+    with h._lock:
+        lines = []
+        cumulative = 0
+        for bound, count in zip(h.buckets, h.counts):
+            cumulative += count
+            lines.append(f'{h.name}_bucket{{{labels}le="{bound:g}"}} '
+                         f"{cumulative}")
+        lines.append(f'{h.name}_bucket{{{labels}le="+Inf"}} {h.n}')
+        suffix = f"{{{labels[:-1]}}}" if labels else ""
+        lines.append(f"{h.name}_sum{suffix} {h.total:.6g}")
+        lines.append(f"{h.name}_count{suffix} {h.n}")
+    return lines
 
 
 def prometheus_text() -> str:
@@ -156,15 +265,20 @@ def prometheus_text() -> str:
     for m in _ALL:
         if isinstance(m, Histogram):
             lines.append(f"# TYPE {m.name} histogram")
-            with m._lock:
-                cumulative = 0
-                for bound, count in zip(m.buckets, m.counts):
-                    cumulative += count
-                    lines.append(f'{m.name}_bucket{{le="{bound:g}"}} '
-                                 f"{cumulative}")
-                lines.append(f'{m.name}_bucket{{le="+Inf"}} {m.n}')
-                lines.append(f"{m.name}_sum {m.total:.6g}")
-                lines.append(f"{m.name}_count {m.n}")
+            lines.extend(_histogram_lines(m))
+        elif isinstance(m, LabeledHistogram):
+            lines.append(f"# TYPE {m.name} histogram")
+            for value, child in m.children():
+                lines.extend(_histogram_lines(child,
+                                              f'{m.label}="{value}",'))
+        elif isinstance(m, LabeledGauge):
+            lines.append(f"# TYPE {m.name} gauge")
+            for value, child in m.children():
+                lines.append(f'{m.name}{{{m.label}="{value}"}} '
+                             f"{child.value}")
+        elif isinstance(m, Counter):
+            lines.append(f"# TYPE {m.name} counter")
+            lines.append(f"{m.name} {m.value}")
         elif isinstance(m, LabeledCounter):
             lines.append(f"# TYPE {m.name} counter")
             for values, child in m.children():

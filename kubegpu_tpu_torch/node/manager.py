@@ -14,7 +14,6 @@ which the port's node agent builds.
 
 from __future__ import annotations
 
-import importlib.util
 import logging
 import os
 
@@ -22,6 +21,7 @@ from kubegpu_tpu_torch.core import grammar
 from kubegpu_tpu_torch.core.types import add_group_resource
 from kubegpu_tpu_torch.node import nvml
 from kubegpu_tpu_torch.node.backend import CHIP_HEALTHY, GPUBackend, GPUInventory
+from kubegpu_tpu_torch.utils import load_plugins
 
 log = logging.getLogger(__name__)
 
@@ -190,31 +190,6 @@ class GPUDeviceManager:
         return [], devices, env
 
 
-def load_device_plugins(directory: str) -> list:
-    """Import every ``*.py`` in ``directory`` (sorted; names starting with
-    ``_`` skipped) and call its `DEVICE_PLUGIN_SYMBOL` factory. A file
-    that fails to import, lacks the factory or whose factory raises is
-    skipped with a log line: one broken plugin must not take the node
-    agent down (the copy of ``kubegpu_tpu/plugins.py``)."""
-    plugins: list = []
-    if not directory or not os.path.isdir(directory):
-        return plugins
-    for fname in sorted(os.listdir(directory)):
-        if not fname.endswith(".py") or fname.startswith("_"):
-            continue
-        path = os.path.join(directory, fname)
-        try:
-            spec = importlib.util.spec_from_file_location(
-                f"kubegpu_tpu_torch_plugin_{fname[:-3]}", path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            factory = getattr(mod, DEVICE_PLUGIN_SYMBOL)
-            plugins.append(factory())
-        except Exception:
-            log.exception("device plugin %s failed to load, skipping", path)
-    return plugins
-
-
 class DevicesManager:
     """Registry that fans out to the node's devices
     (`crishim/pkg/device/devicemanager.go:13-122`; the port's copy of
@@ -235,7 +210,7 @@ class DevicesManager:
         """Register the devices of a plugin directory (the agent's
         ``--device-plugins-dir``); returns how many registered."""
         n = 0
-        for plugin in load_device_plugins(directory):
+        for plugin in load_plugins(directory, DEVICE_PLUGIN_SYMBOL):
             try:
                 self.add_device(plugin)
                 n += 1

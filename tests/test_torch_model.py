@@ -207,7 +207,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "runtime.launcher", "cmd.common", "cmd.node_agent",
                  "cmd.cri_hook", "analysis.dispatchcount", "analysis.engine",
                  "analysis.dataflow", "analysis.rules.hostsync",
-                 "analysis.rules.suppressions", "analysis.__main__"):
+                 "analysis.rules.suppressions", "analysis.__main__",
+                 "metrics", "obs", "obs.trace", "scheduler",
+                 "scheduler.predicates", "scheduler.interpod",
+                 "scheduler.priorities", "scheduler.equivalence",
+                 "scheduler.volumebinder", "scheduler.queue",
+                 "scheduler.cache", "scheduler.factory",
+                 "scheduler.registry", "scheduler.gang", "scheduler.core"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

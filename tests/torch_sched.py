@@ -1,0 +1,134 @@
+"""Shared by tests/test_torch_scheduler.py and tests/test_torch_gang.py:
+GPU clusters on the JAX package's in-memory API server, scheduled either
+by the port's engine (`kubegpu_tpu_torch.scheduler.core.Scheduler` over
+`build_device_scheduler`) or by the JAX engine with the port's plugin
+file (the `make_cluster` pattern of tests/test_torch_gpu_e2e.py).
+
+The JAX engine runs its scalar path (``KGTPU_VECTORIZE=0``,
+``KGTPU_BATCH=0``), the one the port copies. The port's engine catches
+the port's typed API errors, so it sees the in-memory server through
+`PortAPI`, which re-raises the JAX server's errors as the port's."""
+
+from __future__ import annotations
+
+import json
+import socket
+
+from kubegpu_tpu.cluster import apiserver as jax_api
+from kubegpu_tpu.cluster.apiserver import InMemoryAPIServer
+from kubegpu_tpu.core import codec as jax_codec
+from kubegpu_tpu.scheduler.core import Scheduler as JaxScheduler
+from kubegpu_tpu.scheduler.registry import DevicesScheduler as JaxRegistry
+from kubegpu_tpu.scheduler.tpu_scheduler import TPUScheduler
+from kubegpu_tpu_torch.cluster import httpapi
+from kubegpu_tpu_torch.core import codec, grammar
+from kubegpu_tpu_torch.scheduler import gang
+from kubegpu_tpu_torch.scheduler.core import Scheduler
+from kubegpu_tpu_torch.scheduler.registry import build_device_scheduler
+from tests.test_torch_gpu_e2e import SCHEDULER_PLUGINS, GPUHost, gpu_pod
+
+_ERRORS = ((jax_api.Conflict, httpapi.Conflict),
+           (jax_api.NotFound, httpapi.NotFound),
+           (jax_api.QuotaExceeded, httpapi.QuotaExceeded))
+
+
+class PortAPI:
+    """The in-memory API server, its typed errors re-raised as the
+    port's (`cluster/httpapi.py`)."""
+
+    def __init__(self, api):
+        self._api = api
+
+    def __getattr__(self, name):
+        attr = getattr(self._api, name)
+        if not callable(attr):
+            return attr
+
+        def call(*args, **kwargs):
+            try:
+                return attr(*args, **kwargs)
+            except tuple(j for j, _ in _ERRORS) as err:
+                port = next(p for j, p in _ERRORS if isinstance(err, j))
+                raise port(str(err), per_pod=err.per_pod) from err
+        return call
+
+
+def cluster(engine: str, *inventories, tweak=None, monkeypatch=None):
+    """``(api, hosts, scheduler)``: one `GPUHost` per inventory
+    (``host0``, ``host1``, ...), ``tweak(api, hosts)`` applied to the
+    cluster before the engine starts, then the engine."""
+    api = InMemoryAPIServer()
+    hosts = {f"host{i}": GPUHost(api, f"host{i}", inv)
+             for i, inv in enumerate(inventories)}
+    if tweak is not None:
+        tweak(api, hosts)
+    if engine == "jax":
+        monkeypatch.setenv("KGTPU_VECTORIZE", "0")
+        monkeypatch.setenv("KGTPU_BATCH", "0")
+        ds = JaxRegistry()
+        ds.add_device(TPUScheduler())
+        assert ds.add_devices_from_plugins(SCHEDULER_PLUGINS) == 1
+        return api, hosts, JaxScheduler(api, ds)
+    return api, hosts, Scheduler(PortAPI(api), build_device_scheduler())
+
+
+def edit_node(api, name: str, labels=None, taints=None) -> None:
+    """Set a node's labels and taints (before the engine starts)."""
+    node = api.get_node(name)
+    if labels:
+        node["metadata"].setdefault("labels", {}).update(labels)
+    if taints:
+        node.setdefault("spec", {})["taints"] = taints
+    api.restore_object("node", "modified", node)
+
+
+def pod(name: str, numgpu: int, *, memory: int = 0, auto: bool = False,
+        priority: int = 0, labels=None, spec=None, gang_id=None,
+        gang_size=None) -> dict:
+    """A GPU pod (`gpu_pod`) with scheduling fields and gang keys."""
+    p = gpu_pod(name, numgpu, auto=auto, memory=memory)
+    if gang_id is not None:
+        pi = jax_codec.kube_pod_to_pod_info(p, invalidate_existing=False)
+        pi.requests[grammar.RESOURCE_GANG] = gang_id
+        pi.requests[grammar.RESOURCE_GANG_SIZE] = gang_size
+        jax_codec.pod_info_to_annotation(p["metadata"], pi)
+    if labels:
+        p["metadata"]["labels"] = dict(labels)
+    p["spec"]["priority"] = priority
+    p["spec"].update(spec or {})
+    return p
+
+
+def placement(api, name: str):
+    """``(nodeName, {container: allocate_from})`` of a pod, or None when
+    it is gone."""
+    try:
+        p = api.get_pod(name)
+    except KeyError:
+        return None
+    node = p["spec"].get("nodeName")
+    alloc = {}
+    if node:
+        info = codec.kube_pod_to_pod_info(p, invalidate_existing=False)
+        alloc = {c: dict(ci.allocate_from)
+                 for c, ci in sorted(info.running_containers.items())}
+    return node, alloc
+
+
+def contract(api, name: str) -> dict | None:
+    raw = api.get_pod(name)["metadata"].get("annotations", {}).get(
+        gang.GANG_PROCESS_ANNOTATION)
+    return json.loads(raw) if raw else None
+
+
+def free_gang_id() -> int:
+    """A gang id whose coordinator port is free on this machine, outside
+    the ids the JAX package's gang tests draw (733-832)."""
+    for gid in range(1200, 1400):
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", gang.gang_coordinator_port(gid)))
+                return gid
+            except OSError:
+                continue
+    raise RuntimeError("no free coordinator port")
