@@ -2302,13 +2302,16 @@ class _EngineFace:
     """The in-process face of a dict-backed API server: the calls the
     port's scheduling engine makes (nodes and pods listed and read; pods
     created, bound, annotated and deleted; a gang bound at once with
-    ``bind_many``; events recorded; watch callbacks), over the dicts and the lock that the HTTP routes of
-    `_StubAPIServer` use. Callbacks run after the lock is released."""
+    ``bind_many``; events recorded; watch callbacks), over the dicts and
+    the lock that the HTTP routes of `_StubAPIServer` use. Callbacks run
+    after the lock is released; ``log(kind, event, obj)``, when set, sees
+    every change first (the stub's watch log)."""
 
     def __init__(self, nodes: dict, pods: dict, lock):
         self.nodes, self.pods, self._lock = nodes, pods, lock
         self._watchers: list = []
         self.events: dict = {}          # pod name -> [(reason, message)]
+        self.log = None
 
     @staticmethod
     def _copy(obj: dict) -> dict:
@@ -2318,6 +2321,8 @@ class _EngineFace:
         self._watchers.append(fn)
 
     def notify(self, kind: str, event: str, obj: dict) -> None:
+        if self.log is not None:
+            self.log(kind, event, obj)
         for fn in list(self._watchers):
             fn(kind, event, obj)
 
@@ -2342,10 +2347,14 @@ class _EngineFace:
             obj = self._copy(node)
         self.notify("node", "added", obj)
 
-    def list_pods(self, bound: bool = False) -> list:
+    def list_pods(self, node_name=None, phase=None, bound=False) -> list:
         with self._lock:
             return [self._copy(p) for p in self.pods.values()
-                    if not bound or (p.get("spec") or {}).get("nodeName")]
+                    if (not bound or (p.get("spec") or {}).get("nodeName"))
+                    and node_name in (None, (p.get("spec") or {}).get(
+                        "nodeName"))
+                    and phase in (None, (p.get("status") or {}).get(
+                        "phase"))]
 
     def get_pod(self, name: str) -> dict:
         with self._lock:
@@ -2389,12 +2398,26 @@ class _EngineFace:
         for obj in changed:
             self.notify("pod", "modified", obj)
 
-    def update_pod_annotations(self, name: str, annotations: dict) -> None:
+    def update_pod_annotations(self, name: str, annotations: dict) -> dict:
         with self._lock:
             self._pod(name).setdefault("metadata", {})["annotations"] = \
                 dict(annotations)
             obj = self._copy(self.pods[name])
         self.notify("pod", "modified", obj)
+        return obj
+
+    def update_pod_annotations_many(self, annotations: dict) -> None:
+        """{pod: annotations}, all or none (every pod must exist)."""
+        with self._lock:
+            for name in annotations:
+                self._pod(name)
+            changed = []
+            for name, ann in sorted(annotations.items()):
+                self.pods[name].setdefault("metadata", {})["annotations"] = \
+                    dict(ann)
+                changed.append(self._copy(self.pods[name]))
+        for obj in changed:
+            self.notify("pod", "modified", obj)
 
     def delete_pod(self, name: str) -> None:
         with self._lock:
@@ -2410,80 +2433,222 @@ class _EngineFace:
 
 class _StubAPIServer:
     """A dict-backed stand-in of the control plane's API server on
-    loopback, on both of its wires: the JSON paths the port's client calls
-    (``POST`` and ``GET /nodes``, ``GET /nodes/<n>``, ``PATCH
-    /nodes/<n>/metadata``, ``GET /pods/<n>``, ``PUT /pods/<n>/annotations``)
-    over HTTP/1.1, and the same routes as ``REQ`` frames after ``GET
-    /stream`` with ``Upgrade: kgtpu-stream``, answered through the port's
-    own frame and codec functions. With ``stream_wire=False`` the upgrade
-    gets a plain HTTP 404, as a server without the stream wire answers.
-    Counts the frames it served, the upgrades it refused, the protocol
-    faults it met and the ``PATCH /nodes/<n>/metadata`` it applied on
-    either wire. ``face`` is its in-process face over the same dicts
-    (`_EngineFace`): what a client changes over either wire reaches the
-    face's watchers as a node or pod event."""
+    loopback, on both of its wires, with the JAX server's paths and
+    answers: nodes (``GET``/``POST /nodes``, ``GET /nodes/<n>``, ``PATCH
+    /nodes/<n>/metadata``), pods (``GET /pods`` with ``node``, ``phase``
+    and ``bound``, ``GET``/``DELETE /pods/<n>``, ``PUT
+    /pods/<n>/annotations``, ``POST /pods/<n>/bind``, ``POST /bindmany``
+    all or none, ``PUT /podannotations``), ``GET``/``POST /events``,
+    leases (``POST``/``GET``/``DELETE /leases/<n>``, 409 naming the
+    holder), empty ``/pdbs``, ``/pvs``, ``/pvcs`` and ``/quotas``, and the
+    watch: ``GET /watch?since=&timeout=&kinds=`` long-polls one event log
+    (a sequence and an epoch); on the stream wire, after ``GET /stream``
+    with ``Upgrade: kgtpu-stream``, ``REQ`` frames take the same routes
+    and a ``SUB`` frame turns the connection into ``PUSH`` batches from
+    that log, answered through the port's own frame and codec functions.
+    With ``stream_wire=False`` the upgrade gets a plain HTTP 404, as a
+    server without the stream wire answers. Counts the frames it served,
+    the upgrades it refused, the subscriptions it pushed to, the watch
+    polls it answered, the protocol faults it met and the ``PATCH /nodes/<n>/metadata`` it applied on
+    either wire. ``face`` is its
+    in-process face over the same dicts (`_EngineFace`): every change on
+    either wire or through the face enters the log and reaches the face's
+    watchers."""
+
+    PING_EVERY_S = 5.0
 
     def __init__(self, stream_wire: bool = True):
         import threading
+        import urllib.parse
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         from kubegpu_tpu_torch.cluster import stream
+        from kubegpu_tpu_torch.cluster.httpapi import Conflict, NotFound
         from kubegpu_tpu_torch.core import codec
 
         self.nodes, self.pods = {}, {}
         self.frames_served = self.upgrades_refused = self.patches = 0
-        self.faults = 0
+        self.faults = self.subscriptions = self.polls = 0
         lock = threading.Lock()
         self._lock = lock
         self.face = _EngineFace(self.nodes, self.pods, lock)
+        # the watch log: (seq, kind, event, obj), one epoch per stub
+        self._log: list = []
+        self._seq = 0
+        self.epoch = os.urandom(8).hex()
+        self._changed = threading.Condition(threading.Lock())
+        self._closing = False
+        self.leases: dict = {}          # name -> (holder, monotonic expiry)
         outer = self
 
-        def dispatch(method, path, body, encode):
-            """``encode(status, obj)`` of the route's answer, under the
-            lock: another thread's PATCH must not change ``obj`` while it
-            is encoded. A write then reaches the face's watchers."""
-            with lock:
-                status, obj = route(method, path, body)
-                out = encode(status, obj)
-                changed = status == 200 and method != "GET" and \
-                    json.loads(json.dumps(obj))
-            if changed:
-                kind = "node" if path.strip("/").startswith("nodes") \
-                    else "pod"
-                outer.face.notify(kind, "added" if method == "POST"
-                                  else "modified", changed)
-            return out
+        def record(kind, event, obj):
+            with outer._changed:
+                outer._seq += 1
+                outer._log.append((outer._seq, kind, event,
+                                   json.loads(json.dumps(obj))))
+                outer._changed.notify_all()
 
-        def route(method, path, body):
-            parts = path.strip("/").split("/")
+        self.face.log = record
+
+        def window(since, kinds, timeout):
+            """``(events after since, head seq)``, waiting up to
+            ``timeout`` for one."""
+            deadline = time.monotonic() + timeout
+            with outer._changed:
+                while True:
+                    evs = [e for e in outer._log[since:]
+                           if kinds is None or e[1] in kinds]
+                    left = deadline - time.monotonic()
+                    if evs or left <= 0 or outer._closing or \
+                            outer._seq > since:
+                        return evs, outer._seq
+                    outer._changed.wait(min(0.5, left))
+
+        def node_route(method, parts, body):
+            """The node routes, under the lock: another thread's PATCH must
+            not change an object while it is encoded."""
             if parts == ["nodes"] and method == "GET":
-                return 200, {"items": list(outer.nodes.values())}
+                return 200, {"items": list(outer.nodes.values())}, None
             if parts == ["nodes"] and method == "POST":
                 name = body["metadata"]["name"]
                 if name in outer.nodes:
-                    return 409, {"error": f"node {name} exists"}
+                    return 409, {"error": f"node {name} exists"}, None
                 outer.nodes[name] = body
-                return 200, body
-            kind, name = (parts + [None, None])[:2]
-            table = {"nodes": outer.nodes, "pods": outer.pods}.get(kind)
-            if table is None or name not in table:
-                return 404, {"error": f"{kind} {name} not found"}
-            obj = table[name]
-            meta = obj.setdefault("metadata", {})
+                return 200, body, "added"
+            name = parts[1] if len(parts) > 1 else None
+            if name not in outer.nodes:
+                return 404, {"error": f"nodes {name} not found"}, None
+            obj = outer.nodes[name]
             if method == "GET" and len(parts) == 2:
-                return 200, obj
+                return 200, obj, None
             if method == "PATCH" and parts[2:] == ["metadata"]:
+                meta = obj.setdefault("metadata", {})
                 for key, val in body.items():
                     if isinstance(val, dict):
                         meta.setdefault(key, {}).update(val)
                     else:
                         meta[key] = val
                 outer.patches += 1
-                return 200, obj
-            if method == "PUT" and parts[2:] == ["annotations"]:
-                meta["annotations"] = dict(body)
-                return 200, obj
-            return 404, {"error": f"no route {method} {path}"}
+                return 200, obj, "modified"
+            return 404, {"error": f"no route {method} /{'/'.join(parts)}"}, \
+                None
+
+        def lease(method, name, query, body):
+            now = time.monotonic()
+            with lock:
+                holder, expiry = outer.leases.get(name, (None, 0.0))
+                if expiry <= now:
+                    holder = None
+                if method == "POST":
+                    if holder not in (None, body["holder"]):
+                        return 409, {"holder": holder}
+                    outer.leases[name] = (body["holder"],
+                                          now + float(body.get("ttl", 15.0)))
+                    return 200, {"holder": body["holder"]}
+                if method == "DELETE":
+                    if holder == query.get("holder"):
+                        outer.leases.pop(name, None)
+                    return 200, {}
+                return 200, {"holder": holder}
+
+        def route(method, parts, query, body):
+            """``(status, obj)`` of every route but the node ones and the
+            watch; the face's methods take the lock themselves."""
+            face = outer.face
+            if parts == ["pods"] and method == "GET":
+                return 200, {"items": face.list_pods(
+                    node_name=query.get("node"), phase=query.get("phase"),
+                    bound=query.get("bound") in ("1", "true"))}
+            if parts[:1] == ["pods"] and len(parts) >= 2:
+                name = parts[1]
+                if method == "GET" and len(parts) == 2:
+                    return 200, face.get_pod(name)
+                if method == "DELETE" and len(parts) == 2:
+                    face.delete_pod(name)
+                    return 200, {}
+                if method == "PUT" and parts[2:] == ["annotations"]:
+                    return 200, face.update_pod_annotations(name, body)
+                if method == "POST" and parts[2:] == ["bind"]:
+                    face.bind_pod(name, body["node"])
+                    return 200, {}
+            if parts == ["bindmany"] and method == "POST":
+                face.bind_many(body["bindings"], body.get("annotations") or {})
+                return 200, {}
+            if parts == ["podannotations"] and method == "PUT":
+                face.update_pod_annotations_many(body)
+                return 200, {}
+            if parts == ["events"] and method == "POST":
+                for e in body if isinstance(body, list) else [body]:
+                    face.record_event(e.get("kind", "Pod"), e["name"],
+                                      e.get("type", "Normal"), e["reason"],
+                                      e.get("message", ""))
+                return (200 if isinstance(body, list) else 201), {}
+            if parts == ["events"] and method == "GET":
+                with lock:
+                    items = [{"involvedObject": {"kind": "Pod", "name": n},
+                              "reason": r, "message": m}
+                             for n, evs in face.events.items()
+                             for r, m in evs
+                             if query.get("involved") in (None, n)]
+                return 200, {"items": items}
+            if parts[:1] == ["leases"] and len(parts) == 2:
+                return lease(method, parts[1], query, body)
+            if parts in (["pdbs"], ["pvs"], ["pvcs"]) and method == "GET":
+                return 200, {"items": []}
+            if parts == ["quotas"] and method == "GET":
+                return 200, {"items": {}}
+            return 404, {"error": f"no route {method} /{'/'.join(parts)}"}
+
+        def dispatch(method, path, body, encode):
+            """``encode(status, obj)`` of the route's answer."""
+            split = urllib.parse.urlsplit(path)
+            parts = [p for p in split.path.split("/") if p]
+            query = dict(urllib.parse.parse_qsl(split.query))
+            if parts[:1] == ["nodes"]:
+                with lock:
+                    status, obj, event = node_route(method, parts, body)
+                    out = encode(status, obj)
+                    changed = json.loads(json.dumps(obj)) if event else None
+                if changed:
+                    outer.face.notify("node", event, changed)
+                return out
+            if parts == ["watch"] and method == "GET":
+                kinds = frozenset(query["kinds"].split(",")) \
+                    if query.get("kinds") else None
+                since = int(query.get("since", 0))
+                with lock:
+                    outer.polls += 1
+                if since > outer._seq:
+                    return encode(200, {"events": [], "seq": outer._seq,
+                                        "coalesced": 0, "epoch": outer.epoch,
+                                        "relist": True})
+                evs, seq = window(since, kinds,
+                                  float(query.get("timeout", 10.0)))
+                return encode(200, {"events": evs, "seq": seq,
+                                    "coalesced": 0, "epoch": outer.epoch})
+            try:
+                return encode(*route(method, parts, query, body))
+            except NotFound as e:
+                return encode(404, {"error": str(e)})
+            except Conflict as e:
+                out = {"error": str(e)}
+                if e.per_pod:
+                    out["per_pod"] = e.per_pod
+                return encode(409, out)
+
+        def push(conn, since, kinds):
+            """A subscribed connection: every batch after ``since`` as a
+            ``PUSH``, a ``PING`` when idle, until the client goes."""
+            cursor = since
+            while not outer._closing:
+                evs, seq = window(cursor, kinds, outer.PING_EVERY_S)
+                if seq > cursor:
+                    payload = codec.encode_watch_batch(
+                        evs, seq, epoch=outer.epoch, ts=time.time())
+                    stream.send_frame(conn, stream.PUSH, 0, payload)
+                    cursor = seq
+                elif not outer._closing:
+                    stream.send_frame(conn, stream.PING, 0, b"")
 
         class Handler(BaseHTTPRequestHandler):
             # keep-alive and no Nagle, as the JAX API server: a reply's
@@ -2522,6 +2687,20 @@ class _StubAPIServer:
                         ftype, rid, payload = stream.read_frame(self.rfile)
                         if ftype == stream.PING:
                             continue
+                        if ftype == stream.SUB:
+                            args = codec.decode_value(payload)
+                            since = int(args.get("since") or 0)
+                            kinds = frozenset(args["kinds"]) \
+                                if args.get("kinds") else None
+                            with lock:
+                                outer.subscriptions += 1
+                            # the ack before any push
+                            stream.send_frame(
+                                self.connection, stream.RESP, rid,
+                                codec.encode_response(200, {
+                                    "seq": outer._seq,
+                                    "epoch": outer.epoch}))
+                            return push(self.connection, since, kinds)
                         if ftype != stream.REQ:
                             raise stream.FrameError(f"frame type {ftype}")
                         method, path, body, _ = codec.decode_request(payload)
@@ -2560,8 +2739,13 @@ class _StubAPIServer:
             def do_PUT(self):
                 self._json("PUT")
 
+            def do_DELETE(self):
+                self._json("DELETE")
+
         self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
         self._server.daemon_threads = True
+        # a client that hangs up mid-reply (a killed scheduler) is expected
+        self._server.handle_error = lambda *args: None
         self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
         threading.Thread(target=self._server.serve_forever,
                          daemon=True).start()
@@ -2571,6 +2755,9 @@ class _StubAPIServer:
             return getattr(self, name)
 
     def close(self) -> None:
+        with self._changed:
+            self._closing = True
+            self._changed.notify_all()
         self._server.shutdown()
         self._server.server_close()
 
@@ -2894,6 +3081,92 @@ def device_side_phase() -> dict:
     return row
 
 
+def _start_agent(root: str, base_env: dict, stub, tmp: str,
+                 backend: str = "nvml") -> tuple:
+    """``python -m kubegpu_tpu_torch.cmd.node_agent --backend <backend>``
+    over ``stub`` (registering ``NODE``, its CRI hook on a free loopback
+    port, its stderr in ``tmp``), waited for until it serves the hook and
+    says it advertises: ``(process, hook url, healthz port, stderr file,
+    watchdog)``. The watchdog, started before the first read, kills the
+    agent after 600 s; the caller cancels it. Raises, with the agent's
+    stderr, when it exits first."""
+    import threading
+
+    healthz = _free_port()
+    err = open(os.path.join(tmp, "agent.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubegpu_tpu_torch.cmd.node_agent",
+         "--api", stub.url, "--node-name", NODE, "--node-address",
+         "127.0.0.1", "--backend", backend, "--register-node", "--cri-port",
+         "0", "--healthz-port", str(healthz), "--advertise-interval", "1",
+         "--launch-log-dir", os.path.join(tmp, "logs")],
+        cwd=root, env=base_env, stdout=subprocess.PIPE, stderr=err, text=True)
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    cri = None
+    ready = False
+    for line in proc.stdout:
+        if line.startswith("cri-hook serving on "):
+            cri = "http://" + line.split()[-1]
+        if line.startswith("node-agent advertising"):
+            ready = True
+            break
+    if cri is None or not ready:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=10)
+        proc.stdout.close()
+        err.close()
+        with open(err.name) as f:
+            raise AssertionError(f"the agent exited {proc.returncode}: "
+                                 f"{f.read()[-3000:]}")
+    return proc, cri, healthz, err, watchdog
+
+
+def _run_training_pod(cri: str, pod: str, config: dict) -> tuple:
+    """Launch the training pod (train_demo at the training config,
+    DEVICE_STEPS steps, under POD_RUNNER's launch counts) through the
+    agent's hook at ``cri`` for ``pod``, and wait for it: ``(seconds,
+    train_demo's summary, the launch counts)``. Raises unless it exits 0
+    with finite losses and 18 sm90 launches of each of K1-K3."""
+    import math
+
+    t = time.perf_counter()
+    launched = _http_json(f"{cri}/v1/launch-container", {
+        "pod": pod, "container": "main", "config": config,
+        "command": [
+            sys.executable, "-c", POD_RUNNER, "--steps",
+            str(DEVICE_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--vocab", str(TRAIN_MODEL["vocab"]),
+            "--d-model", str(TRAIN_MODEL["d_model"]),
+            "--d-ff", str(TRAIN_MODEL["d_ff"]),
+            "--n-layers", str(TRAIN_MODEL["n_layers"]),
+            "--n-heads", str(TRAIN_MODEL["n_heads"])]})
+    cid = launched["id"]
+
+    def exited():
+        st = _http_json(f"{cri}/v1/container-status?id={cid}")
+        return st if st["state"] == "exited" else None
+
+    status = _wait_for(exited, 300, "the training pod to exit")
+    pod_s = time.perf_counter() - t
+    logs = _http_json(f"{cri}/v1/container-logs?id={cid}")["logs"]
+    if status["exit_code"] != 0:
+        raise AssertionError(f"the pod exited {status['exit_code']}: "
+                             f"{logs[-3000:]}")
+    out, counted = _pod_result(logs)
+    losses = out["losses_full"]
+    if len(losses) != DEVICE_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_demo losses {losses}")
+    # one K1, K2 and K3 a layer and step, all on the Hopper instance
+    want = TRAIN_MODEL["n_layers"] * DEVICE_STEPS
+    if counted["launches"] != [want] * 3 or any(
+            by.get("sm90") != want for by in counted["by_instance"]):
+        raise AssertionError(f"the pod's K1-K3 launches {counted}")
+    return pod_s, out, counted
+
+
 def _node_agent_run(root, base_env, info, mgr, config) -> dict:
     """``python -m kubegpu_tpu_torch.cmd.node_agent --backend nvml`` over a
     stub API server: its advertised inventory equals the in-process one
@@ -2905,10 +3178,8 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
     each of K1-K3 and the pod's ``pod.alpha/ContainerStatus`` in the stub,
     and SIGTERM stops the agent with exit 0 within 10 s. Returns the
     fields of the device_side row."""
-    import math
     import signal
     import tempfile
-    import threading
     import urllib.request
 
     from kubegpu_tpu_torch.core import codec, grammar
@@ -2922,31 +3193,10 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
 
     tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-agent-")
     stub = _StubAPIServer()
-    healthz = _free_port()
-    err = open(os.path.join(tmp, "agent.err"), "w")
     t0 = time.perf_counter()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "kubegpu_tpu_torch.cmd.node_agent",
-         "--api", stub.url, "--node-name", NODE, "--node-address",
-         "127.0.0.1", "--backend", "nvml", "--register-node", "--cri-port",
-         "0", "--healthz-port", str(healthz), "--advertise-interval", "1",
-         "--launch-log-dir", os.path.join(tmp, "logs")],
-        cwd=root, env=base_env, stdout=subprocess.PIPE, stderr=err, text=True)
-    watchdog = threading.Timer(600, proc.kill)
-    watchdog.start()
+    proc, cri, healthz, err, watchdog = _start_agent(root, base_env, stub,
+                                                     tmp)
     try:
-        cri = None
-        for line in proc.stdout:
-            if line.startswith("cri-hook serving on "):
-                cri = "http://" + line.split()[-1]
-            if line.startswith("node-agent advertising"):
-                break
-        if cri is None:
-            proc.wait(timeout=10)
-            with open(err.name) as f:
-                raise AssertionError(f"the agent exited {proc.returncode}: "
-                                     f"{f.read()[-3000:]}")
-
         def advertised_annotations():
             ann = (stub.nodes.get(NODE, {}).get("metadata") or {}).get(
                 "annotations") or {}
@@ -3040,39 +3290,7 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
             raise AssertionError(f"numgpu 2 on one card was not refused: "
                                  f"{refused.returncode} {refused.stderr}")
         # the training pod, launched through the agent
-        t = time.perf_counter()
-        launched = _http_json(f"{cri}/v1/launch-container", {
-            "pod": pod.name, "container": "main", "config": config,
-            "command": [
-                sys.executable, "-c", POD_RUNNER, "--steps",
-                str(DEVICE_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
-                str(TRAIN_SEQ), "--vocab", str(TRAIN_MODEL["vocab"]),
-                "--d-model", str(TRAIN_MODEL["d_model"]),
-                "--d-ff", str(TRAIN_MODEL["d_ff"]),
-                "--n-layers", str(TRAIN_MODEL["n_layers"]),
-                "--n-heads", str(TRAIN_MODEL["n_heads"])]})
-        cid = launched["id"]
-
-        def exited():
-            st = _http_json(f"{cri}/v1/container-status?id={cid}")
-            return st if st["state"] == "exited" else None
-
-        status = _wait_for(exited, 300, "the training pod to exit")
-        pod_s = time.perf_counter() - t
-        logs = _http_json(f"{cri}/v1/container-logs?id={cid}")["logs"]
-        if status["exit_code"] != 0:
-            raise AssertionError(f"the pod exited {status['exit_code']}: "
-                                 f"{logs[-3000:]}")
-        out, counted = _pod_result(logs)
-        losses = out["losses_full"]
-        if len(losses) != DEVICE_STEPS or \
-                not all(map(math.isfinite, losses)):
-            raise AssertionError(f"train_demo losses {losses}")
-        # one K1, K2 and K3 a layer and step, all on the Hopper instance
-        want = TRAIN_MODEL["n_layers"] * DEVICE_STEPS
-        if counted["launches"] != [want] * 3 or any(
-                by.get("sm90") != want for by in counted["by_instance"]):
-            raise AssertionError(f"the pod's K1-K3 launches {counted}")
+        pod_s, out, counted = _run_training_pod(cri, pod.name, config)
 
         def reported_exit():
             raw = stub.pods[pod.name]["metadata"]["annotations"].get(
@@ -3267,6 +3485,249 @@ def scheduler_phase(backend=None) -> dict:
     return row
 
 
+class _SchedulerBinary:
+    """``python -m kubegpu_tpu_torch.cmd.scheduler_main ARGS`` against
+    ``url`` with its health server on a free port, waited for until it
+    says it runs (killed, and the phase failed with its stderr, when it
+    has not within 120 s); its later stdout lines collect in ``lines``."""
+
+    def __init__(self, root: str, env: dict, tmp: str, url: str, *args):
+        import threading
+
+        self.healthz = _free_port()
+        self.err_path = os.path.join(tmp, f"scheduler-{self.healthz}.err")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kubegpu_tpu_torch.cmd.scheduler_main",
+             "--api", url, "--healthz-port", str(self.healthz), *args],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=self._err,
+            text=True)
+        watchdog = threading.Timer(120, self.proc.kill)
+        watchdog.start()
+        self.lines: list = []
+        for line in self.proc.stdout:
+            self.lines.append(line.strip())
+            if line.startswith(("scheduler running", "scheduler candidate")):
+                break
+        else:
+            watchdog.cancel()
+            self.stop()
+            raise AssertionError(f"the scheduler exited: {self.stderr()}")
+        watchdog.cancel()
+        self._reader = threading.Thread(
+            target=lambda: self.lines.extend(
+                ln.strip() for ln in self.proc.stdout), daemon=True)
+        self._reader.start()
+
+    def said(self, text: str) -> bool:
+        return any(text in line for line in list(self.lines))
+
+    def stderr(self) -> str:
+        if not self._err.closed:
+            self._err.flush()
+        with open(self.err_path) as f:
+            return f.read()[-3000:]
+
+    def get(self, path: str) -> str:
+        import urllib.request
+
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{self.healthz}{path}", timeout=10) as r:
+            return r.read().decode()
+
+    def metric(self, name: str) -> float:
+        for line in self.get("/metrics").splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+        raise AssertionError(f"no {name} in the scheduler's /metrics")
+
+    def stop(self, sig=None) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig or signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=10)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            if getattr(self, "_reader", None) is not None:
+                self._reader.join(timeout=5)
+            self.proc.stdout.close()
+            self._err.close()
+
+
+def _bound_to(stub, name: str):
+    with stub._lock:
+        return (stub.pods.get(name, {}).get("spec") or {}).get("nodeName")
+
+
+def _create_to_bound_ms(stub, pod: dict, timeout: float, what: str) -> float:
+    """Create ``pod`` through the stub's face and wait until a scheduler
+    binds it: ms from the create to the bind landing in the stub (stamped
+    by a face watcher, not by the polling)."""
+    name = pod["metadata"]["name"]
+    stamp: dict = {}
+
+    def watch(kind, event, obj):
+        if kind == "pod" and obj["metadata"]["name"] == name and \
+                (obj.get("spec") or {}).get("nodeName"):
+            stamp.setdefault("bound", time.perf_counter())
+
+    stub.face.add_watcher(watch)
+    t = time.perf_counter()
+    stub.face.create_pod(pod)
+    _wait_for(lambda: "bound" in stamp, timeout, what)
+    return (stamp["bound"] - t) * 1e3
+
+
+def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
+    """``kgtpu-gpu-scheduler`` (the port's binary, a subprocess) places the
+    node agent's pod on this card: the agent over NVML (``backend``) and
+    two binaries ``--leader-elect --lease-ttl 2 --wire stream`` against a
+    stub API server; the leader binds the agent's pod, a gang of one, with
+    its gang contract, and the agent runs it through the CRI hook
+    (train_demo, DEVICE_STEPS steps, 18 sm90 launches of each of K1-K3);
+    the leader is killed and the standby takes the lease and binds a
+    second pod (placed only); a third binary ``--wire json`` binds a pod
+    over the long poll of a stub without the stream wire. ``train=False``
+    leaves the pod unrun (a CPU rehearsal with ``backend="fake-rig"``).
+    Raises on any mismatch."""
+    import signal
+    import tempfile
+
+    from kubegpu_tpu_torch.cmd.common import build_backend
+    from kubegpu_tpu_torch.core import codec, grammar
+    from kubegpu_tpu_torch.runtime.hook import GANG_PROCESS_ANNOTATION
+    from kubegpu_tpu_torch.scheduler.gang import gang_coordinator_port
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base_env = {k: v for k, v in os.environ.items() if k not in (
+        "CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER",
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-scheduler-")
+    stub = _StubAPIServer()
+    json_stub = _StubAPIServer(stream_wire=False)
+    binaries: list = []
+    agent = watchdog = None
+    ttl = 2.0
+    try:
+        agent, cri, _, agent_err, watchdog = _start_agent(
+            root, base_env, stub, tmp, backend)
+        _wait_for(lambda: codec.NODE_ANNOTATION_KEY in (
+            stub.face.get_node(NODE)["metadata"].get("annotations") or {})
+            if NODE in stub.nodes else None, 60, "the agent's advertise")
+        # two candidates for one lease, over the stream wire
+        binaries = [_SchedulerBinary(root, base_env, tmp, stub.url,
+                                     "--leader-elect", "--lease-ttl",
+                                     str(ttl), "--wire", "stream")
+                    for _ in range(2)]
+        leader = _wait_for(lambda: next(
+            (b for b in binaries if b.said("became leader")), None), 30,
+            "a leader")
+        standby = next(b for b in binaries if b is not leader)
+        # the agent's pod, a gang of one: the leader binds it
+        gid = _free_gang_id()
+        stream_ms = _create_to_bound_ms(
+            stub, _gpu_pod("sched-pod", 1, gang=gid, size=1), 30,
+            "the leader's bind")
+        placed = stub.face.get_pod("sched-pod")
+        contract = json.loads(placed["metadata"].get("annotations", {}).get(
+            GANG_PROCESS_ANNOTATION) or "{}")
+        want = {"gang": gid, "rank": 0, "count": 1, "coordinator_node": NODE,
+                "coordinator_port": gang_coordinator_port(gid)}
+        if placed["spec"]["nodeName"] != NODE or contract != want:
+            raise AssertionError(f"the binary placed sched-pod on "
+                                 f"{placed['spec']['nodeName']} with "
+                                 f"contract {contract}")
+        pod = codec.kube_pod_to_pod_info(placed, invalidate_existing=False)
+        alloc = pod.running_containers["main"].allocate_from
+        cards = [grammar.gpu_id_from_path(p) for p in alloc.values()
+                 if grammar.gpu_id_from_path(p)]
+        if len(cards) != 1:
+            raise AssertionError(f"sched-pod's allocation {alloc}")
+        if standby.said("became leader") or \
+                standby.metric("scheduler_schedule_attempts_total") != 0:
+            raise AssertionError("the standby scheduled")
+        transitions = leader.metric("lease_transitions_total")
+        span_doc = json.loads(leader.get("/debug/pod/sched-pod"))
+        spans = [s["name"] for s in span_doc["spans"]]
+        # a gang's member is planned with its gang, then committed
+        if transitions != 1 or not {"gang_plan", "bind_commit"} <= \
+                set(spans) or span_doc["state"] != "bound":
+            raise AssertionError(f"the leader's lease_transitions_total "
+                                 f"{transitions}, /debug/pod {span_doc}")
+        pod_s = out = counted = None
+        if train:
+            pod_s, out, counted = _run_training_pod(
+                cri, "sched-pod", {"devices": [], "envs": []})
+        # the pod is done: its card goes back, and the leader dies
+        stub.face.delete_pod("sched-pod")
+        t = time.perf_counter()
+        leader.stop(signal.SIGKILL)
+        stub.face.create_pod(_gpu_pod("failover-pod", 1))
+        _wait_for(lambda: _bound_to(stub, "failover-pod"), 4 * ttl,
+                  "the standby's bind")
+        failover_s = time.perf_counter() - t
+        if not standby.said("became leader") or failover_s > 3 * ttl:
+            raise AssertionError(f"failover took {failover_s} s")
+        if stub.count("faults") or stub.count("upgrades_refused") or \
+                stub.count("subscriptions") < 2 or \
+                stub.count("frames_served") == 0:
+            raise AssertionError(
+                f"stream wire: {stub.count('faults')} faults, "
+                f"{stub.count('upgrades_refused')} refusals, "
+                f"{stub.count('subscriptions')} subscriptions")
+        if standby.stop() != 0:
+            raise AssertionError(f"the standby exited {standby.proc.returncode}"
+                                 f": {standby.stderr()}")
+        # the JSON wire: a binary against a stub without the stream wire
+        json_stub.face.add_node(_gpu_node(NODE, build_backend(backend)))
+        solo = _SchedulerBinary(root, base_env, tmp, json_stub.url,
+                                "--wire", "json")
+        binaries.append(solo)
+        json_ms = _create_to_bound_ms(json_stub, _gpu_pod("json-pod", 1), 30,
+                                      "the JSON binary's bind")
+        if json_stub.count("polls") < 1 or json_stub.count("frames_served") \
+                or json_stub.count("upgrades_refused"):
+            raise AssertionError("the JSON binary did not long-poll")
+        if solo.stop() != 0:
+            raise AssertionError(f"the JSON binary exited "
+                                 f"{solo.proc.returncode}: {solo.stderr()}")
+        agent.send_signal(signal.SIGTERM)
+        if agent.wait(timeout=10) != 0:
+            raise AssertionError(f"the agent exited {agent.returncode}")
+    finally:
+        for b in binaries:
+            b.stop()
+        if watchdog is not None:
+            watchdog.cancel()
+        if agent is not None:
+            if agent.poll() is None:
+                agent.kill()
+                agent.wait()
+            agent.stdout.close()
+            agent_err.close()
+        stub.close()
+        json_stub.close()
+    row = {"phase": "scheduler_binary", "nvidia_smi": smi_line(),
+           "note": "host times on the card's machine: create is the stub's "
+                   "write, bound the binary's bind landing in the stub",
+           "create_to_bound_ms": {"stream": stream_ms, "json": json_ms},
+           "failover_s": failover_s, "lease_ttl_s": ttl,
+           "leader_lease_transitions": transitions,
+           "debug_pod_spans": len(spans), "contract": contract,
+           "allocate_from": alloc, "pod_s": pod_s,
+           "launches_fwd_dq_dkv": counted and counted["launches"],
+           "launches_by_instance": counted and counted["by_instance"],
+           "losses": out and out["losses_full"],
+           "seconds": time.perf_counter() - t0, "ok": True}
+    emit(row)
+    return row
+
+
 def _counted_drain(cfg, params, prompts, fused) -> dict:
     """One greedy drain of ``prompts`` under the counter, in the section
     "fused" or "oracle": the streams, the server's decode steps (a chunk
@@ -3447,6 +3908,7 @@ def main() -> int:
         serve_mesh = serve_mesh_phase(dev, serve, ckpt, tmp)
     device = device_side_phase()
     scheduler_phase()
+    sched_bin = scheduler_binary_phase()
     checkers = checkers_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
@@ -3489,6 +3951,8 @@ def main() -> int:
         "launches_train_mesh_step": mesh_step[0],
         "launches_serve_mesh_step": resume_step[0],
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][0],
+        "launches_scheduler_binary_run":
+            sched_bin["launches_fwd_dq_dkv"][0],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][0],
         "dispatches_checkers_step": checkers["train_kgt_flash_fwd"],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
@@ -3516,6 +3980,8 @@ def main() -> int:
         "launches_train_mesh_step": mesh_step[1],
         "launches_serve_mesh_step": resume_step[1],
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][1],
+        "launches_scheduler_binary_run":
+            sched_bin["launches_fwd_dq_dkv"][1],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][1],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
@@ -3541,6 +4007,8 @@ def main() -> int:
         "launches_train_mesh_step": mesh_step[2],
         "launches_serve_mesh_step": resume_step[2],
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][2],
+        "launches_scheduler_binary_run":
+            sched_bin["launches_fwd_dq_dkv"][2],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][2],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),

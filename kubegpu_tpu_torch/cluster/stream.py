@@ -1,6 +1,6 @@
 """The framed stream wire of the control plane, client side.
 
-The port's copy of the request half of ``kubegpu_tpu/cluster/stream.py``.
+The port's copy of the client half of ``kubegpu_tpu/cluster/stream.py``.
 The JSON wire pays an HTTP header parse and a JSON encode and decode on
 every round trip. After an HTTP ``Upgrade: kgtpu-stream`` handshake the
 stream wire carries the same requests as length-prefixed, CRC-checked
@@ -15,8 +15,10 @@ Types::
     REQ    client -> server  codec.encode_request payload; the id is
                              echoed by the matching RESP
     RESP   server -> client  codec.encode_response payload
-    SUB    client -> server  a watch subscription (not sent by the port)
-    PUSH   server -> client  a watch batch (not read by the port)
+    SUB    client -> server  a watch subscription {since, kinds, batch};
+                             acked by a RESP, then batches arrive as PUSH
+    PUSH   server -> client  codec.encode_watch_batch payload, id 0,
+                             unsolicited
     PING   either direction  liveness; empty payload, never acked
     REJECT server -> client  flow control: the server shed the request;
                              the payload is a 429 response carrying
@@ -25,8 +27,8 @@ Types::
 A torn, corrupt, oversized or out-of-protocol frame poisons exactly one
 connection: the reader raises :class:`FrameError` (a ``ConnectionError``,
 so the client's retry policy treats it as the transport fault it is), the
-socket is dropped, and the next request dials again. Nothing is ever
-re-synchronised inside a damaged stream.
+socket is dropped, and the next request dials again (a watch resumes from
+its cursor). Nothing is ever re-synchronised inside a damaged stream.
 """
 
 from __future__ import annotations
@@ -111,7 +113,8 @@ def read_frame(rfile: Any) -> Tuple[int, int, bytes]:
 def send_frame(sock: socket.socket, ftype: int, rid: int,
                payload: bytes) -> None:
     """Write one frame. Each socket has one writer here (a connection per
-    requesting thread; no server push), so no lock orders the writes."""
+    requesting thread, or one watch thread that writes only its ``SUB``),
+    so no lock orders the writes."""
     data = encode_frame(ftype, rid, payload)
     sock.sendall(data)
     metrics.TRANSPORT_BYTES.labels(WIRE_STREAM, "tx").inc(len(data))
@@ -135,10 +138,12 @@ def _decode(fn: Callable[[bytes], Any], data: bytes) -> Any:
 
 
 class StreamConn:
-    """Client side of one framed connection: serialised request/response
-    round trips, one outstanding at a time (one connection per requesting
-    thread, like the HTTP keep-alive sockets it replaces). Any framing
-    fault closes the socket and surfaces as a ``ConnectionError``."""
+    """Client side of one framed connection. It serves either serialised
+    request/response round trips, one outstanding at a time (one
+    connection per requesting thread, like the HTTP keep-alive sockets it
+    replaces), or one watch subscription (`subscribe`, then `read_push`).
+    Any framing fault closes the socket and surfaces as a
+    ``ConnectionError``."""
 
     def __init__(self, sock: socket.socket) -> None:
         self._sock = sock
@@ -195,6 +200,51 @@ class StreamConn:
                         f"while waiting for response {rid}")
                 return _timed(metrics.FRAME_DECODE_MS, _decode,
                               codec.decode_response, data)
+        except BaseException:
+            self.close()
+            raise
+
+    def subscribe(self, since: int, kinds, batch_s: float,
+                  timeout: float) -> dict:
+        """Register this connection as a push watcher from cursor
+        ``since``; returns the ack ``{"seq", "epoch"}``. Batches then
+        arrive through :meth:`read_push`."""
+        self._rid += 1
+        rid = self._rid
+        payload = codec.encode_value(
+            {"since": since, "kinds": list(kinds) if kinds else None,
+             "batch": batch_s})
+        try:
+            self._sock.settimeout(timeout)
+            send_frame(self._sock, SUB, rid, payload)
+            while True:
+                ftype, got_rid, data = read_frame(self._rfile)
+                if ftype == PING:
+                    continue
+                if ftype != RESP or got_rid != rid:
+                    raise FrameError("unexpected frame during subscribe")
+                status, body = _decode(codec.decode_response, data)
+                if status != 200 or not isinstance(body, dict):
+                    raise FrameError(f"subscribe refused: HTTP {status}")
+                return body
+        except BaseException:
+            self.close()
+            raise
+
+    def read_push(self, timeout: float):
+        """The next pushed watch batch (decoded), or None for a liveness
+        ``PING``. A socket timeout or a frame fault closes the connection
+        and propagates."""
+        try:
+            self._sock.settimeout(timeout)
+            ftype, _rid, data = read_frame(self._rfile)
+            if ftype == PING:
+                return None
+            if ftype != PUSH:
+                raise FrameError(f"unexpected frame type {ftype} on a "
+                                 f"watch connection")
+            return _timed(metrics.FRAME_DECODE_MS, _decode,
+                          codec.decode_watch_batch, data)
         except BaseException:
             self.close()
             raise

@@ -38,7 +38,7 @@ def main(argv=None) -> int:
     parser.add_argument("--backend", default="nvml", choices=common.BACKENDS)
     parser.add_argument("--config", default=None)
     args = parser.parse_args(argv)
-    common.merge_flags(args, common.load_config(args.config),
+    common.merge_flags(parser, argv, args, common.load_config(args.config),
                        ["server", "api", "backend"])
 
     raw = sys.stdin.read()

@@ -106,7 +106,7 @@ def main(argv=None) -> int:
                              "stdout/stderr (default: discard)")
     parser.add_argument("--config", default=None)
     args = parser.parse_args(argv)
-    common.merge_flags(args, common.load_config(args.config),
+    common.merge_flags(parser, argv, args, common.load_config(args.config),
                        ["api", "node_name", "node_address", "backend",
                         "cri_socket", "cri_port"])
     # before anything is served: a SIGTERM right after the readiness

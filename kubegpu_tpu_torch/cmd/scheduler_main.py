@@ -1,0 +1,259 @@
+"""``kgtpu-gpu-scheduler``: the port's scheduling engine as a binary.
+
+The port's copy of ``kubegpu_tpu/cmd/scheduler_main.py`` (the reference's
+`kube-scheduler/cmd/scheduler.go` and `cmd/app/server.go`): the engine of
+``scheduler/core.py`` with `GPUScheduler` compiled in
+(``registry.build_device_scheduler``), more plugins from
+``--scheduler-plugins-dir``, over the port's client of the API server
+(``cluster/httpapi.py``, ``--wire stream`` by default, negotiated down to
+JSON against a server without the stream wire), watching nodes, pods,
+volumes, claims and quotas. ``--config`` (JSON or YAML) fills in every
+flag not given on the command line, and its ``policy``, ``policyFile`` or
+``algorithmProvider`` recompose the predicates and priorities.
+
+Two shapes:
+
+solo (the default)
+    One engine schedules every pod.
+
+``--leader-elect``
+    Active/standby: replicas contend for one lease; only its holder
+    schedules, and a replica that loses the lease stands by again.
+
+SIGTERM and SIGINT stop it cleanly (exit 0). The flags of what the port
+does not have yet refuse to start, naming the ROADMAP item that brings
+it (Queue 1, item 10): ``--node-grace-s``/``--node-stale-s`` (10.2, node
+lifecycle), ``--tenant-quota`` (10.5, quotas), ``--repair`` and config
+``extenders`` (10.6, repair and extenders), and ``--replicas`` above 1
+(10.7): sharded replicas rely on the API server's arbiter to refuse a
+card claimed twice, and the only server there is, the JAX package's,
+keys TPU chips and not GPU cards.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+
+from kubegpu_tpu_torch import obs
+from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
+from kubegpu_tpu_torch.cluster.lease import Elector
+from kubegpu_tpu_torch.cmd import common
+from kubegpu_tpu_torch.scheduler import factory
+from kubegpu_tpu_torch.scheduler.core import Scheduler
+from kubegpu_tpu_torch.scheduler.registry import build_device_scheduler
+
+LEASE_NAME = "kgtpu-scheduler"
+# what the engine consumes: Event records never ride this watch
+WATCH_KINDS = ("node", "pod", "pv", "pvc", "quota")
+# the flags the config file may set: the JAX binary's, and the health
+# port and flight directory
+CONFIG_KEYS = ("api", "wire", "parallelism", "lease_ttl", "node_grace_s",
+               "node_stale_s", "bind_workers", "watch_batch_ms", "replicas",
+               "shard", "healthz_port", "flight_dir")
+
+
+def refuse_later_items(args, config: dict) -> None:
+    """Raise `NotImplementedError` for a flag or config key whose
+    controller the port does not have yet, naming its ROADMAP item."""
+    later = []
+    if (args.node_grace_s or 0) > 0 or (args.node_stale_s or 0) > 0:
+        later.append("--node-grace-s/--node-stale-s: the node lifecycle "
+                     "controller (scheduler/lifecycle.py) is ROADMAP "
+                     "Queue 1, item 10.2")
+    if args.tenant_quota:
+        later.append("--tenant-quota: the tenant quota gate "
+                     "(scheduler/quota.py) is ROADMAP Queue 1, item 10.5")
+    if args.repair:
+        later.append("--repair: the repair controller (scheduler/repair.py)"
+                     " is ROADMAP Queue 1, item 10.6")
+    policy = config.get("policy") or {}
+    if config.get("extenders") or (isinstance(policy, dict)
+                                   and policy.get("extenders")):
+        later.append("config extenders: scheduler extenders "
+                     "(scheduler/extender.py) are ROADMAP Queue 1, item "
+                     "10.6")
+    if (args.replicas or 1) > 1:
+        later.append("--replicas > 1: sharded replicas need an API server "
+                     "whose arbiter refuses a GPU card claimed twice (the "
+                     "JAX server's keys TPU chips only); the port's API "
+                     "server is ROADMAP Queue 1, item 10.7")
+    if later:
+        raise NotImplementedError("; ".join(later))
+
+
+def build_scheduler(client, args, config: dict | None = None,
+                    shard_owned=None, name: str | None = None) -> Scheduler:
+    """The engine over ``client``: `GPUScheduler` compiled in, the plugins
+    of ``--scheduler-plugins-dir``, and the algorithm of ``config``."""
+    config = config or {}
+    ds = build_device_scheduler()
+    if args.scheduler_plugins_dir:
+        ds.add_devices_from_plugins(args.scheduler_plugins_dir)
+    # a Policy document recomposes the predicates and priorities by name,
+    # inline under "policy" or in the file "policyFile" names
+    policy = config.get("policy")
+    if policy is None and config.get("policyFile"):
+        policy = common.load_config(config["policyFile"])
+    if policy:
+        algorithm = factory.algorithm_from_policy(policy)
+    elif config.get("algorithmProvider"):
+        algorithm = factory.algorithm_provider(config["algorithmProvider"])
+    else:
+        algorithm = None
+    sched = Scheduler(client, ds, bind_async=bool(args.bind_async),
+                      parallelism=args.parallelism,
+                      priority_weights=config.get("priorityWeights"),
+                      algorithm=algorithm, bind_workers=args.bind_workers,
+                      shard_owned=shard_owned, name=name)
+    sched.preemption_enabled = not args.disable_preemption
+    return sched
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="kgtpu-gpu-scheduler", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--api", default="http://127.0.0.1:8070")
+    p.add_argument("--wire", choices=("stream", "json"), default="stream",
+                   help="control-plane wire: framed binary requests with "
+                        "server-pushed watch batches (default), or the "
+                        "JSON long poll; stream negotiates down to json "
+                        "against a server without it")
+    p.add_argument("--parallelism", type=int, default=16,
+                   help="fit-pool width")
+    p.add_argument("--bind-async", action="store_true",
+                   help="pipelined binder: the cycle stops at assume and a "
+                        "worker pool overlaps the bind round trips")
+    p.add_argument("--bind-workers", type=int, default=4,
+                   help="bind worker pool width (with --bind-async)")
+    p.add_argument("--watch-batch-ms", type=float, default=0.0,
+                   help="the server's linger per watch window: fuller, "
+                        "coalesced batches for a later first event")
+    p.add_argument("--disable-preemption", action="store_true")
+    p.add_argument("--leader-elect", action="store_true",
+                   help="active/standby: only the lease's holder schedules")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="active/active replicas sharding the queue: not in "
+                        "the port yet (ROADMAP Queue 1, item 10.7); a value "
+                        "> 1 refuses to start")
+    p.add_argument("--shard", type=int, default=0,
+                   help="this replica's shard (item 10.7, as above)")
+    p.add_argument("--lease-ttl", type=float, default=15.0,
+                   help="seconds a lease lives unrenewed; renewed every "
+                        "third of it")
+    p.add_argument("--node-grace-s", type=float, default=0.0,
+                   help="node lifecycle controller: not in the port yet "
+                        "(ROADMAP Queue 1, item 10.2); a value > 0 refuses "
+                        "to start")
+    p.add_argument("--node-stale-s", type=float, default=0.0,
+                   help="node lifecycle controller (item 10.2, as above)")
+    p.add_argument("--tenant-quota", action="store_true",
+                   help="tenant quota gate: not in the port yet (ROADMAP "
+                        "Queue 1, item 10.5); refuses to start")
+    p.add_argument("--repair", action="store_true",
+                   help="repair controller: not in the port yet (ROADMAP "
+                        "Queue 1, item 10.6); refuses to start")
+    p.add_argument("--healthz-port", type=int, default=0,
+                   help="/healthz, /metrics, /metrics/history, "
+                        "/debug/traces, /debug/pod/<name> and "
+                        "/debug/profile on loopback; 0 disables")
+    p.add_argument("--flight-dir", default=None,
+                   help="directory for the flight recorder's dumps "
+                        "(internal error, conflict streak, lease lost); "
+                        "defaults to $KGTPU_FLIGHT_DIR, unset disables")
+    p.add_argument("--scheduler-plugins-dir", default=None,
+                   help="load more device-scheduler plugins (*.py "
+                        "exporting create_device_scheduler_plugin)")
+    p.add_argument("--config", default=None,
+                   help="JSON/YAML file; flags given on the command line "
+                        "win")
+    common.add_observability_flags(p)
+    return p
+
+
+def parse_args(argv=None) -> tuple:
+    """``(args, config)``: the command line over the config file over the
+    defaults."""
+    p = parser()
+    args = p.parse_args(argv)
+    config = common.load_config(args.config)
+    common.merge_flags(p, argv, args, config, CONFIG_KEYS)
+    return args, config
+
+
+def main(argv=None) -> int:
+    # a latency-sensitive loop sharing its process with the informer,
+    # binder and fit-pool threads: the default 5 ms switch interval lets
+    # any of them stall a cycle for milliseconds
+    sys.setswitchinterval(0.0005)
+    args, config = parse_args(argv)
+    refuse_later_items(args, config)
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    # started before any lock of the client or engine exists, so the lock
+    # probe wraps them all
+    stop_obs = common.start_observability(args)
+    obs.RECORDER.proc = "scheduler"
+    if args.flight_dir:
+        obs.FLIGHT.configure(args.flight_dir)
+    client = HTTPAPIClient(args.api, watch_batch_s=args.watch_batch_ms / 1e3,
+                           watch_kinds=WATCH_KINDS, wire=args.wire)
+    health = common.serve_health(args.healthz_port, extra_status=lambda: True)
+    try:
+        if not args.leader_elect:
+            sched = build_scheduler(client, args, config)
+            sched.start()
+            print(f"scheduler running against {args.api}", flush=True)
+            stop.wait()
+            sched.stop()
+        else:
+            run_leader_elected(client, args, config,
+                               f"{os.uname().nodename}-{os.getpid()}", stop)
+    finally:
+        stop_obs()
+        client.close()
+        if health is not None:
+            health.shutdown()
+            health.server_close()
+    return 0
+
+
+def run_leader_elected(client, args, config: dict, holder: str,
+                       stop: threading.Event) -> None:
+    """Active/standby through `Elector`: promote on acquiring the lease,
+    renew every third of the TTL, demote on a denial or once the lease
+    could have lapsed (a transport error within the TTL keeps the lead)."""
+    print(f"scheduler candidate {holder} (leader election on)", flush=True)
+    state: dict = {"sched": None}
+
+    def promote():
+        state["sched"] = build_scheduler(client, args, config)
+        state["sched"].start()
+        print(f"{holder} became leader", flush=True)
+
+    def demote():
+        sched, state["sched"] = state["sched"], None
+        if sched is not None:
+            sched.stop()
+        print(f"{holder} lost the lease, standing by", flush=True)
+
+    elector = Elector(client.acquire_lease, LEASE_NAME, holder,
+                      args.lease_ttl, on_acquire=promote, on_lose=demote)
+    while not stop.is_set():
+        elector.tick()
+        stop.wait(args.lease_ttl / 3.0)
+    elector.stop()          # demotes, stopping the engine, when leading
+    try:
+        client.release_lease(LEASE_NAME, holder)
+    except Exception:
+        # the standby then waits out the TTL
+        pass
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -10,9 +10,9 @@ plain dicts in their JSON shape.
 
 Below the annotations sits the compact binary value codec of the stream
 wire (``cluster/stream.py``): ``encode_value``/``decode_value`` and the
-request and response records built on them, byte for byte the JAX
-package's. Its watch records (pods, node snapshots, watch batches) are
-not ported: the node side never watches.
+request and response records built on them, and the watch records the
+scheduler's informer reads (pods, node snapshots, watch batches), byte for
+byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -479,6 +479,57 @@ def decode_value(data: bytes) -> object:
     if pos != len(data):
         raise CodecError(f"{len(data) - pos} trailing byte(s) after value")
     return val
+
+
+def _expect_dict(val: object, what: str) -> dict:
+    if not isinstance(val, dict):
+        raise CodecError(f"{what}: expected an object, got "
+                         f"{type(val).__name__}")
+    return val
+
+
+def encode_pod(pod: dict) -> bytes:
+    """Compact encoding of one pod object (its JSON dict shape)."""
+    return encode_value(pod)
+
+
+def decode_pod(data: bytes) -> dict:
+    return _expect_dict(decode_value(data), "pod record")
+
+
+def encode_node_snapshot(node: dict) -> bytes:
+    """Compact encoding of one node object, its device annotation
+    included: the repeated card paths are what interning folds away."""
+    return encode_value(node)
+
+
+def decode_node_snapshot(data: bytes) -> dict:
+    return _expect_dict(decode_value(data), "node snapshot")
+
+
+def encode_watch_batch(events: "list[tuple]", seq: int, coalesced: int = 0,
+                       relist: bool = False, epoch: "str | None" = None,
+                       ts: float = 0.0) -> bytes:
+    """One coalesced watch window ``[(seq, kind, event, obj), ...]`` with
+    its resume cursor, the number of events folded away, the relist flag,
+    the server's epoch and its wall-clock stamp ``ts`` (cross-process, so
+    not monotonic; the receiver's ``watch_push_lag_ms``)."""
+    return encode_value([[list(e) for e in events], seq, coalesced,
+                         relist, epoch, ts])
+
+
+def decode_watch_batch(data: bytes) -> dict:
+    val = decode_value(data)
+    if not isinstance(val, list) or len(val) != 6 or \
+            not isinstance(val[0], list):
+        raise CodecError("malformed watch batch")
+    events = []
+    for ev in val[0]:
+        if not isinstance(ev, list) or len(ev) != 4:
+            raise CodecError("malformed watch event")
+        events.append(tuple(ev))
+    return {"events": events, "seq": val[1], "coalesced": val[2],
+            "relist": bool(val[3]), "epoch": val[4], "ts": val[5]}
 
 
 def encode_request(method: str, path: str, body: object,

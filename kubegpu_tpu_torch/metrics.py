@@ -4,9 +4,12 @@
 The exponential-bucket ``Histogram``, the ``Counter``, the settable
 ``Gauge`` and their labelled families; the four serving metrics (time to
 first token, inter-token latency, queue depth, slot utilization), the
-control-plane wire's bytes and frame codec times, and the scheduling
-engine's counters and histograms, all under the JAX package's names, and
-their Prometheus exposition, which the node agent serves on ``/metrics``.
+control-plane wire's bytes and frame codec times, the scheduling engine's
+counters and histograms, and those of the scheduler binary's client,
+leases and observability, all under the JAX package's names. Every metric
+is listed once in ``all_metrics()``, which the Prometheus exposition (the
+binaries' ``/metrics``), ``reset_all()`` and the metrics time-series
+(``obs/timeseries.py``, through each metric's ``snapshot()``) iterate.
 """
 
 from __future__ import annotations
@@ -63,6 +66,14 @@ class Histogram:
         with self._lock:
             return bucket_percentile(self.buckets, self.counts, self.n, q)
 
+    def snapshot(self) -> dict:
+        """Point-in-time capture, bucket counts included (windowed
+        percentiles come from the deltas of two snapshots)."""
+        with self._lock:
+            return {"type": "hist", "n": self.n, "sum": self.total,
+                    "buckets": list(self.buckets),
+                    "counts": list(self.counts)}
+
     def reset(self) -> None:
         with self._lock:
             self.counts = [0] * len(self.counts)
@@ -82,6 +93,10 @@ class Gauge:
         with self._lock:
             self.value = value
 
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"type": "gauge", "v": self.value}
+
     def reset(self) -> None:
         with self._lock:
             self.value = 0
@@ -98,6 +113,10 @@ class Counter:
     def inc(self, by: int = 1) -> None:
         with self._lock:
             self.value += by
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"type": "counter", "v": self.value}
 
     def reset(self) -> None:
         with self._lock:
@@ -129,6 +148,11 @@ class LabeledCounter:
         with self._lock:
             return sorted(self._children.items())
 
+    def snapshot(self) -> dict:
+        return {"type": "counter_family",
+                "children": {",".join(values): child.value
+                             for values, child in self.children()}}
+
     def reset(self) -> None:
         with self._lock:
             self._children = {}
@@ -154,6 +178,11 @@ class LabeledGauge:
     def children(self) -> list:
         with self._lock:
             return sorted(self._children.items())
+
+    def snapshot(self) -> dict:
+        return {"type": "gauge_family",
+                "children": {value: child.value
+                             for value, child in self.children()}}
 
     def reset(self) -> None:
         with self._lock:
@@ -182,6 +211,11 @@ class LabeledHistogram:
     def children(self) -> list:
         with self._lock:
             return sorted(self._children.items())
+
+    def snapshot(self) -> dict:
+        return {"type": "hist_family",
+                "children": {value: child.snapshot()
+                             for value, child in self.children()}}
 
     def reset(self) -> None:
         with self._lock:
@@ -227,6 +261,20 @@ SCHED_PHASE_MS = LabeledHistogram("sched_phase_ms", "phase", start_us=0.01)
 SCHED_QUEUE_DEPTH = LabeledGauge("sched_queue_depth", "queue")
 SCHED_THROUGHPUT = Gauge("sched_throughput_pods_per_s")
 
+# The scheduler binary's client, leases and observability
+# (cluster/httpapi.py, cluster/lease.py, obs/): the size of the last
+# delivered watch batch, events the server folded away before delivery,
+# the stream wire's push lag (server stamp to client delivery), leadership
+# and shard transitions, flight-recorder dumps and profiler ticks. The
+# JAX package's api_requests_total counts the requests an API server
+# dispatched; the port serves none yet (ROADMAP Queue 1, item 10.7).
+WATCH_BATCH_SIZE = Gauge("watch_batch_size")
+WATCH_COALESCED = Counter("watch_coalesced_total")
+WATCH_PUSH_LAG_MS = Histogram("watch_push_lag_ms", start_us=0.01)
+LEASE_TRANSITIONS = Counter("lease_transitions_total")
+FLIGHT_DUMPS = Counter("flight_dumps_total")
+PROFILE_SAMPLES = Counter("profile_samples_total")
+
 _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         SERVE_SLOT_UTILIZATION, TRANSPORT_BYTES, FRAME_ENCODE_MS,
         FRAME_DECODE_MS, E2E_SCHEDULING_LATENCY, ALGORITHM_LATENCY,
@@ -234,7 +282,14 @@ _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         PREEMPTION_VICTIMS, INTERNAL_ERRORS, FIT_CACHE_HITS,
         FIT_CACHE_MISSES, FIT_CACHE_INVALIDATIONS, FIT_VERDICT_TIMEOUTS,
         BIND_LATENCY_MS, BIND_INFLIGHT, SCHED_CONFLICTS, SCHED_PHASE_MS,
-        SCHED_QUEUE_DEPTH, SCHED_THROUGHPUT)
+        SCHED_QUEUE_DEPTH, SCHED_THROUGHPUT, WATCH_BATCH_SIZE,
+        WATCH_COALESCED, WATCH_PUSH_LAG_MS, LEASE_TRANSITIONS, FLIGHT_DUMPS,
+        PROFILE_SAMPLES)
+
+
+def all_metrics() -> list:
+    """Every metric of this module, in exposition order."""
+    return list(_ALL)
 
 
 def reset_all() -> None:

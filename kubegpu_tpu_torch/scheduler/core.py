@@ -108,7 +108,8 @@ class GenericScheduler:
         self._nominations: dict = {}
         self._nom_lock = threading.Lock()
         self._pool = ThreadPoolExecutor(
-            max_workers=self.parallelism, thread_name_prefix="fit")
+            max_workers=self.parallelism, thread_name_prefix="fit",
+            initializer=lambda: obs.register_thread("fit-pool"))
         # Memo-safety gate (see predicates.py): every configured predicate
         # must declare what it reads, or the equivalence memo stays off
         # for every pod — the generation counters can only invalidate
@@ -1158,6 +1159,7 @@ class BindWorkerPool:
         return True
 
     def _worker(self) -> None:
+        obs.register_thread("binder")
         while True:
             with self._cond:
                 while not self._items and not self._stopped:
@@ -1744,6 +1746,8 @@ class Scheduler:
                 cyc.attrs["outcome"] = "internal_error"
                 logging.getLogger(__name__).exception(
                     "internal scheduler error while scheduling %s", name)
+                obs.FLIGHT.trigger("internal_error", key=name, pod=name,
+                                   error=f"{type(err).__name__}: {err}")
                 self._event(name, "Warning", "SchedulerInternalError",
                             f"{type(err).__name__}: {err}")
                 self.queue.add_unschedulable(kube_pod)
@@ -1859,6 +1863,11 @@ class Scheduler:
         if streak <= 3:
             self.queue.park(kube_pod, self.CONFLICT_RETRY_S)
         else:
+            # escalation is an anomaly worth evidence: the replica keeps
+            # re-deriving plans the arbiter refuses (stale view or
+            # pathological contention)
+            obs.FLIGHT.trigger("conflict_streak", key=name, pod=name,
+                               streak=streak)
             self.queue.add_unschedulable(kube_pod)
 
     def _conflict_cleared(self, name: str) -> None:
@@ -2514,6 +2523,7 @@ class Scheduler:
         return n
 
     def run_forever(self, poll_s: float = 0.2) -> None:
+        obs.register_thread("sched-loop")
         while not self._stop.is_set():
             try:
                 if not self.schedule_one(timeout=poll_s):

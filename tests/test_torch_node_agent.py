@@ -6,6 +6,7 @@ tests/test_torch_gpu_e2e.py), and its node agent loading the port's device
 plugin as the reference to advertise against. The agent runs as a
 subprocess on the ``fake-hgx`` backend (node/fake.py's HGX H100 board)."""
 
+import argparse
 import json
 import os
 import re
@@ -541,13 +542,22 @@ def test_config_file_fills_unset_flags(tmp_path):
     path = tmp_path / "agent.json"
     path.write_text(json.dumps({"backend": "fake-pcie", "api": "http://x"}))
 
-    class Args:
-        backend = None
-        api = "http://given"
-
-    args = Args()
-    common.merge_flags(args, common.load_config(str(path)), ["backend", "api"])
-    assert (args.backend, args.api) == ("fake-pcie", "http://given")
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--backend", default="nvml")
+    parser.add_argument("--api", default="http://127.0.0.1:8070")
+    # a flag given on the command line wins, even at its default value
+    for argv, api in ((["--api", "http://given"], "http://given"),
+                      (["--api", "http://127.0.0.1:8070"],
+                       "http://127.0.0.1:8070")):
+        args = parser.parse_args(argv)
+        common.merge_flags(parser, argv, args, common.load_config(str(path)),
+                           ["backend", "api"])
+        assert (args.backend, args.api) == ("fake-pcie", api)
+    args = parser.parse_args([])
+    common.merge_flags(parser, [], args, common.load_config(str(path)),
+                       ["backend"])
+    assert (args.backend, args.api) == ("fake-pcie", "http://127.0.0.1:8070")
+    assert parser.parse_args([]).backend == "nvml"
     path.write_text("[1, 2]")
     with pytest.raises(ValueError, match="must be a mapping"):
         common.load_config(str(path))
