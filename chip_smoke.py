@@ -174,16 +174,38 @@ T = 2048, no remat), random weights from a seed:
    ``control_plane_wire`` line gives, for each wire, start to first
    advertise, bytes per advertise pass and the patch round trip, beside
    the card's name and power limit;
-22. scheduler: the port's scheduling engine in process, over dicts. A
-   gang of one 1-card pod more than the card's host (NVML) has cards
-   leaves every member unbound; with a ``fake.rig_inventory`` host added
-   the gang binds, one card each, ranks 0.. in name order, the count the
-   gang's size and the coordinator rank 0's node. Then host times of this
+22. scheduler: the port's scheduling engine in process, over dicts, on
+   its default path (the batch cycle and the masked pass). A gang of one
+   1-card pod more than the card's host (NVML) has cards leaves every
+   member unbound; with a ``fake.rig_inventory`` host added the gang
+   binds, one card each, ranks 0.. in name order, the count the gang's
+   size and the coordinator rank 0's node. Then host times of this
    machine: p50, p95 and max ms of a scheduling cycle for 256 count-mode
    pods of 1, 2, 4 and 8 cards over 64 ``fake.hgx_h100_inventory`` hosts,
-   the plan ms and commit ms of a 16-member gang of 8-card pods over 16
-   HGX hosts, and the auto-topology stream (4-card pods a and b on an HGX
-   board, then c) with c bound to the PCIe host;
+   submitted one at a time, on the default path and on the scalar oracle
+   (``KGTPU_BATCH=0 KGTPU_VECTORIZE=0``): placements equal card for card,
+   the masked pass serving at least 90% of the default path's cycles with
+   no node falling back to the scalar chain; the plan ms and commit ms of
+   a 16-member gang of 8-card pods over 16 HGX hosts; the auto-topology
+   stream (4-card pods a and b on an HGX board, then c) with c bound to
+   the PCIe host; and a mass arrival, 1000 pods of 1, 2, 4, 1 cards
+   (2000 cards) created before the first pass onto 1024 HGX hosts (8192
+   cards): every pod bound on the default path, its seconds and pods/s,
+   the oracle's pods/s over what it binds in 30 s, and the allocator
+   searches a bound pod on each path (counted at ``pod_fits_device``);
+   scheduler_binary: ``kgtpu-gpu-scheduler`` over a stub API server: two
+   ``--leader-elect`` binaries, the leader binds the node agent's pod,
+   which trains 3 steps (18 sm90 launches of each kernel), the standby
+   takes over after a SIGKILL, a ``--wire json`` binary binds over the
+   long poll; then the node lifecycle leg: ``--node-grace-s 3
+   --node-stale-s 1`` with two agents on the card under two node names,
+   a gang of one bound to A, A's agent SIGKILLed, A Stale then Lost and
+   deleted, the pod requeued without cards or contract and bound to B,
+   the requeued copy's cleared allocation refused by B's hook with
+   ``AllocationMismatch``, and the pod trained 3 steps through B's hook
+   (18 sm90 launches of each, ``launches_lifecycle_run``): kill to Lost
+   and Lost to rebound seconds, the pod's seconds, and the binary's
+   ``scheduler_node_lost_total`` and ``scheduler_evictions_total``;
 23. checkers: under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
@@ -2434,9 +2456,10 @@ class _EngineFace:
 class _StubAPIServer:
     """A dict-backed stand-in of the control plane's API server on
     loopback, on both of its wires, with the JAX server's paths and
-    answers: nodes (``GET``/``POST /nodes``, ``GET /nodes/<n>``, ``PATCH
-    /nodes/<n>/metadata``), pods (``GET /pods`` with ``node``, ``phase``
-    and ``bound``, ``GET``/``DELETE /pods/<n>``, ``PUT
+    answers: nodes (``GET``/``POST /nodes``, ``GET``/``DELETE
+    /nodes/<n>``, ``PATCH /nodes/<n>/metadata``), pods (``GET /pods``
+    with ``node``, ``phase`` and ``bound``, ``POST /pods`` (409 for a
+    name it has), ``GET``/``DELETE /pods/<n>``, ``PUT
     /pods/<n>/annotations``, ``POST /pods/<n>/bind``, ``POST /bindmany``
     all or none, ``PUT /podannotations``), ``GET``/``POST /events``,
     leases (``POST``/``GET``/``DELETE /leases/<n>``, 409 naming the
@@ -2521,6 +2544,9 @@ class _StubAPIServer:
             obj = outer.nodes[name]
             if method == "GET" and len(parts) == 2:
                 return 200, obj, None
+            if method == "DELETE" and len(parts) == 2:
+                del outer.nodes[name]
+                return 200, obj, "deleted"
             if method == "PATCH" and parts[2:] == ["metadata"]:
                 meta = obj.setdefault("metadata", {})
                 for key, val in body.items():
@@ -2559,6 +2585,14 @@ class _StubAPIServer:
                 return 200, {"items": face.list_pods(
                     node_name=query.get("node"), phase=query.get("phase"),
                     bound=query.get("bound") in ("1", "true"))}
+            if parts == ["pods"] and method == "POST":
+                name = body["metadata"]["name"]
+                with lock:
+                    exists = name in outer.pods
+                if exists:
+                    return 409, {"error": f"pod {name} exists"}
+                face.create_pod(body)
+                return 201, body
             if parts[:1] == ["pods"] and len(parts) >= 2:
                 name = parts[1]
                 if method == "GET" and len(parts) == 2:
@@ -3082,9 +3116,9 @@ def device_side_phase() -> dict:
 
 
 def _start_agent(root: str, base_env: dict, stub, tmp: str,
-                 backend: str = "nvml") -> tuple:
+                 backend: str = "nvml", node: str = NODE) -> tuple:
     """``python -m kubegpu_tpu_torch.cmd.node_agent --backend <backend>``
-    over ``stub`` (registering ``NODE``, its CRI hook on a free loopback
+    over ``stub`` (registering ``node``, its CRI hook on a free loopback
     port, its stderr in ``tmp``), waited for until it serves the hook and
     says it advertises: ``(process, hook url, healthz port, stderr file,
     watchdog)``. The watchdog, started before the first read, kills the
@@ -3093,13 +3127,13 @@ def _start_agent(root: str, base_env: dict, stub, tmp: str,
     import threading
 
     healthz = _free_port()
-    err = open(os.path.join(tmp, "agent.err"), "w")
+    err = open(os.path.join(tmp, f"agent-{node}.err"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubegpu_tpu_torch.cmd.node_agent",
-         "--api", stub.url, "--node-name", NODE, "--node-address",
+         "--api", stub.url, "--node-name", node, "--node-address",
          "127.0.0.1", "--backend", backend, "--register-node", "--cri-port",
          "0", "--healthz-port", str(healthz), "--advertise-interval", "1",
-         "--launch-log-dir", os.path.join(tmp, "logs")],
+         "--launch-log-dir", os.path.join(tmp, f"logs-{node}")],
         cwd=root, env=base_env, stdout=subprocess.PIPE, stderr=err, text=True)
     watchdog = threading.Timer(600, proc.kill)
     watchdog.start()
@@ -3267,14 +3301,7 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         stub.face.create_pod({"metadata": meta, "spec": {
             "nodeName": NODE, "containers": [{"name": "main"}]}})
 
-        def hook_cli(name):
-            return subprocess.run(
-                [sys.executable, "-m", "kubegpu_tpu_torch.cmd.cri_hook",
-                 "--server", cri, "--pod", name, "--container", "main"],
-                input=json.dumps(config), cwd=root, env=base_env,
-                capture_output=True, text=True, timeout=120)
-
-        served = hook_cli(pod.name)
+        served = _hook_cli(root, base_env, cri, pod.name, config)
         if served.returncode != 0:
             raise AssertionError(f"cri_hook failed: {served.stderr[-2000:]}")
         in_process = GPURuntimeHook(_StubAPI(stub.pods, stub.nodes),
@@ -3284,7 +3311,7 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         if served_cfg != in_process:
             raise AssertionError(f"served {served_cfg} != in-process "
                                  f"{in_process}")
-        refused = hook_cli(short.name)
+        refused = _hook_cli(root, base_env, cri, short.name, config)
         if refused.returncode == 0 or "409" not in refused.stderr or \
                 "AllocationMismatch" not in refused.stderr:
             raise AssertionError(f"numgpu 2 on one card was not refused: "
@@ -3339,18 +3366,98 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
             "agent_stop_s": stop_s}
 
 
+MASS_HOSTS = 1024
+MASS_PODS = 1000
+MASS_SIZES = (1, 2, 4, 1)
+MASS_ORACLE_S = 30.0
+PATH_SWITCHES = {"default": "1", "oracle": "0"}
+
+
+@contextlib.contextmanager
+def _engine_path(path: str):
+    """``KGTPU_BATCH`` and ``KGTPU_VECTORIZE`` for an engine built inside:
+    both on (``"default"``) or both off (``"oracle"``, the scalar path);
+    an engine reads them once, when it is built."""
+    saved = {k: os.environ.get(k) for k in ("KGTPU_BATCH",
+                                            "KGTPU_VECTORIZE")}
+    os.environ.update(dict.fromkeys(saved, PATH_SWITCHES[path]))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def _counted_searches():
+    """The allocator searches made inside, counted at the GPU plugin's
+    ``pod_fits_device``: a list that grows by one a call."""
+    from kubegpu_tpu_torch.scheduler.gpu_scheduler import GPUScheduler
+
+    calls: list = []
+    real = GPUScheduler.pod_fits_device
+
+    def counted(self, *args):
+        calls.append(1)
+        return real(self, *args)
+    GPUScheduler.pod_fits_device = counted
+    try:
+        yield calls
+    finally:
+        GPUScheduler.pod_fits_device = real
+
+
+def _mass_arrival(engine, hgx, path: str, budget_s) -> dict:
+    """MASS_PODS pods of MASS_SIZES cards, cycling, created before the
+    first pass onto MASS_HOSTS HGX hosts, scheduled on ``path``: until
+    all bind (``budget_s`` None; any left unbound fails the phase) or
+    for ``budget_s`` seconds of pod-at-a-time cycles (the oracle's rate).
+    Pods bound, seconds, pods/s and allocator searches a bound pod."""
+    with _engine_path(path):
+        face, sched = engine([hgx(i) for i in range(MASS_HOSTS)])
+    for i in range(MASS_PODS):
+        face.create_pod(_gpu_pod(f"ma{i}", MASS_SIZES[i % 4]))
+    with _counted_searches() as calls:
+        t = time.perf_counter()
+        if budget_s is None:
+            sched.run_until_idle()
+        else:
+            deadline = t + budget_s
+            while time.perf_counter() < deadline and \
+                    sched.schedule_one(timeout=0.0):
+                pass
+        wall = time.perf_counter() - t
+    sched.stop()
+    with face._lock:
+        bound = [p for p in face.pods.values() if p["spec"].get("nodeName")]
+    if budget_s is None and len(bound) != MASS_PODS:
+        raise AssertionError(f"mass arrival on the {path} path bound "
+                             f"{len(bound)} of {MASS_PODS}")
+    if not bound:
+        raise AssertionError(f"mass arrival on the {path} path bound none")
+    return {"bound": len(bound), "seconds": wall,
+            "pods_per_s": len(bound) / wall,
+            "searches_per_pod": len(calls) / len(bound)}
+
+
 def scheduler_phase(backend=None) -> dict:
     """The port's scheduling engine in process, over dicts
     (`_EngineFace`): a gang of one pod more than this card's host has
     cards binds none of its members, and all of them once a
     ``fake.rig_inventory`` host joins; then the engine's host times on
-    this machine. ``backend`` stands in for the card's NVML (a CPU
-    rehearsal). Raises on any mismatch."""
+    this machine: the 256-pod stream on the default path and on the
+    scalar oracle (equal placements), a 16-member gang, the
+    auto-topology stream and the mass arrival (`_mass_arrival`).
+    ``backend`` stands in for the card's NVML (a CPU rehearsal). Raises on
+    any mismatch."""
     import threading
 
     import numpy as np
 
-    from kubegpu_tpu_torch import obs
+    from kubegpu_tpu_torch import metrics, obs
     from kubegpu_tpu_torch.core import codec, grammar
     from kubegpu_tpu_torch.node import fake
     from kubegpu_tpu_torch.scheduler.core import Scheduler
@@ -3412,33 +3519,63 @@ def scheduler_phase(backend=None) -> dict:
                              f"{cards}, {contracts}")
 
     # 2. host times: 256 count-mode pods of 1, 2, 4 and 8 cards over 64
-    # HGX hosts, one scheduling cycle each
-    face, sched = engine([hgx(i) for i in range(64)])
-    for i in range(256):
-        face.create_pod(_gpu_pod(f"p{i}", (1, 2, 4, 8)[i % 4]))
-    cycle_ms = []
-    for _ in range(256):
-        t = time.perf_counter()
-        if not sched.schedule_one(timeout=0.0):
-            raise AssertionError("the queue ran dry before 256 cycles")
-        cycle_ms.append((time.perf_counter() - t) * 1e3)
-    sched.stop()
-    placed = [face.get_pod(f"p{i}") for i in range(256)]
-    n_bound = sum(1 for p in placed if p["spec"].get("nodeName"))
-    used = [c for p in placed for c in cards_of(p)]
-    if len(used) != len(set(used)) or len(used) > 512 or n_bound == 0:
-        raise AssertionError(f"{n_bound} bound over {len(used)} cards "
-                             f"({len(set(used))} distinct)")
+    # HGX hosts, submitted one at a time, one scheduling cycle each, on
+    # the default path and on the scalar oracle: equal card for card
+    cycles = {}
+    placements = {}
+    for path in ("default", "oracle"):
+        with _engine_path(path):
+            face, sched = engine([hgx(i) for i in range(64)])
+        passes = metrics.FIT_VECTOR_PASS_MS.n
+        fallback = metrics.FIT_SCALAR_FALLBACK.value
+        cycle_ms = []
+        for i in range(256):
+            face.create_pod(_gpu_pod(f"p{i}", (1, 2, 4, 8)[i % 4]))
+            t = time.perf_counter()
+            if not sched.schedule_one(timeout=0.0):
+                raise AssertionError(f"{path}: p{i} was not queued")
+            cycle_ms.append((time.perf_counter() - t) * 1e3)
+        sched.stop()
+        placed = [face.get_pod(f"p{i}") for i in range(256)]
+        placements[path] = [(p["spec"].get("nodeName"), cards_of(p))
+                            for p in placed]
+        n_bound = sum(1 for p in placed if p["spec"].get("nodeName"))
+        used = [c for p in placed for c in cards_of(p)]
+        if len(used) != len(set(used)) or len(used) > 512 or n_bound == 0:
+            raise AssertionError(f"{path}: {n_bound} bound over {len(used)} "
+                                 f"cards ({len(set(used))} distinct)")
+        cycles[path] = {"p50": float(np.percentile(cycle_ms, 50)),
+                        "p95": float(np.percentile(cycle_ms, 95)),
+                        "max": max(cycle_ms), "bound": n_bound,
+                        "cards_used": len(used),
+                        "masked_passes": metrics.FIT_VECTOR_PASS_MS.n
+                        - passes,
+                        "scalar_fallback_nodes":
+                            metrics.FIT_SCALAR_FALLBACK.value - fallback}
+    if placements["default"] != placements["oracle"]:
+        diff = [i for i, (a, b) in enumerate(zip(placements["default"],
+                                                 placements["oracle"]))
+                if a != b]
+        raise AssertionError(f"the default path placed p{diff[0]} "
+                             f"{placements['default'][diff[0]]}, the oracle "
+                             f"{placements['oracle'][diff[0]]} "
+                             f"({len(diff)} differ)")
+    # the masked pass must have served the stream, not fallen back
+    if cycles["default"]["masked_passes"] < 0.9 * 256 or \
+            cycles["default"]["scalar_fallback_nodes"] or \
+            cycles["oracle"]["masked_passes"]:
+        raise AssertionError(f"masked passes {cycles}")
 
     # 3. a 16-member gang of 8-card pods over 16 HGX hosts
     obs.RECORDER.clear()
     face, sched = engine([hgx(i) for i in range(16)])
-    for r in range(16):
+    for r in range(15):
         face.create_pod(_gpu_pod(f"g{r:02d}", 8, gang=5, size=16))
-    for _ in range(15):
-        sched.schedule_one(timeout=0.0)
+    sched.run_until_idle()
     if sched.gang_buffer.pending() != 15:
         raise AssertionError(f"{sched.gang_buffer.pending()} buffered")
+    # the last member's cycle plans and commits the whole gang
+    face.create_pod(_gpu_pod("g15", 8, gang=5, size=16))
     t = time.perf_counter()
     sched.schedule_one(timeout=0.0)
     gang_ms = (time.perf_counter() - t) * 1e3
@@ -3466,16 +3603,23 @@ def scheduler_phase(backend=None) -> dict:
     if auto != {"a": "host1", "b": "host1", "c": "host0"}:
         raise AssertionError(f"auto-topology stream {auto}")
 
+    # 5. mass arrival: MASS_PODS pods created before the first pass onto
+    # MASS_HOSTS HGX hosts, on the default path; the oracle's rate from
+    # as many of the same pods as it binds in MASS_ORACLE_S
+    mass = {"hosts": MASS_HOSTS, "pods": MASS_PODS,
+            "cards_asked": sum(MASS_SIZES[i % 4] for i in range(MASS_PODS)),
+            "default": _mass_arrival(engine, hgx, "default", None),
+            "oracle": _mass_arrival(engine, hgx, "oracle", MASS_ORACLE_S)}
+
     row = {"phase": "scheduler", "nvidia_smi": smi_line(),
            "note": "host times of the card's machine, the engine in one "
                    "process over dicts",
            "gang_on_card_host": {"cards": n_cards, "members": len(members),
                                  "nodes": nodes, "contracts": contracts},
-           "cycle_ms_256_pods_64_hgx": {
-               "p50": float(np.percentile(cycle_ms, 50)),
-               "p95": float(np.percentile(cycle_ms, 95)),
-               "max": max(cycle_ms), "bound": n_bound,
-               "cards_used": len(used)},
+           "cycle_ms_256_pods_64_hgx": cycles["default"],
+           "cycle_ms_256_pods_64_hgx_oracle": cycles["oracle"],
+           "placements_equal": True,
+           "mass_arrival": mass,
            "gang_16x8_on_16_hgx": {"plan_ms": plan_ms[0],
                                    "commit_ms": gang_ms - plan_ms[0],
                                    "cycle_ms": gang_ms},
@@ -3582,6 +3726,164 @@ def _create_to_bound_ms(stub, pod: dict, timeout: float, what: str) -> float:
     return (stamp["bound"] - t) * 1e3
 
 
+LIFECYCLE_GRACE_S = 3.0
+LIFECYCLE_STALE_S = 1.0
+
+
+def _hook_cli(root: str, env: dict, cri: str, pod: str, config: dict):
+    """``python -m kubegpu_tpu_torch.cmd.cri_hook --server cri`` for
+    ``pod``'s container ``main``: the finished process."""
+    return subprocess.run(
+        [sys.executable, "-m", "kubegpu_tpu_torch.cmd.cri_hook",
+         "--server", cri, "--pod", pod, "--container", "main"],
+        input=json.dumps(config), cwd=root, env=env, capture_output=True,
+        text=True, timeout=120)
+
+
+def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
+                   train: bool) -> dict:
+    """The node lifecycle controller of ``kgtpu-gpu-scheduler
+    --node-grace-s 3 --node-stale-s 1`` over a stub of its own, with two
+    node agents on the card under two names: the binary binds a gang of
+    one to node A (then the only node), node B registers, and A's agent is
+    SIGKILLed before anything launches the pod. The controller marks A
+    Stale, then Lost, deletes it and requeues the pod with its cards and
+    gang contract stripped (its gang keys kept); the binary binds the copy
+    to B with a contract naming B. B's hook refuses the requeued copy's
+    cleared allocation (``AllocationMismatch``, 409), and ``train`` runs
+    the rebound pod through B's hook (18 sm90 launches of each of K1-K3).
+    Returns the lifecycle fields of the scheduler_binary row."""
+    import signal
+
+    from kubegpu_tpu_torch.core import codec, grammar
+    from kubegpu_tpu_torch.runtime.hook import GANG_PROCESS_ANNOTATION
+
+    node_a, node_b = "smoke-node-a", "smoke-node-b"
+    stub = _StubAPIServer()
+    agents: list = []
+    binary = None
+    stamps: dict = {}
+    requeued: list = []
+
+    def watch(kind, event, obj):
+        name = obj["metadata"]["name"]
+        now = time.perf_counter()
+        if kind == "node" and event == "deleted" and name == node_a:
+            stamps.setdefault("lost", now)
+        if kind == "pod" and name == "life-pod":
+            if event == "added" and "kill" in stamps:
+                requeued.append(json.loads(json.dumps(obj)))
+            if (obj.get("spec") or {}).get("nodeName") == node_b:
+                stamps.setdefault("rebound", now)
+
+    def advertised(node):
+        with stub._lock:
+            ann = (stub.nodes.get(node, {}).get("metadata") or {}).get(
+                "annotations") or {}
+        return codec.NODE_ANNOTATION_KEY in ann
+
+    try:
+        agents.append(_start_agent(root, base_env, stub, tmp, backend,
+                                   node=node_a))
+        _wait_for(lambda: advertised(node_a), 60, "node A's advertise")
+        binary = _SchedulerBinary(
+            root, base_env, tmp, stub.url, "--wire", "stream",
+            "--node-grace-s", str(LIFECYCLE_GRACE_S), "--node-stale-s",
+            str(LIFECYCLE_STALE_S))
+        stub.face.add_watcher(watch)
+        gid = _free_gang_id()
+        _create_to_bound_ms(stub, _gpu_pod("life-pod", 1, gang=gid, size=1),
+                            30, "the pod's bind to node A")
+        first = stub.face.get_pod("life-pod")
+        if first["spec"]["nodeName"] != node_a:
+            raise AssertionError(f"life-pod bound to {first['spec']}")
+        agents.append(_start_agent(root, base_env, stub, tmp, backend,
+                                   node=node_b))
+        cri_b = agents[-1][1]
+        _wait_for(lambda: advertised(node_b), 60, "node B's advertise")
+        stamps["kill"] = time.perf_counter()
+        agents[0][0].send_signal(signal.SIGKILL)
+        _wait_for(lambda: "lost" in stamps, 30, "node A Lost")
+        _wait_for(lambda: "rebound" in stamps, 30, "the rebind on node B")
+        placed = stub.face.get_pod("life-pod")
+        contract = json.loads(placed["metadata"].get("annotations", {}).get(
+            GANG_PROCESS_ANNOTATION) or "{}")
+        if contract.get("coordinator_node") != node_b or \
+                contract.get("gang") != gid:
+            raise AssertionError(f"the rebound pod's contract {contract}")
+        # the copy the controller created: unbound, no cards, no contract,
+        # its numgpu and gang keys kept
+        if not requeued:
+            raise AssertionError("no requeued copy of life-pod was created")
+        copy = requeued[0]
+        info = codec.kube_pod_to_pod_info(copy, invalidate_existing=False)
+        cont = info.running_containers["main"]
+        if (copy.get("spec") or {}).get("nodeName") or cont.allocate_from \
+                or GANG_PROCESS_ANNOTATION in copy["metadata"].get(
+                    "annotations", {}) or \
+                cont.requests.get(grammar.RESOURCE_NUM_GPU) != 1 or \
+                info.requests.get(grammar.RESOURCE_GANG) != gid:
+            raise AssertionError(f"the requeued copy {copy}")
+        with stub._lock:
+            node_a_left = node_a in stub.nodes
+            reasons = {r for r, _ in stub.face.events.get(node_a, [])} | \
+                {r for r, _ in stub.face.events.get("life-pod", [])}
+        if node_a_left or not {"NodeLost", "Evicted"} <= reasons:
+            raise AssertionError(f"node A left {node_a_left}, events "
+                                 f"{sorted(reasons)}")
+        # A's allocation, stripped by the eviction, does not start on B
+        stale = json.loads(json.dumps(copy))
+        stale["metadata"]["name"] = "life-stale"
+        stale["spec"]["nodeName"] = node_b
+        stub.face.create_pod(stale)
+        refused = _hook_cli(root, base_env, cri_b, "life-stale",
+                            {"devices": [], "envs": []})
+        if refused.returncode == 0 or "409" not in refused.stderr or \
+                "AllocationMismatch" not in refused.stderr:
+            raise AssertionError(f"B's hook ran the stale allocation: "
+                                 f"{refused.returncode} {refused.stderr}")
+        lost_total = binary.metric("scheduler_node_lost_total")
+        evictions = binary.metric("scheduler_evictions_total")
+        if lost_total != 1 or evictions != 1:
+            raise AssertionError(f"scheduler_node_lost_total {lost_total}, "
+                                 f"scheduler_evictions_total {evictions}")
+        alloc = codec.kube_pod_to_pod_info(
+            placed, invalidate_existing=False).running_containers[
+            "main"].allocate_from
+        pod_s = out = counted = None
+        if train:
+            pod_s, out, counted = _run_training_pod(
+                cri_b, "life-pod", {"devices": [], "envs": []})
+        if binary.stop() != 0:
+            raise AssertionError(f"the lifecycle binary exited "
+                                 f"{binary.proc.returncode}: "
+                                 f"{binary.stderr()}")
+        agents[1][0].send_signal(signal.SIGTERM)
+        if agents[1][0].wait(timeout=10) != 0:
+            raise AssertionError(f"agent B exited {agents[1][0].returncode}")
+    finally:
+        if binary is not None:
+            binary.stop()
+        for proc, _, _, err, watchdog in agents:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            proc.stdout.close()
+            err.close()
+        stub.close()
+    return {"lifecycle": {
+        "grace_s": LIFECYCLE_GRACE_S, "stale_s": LIFECYCLE_STALE_S,
+        "kill_to_lost_s": stamps["lost"] - stamps["kill"],
+        "lost_to_rebound_s": stamps["rebound"] - stamps["lost"],
+        "node_lost_total": lost_total, "evictions_total": evictions,
+        "refused": refused.stderr.strip().splitlines()[-1],
+        "contract": contract, "allocate_from": alloc, "pod_s": pod_s,
+        "launches_fwd_dq_dkv": counted and counted["launches"],
+        "launches_by_instance": counted and counted["by_instance"],
+        "losses": out and out["losses_full"]}}
+
+
 def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
     """``kgtpu-gpu-scheduler`` (the port's binary, a subprocess) places the
     node agent's pod on this card: the agent over NVML (``backend``) and
@@ -3591,9 +3893,11 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
     (train_demo, DEVICE_STEPS steps, 18 sm90 launches of each of K1-K3);
     the leader is killed and the standby takes the lease and binds a
     second pod (placed only); a third binary ``--wire json`` binds a pod
-    over the long poll of a stub without the stream wire. ``train=False``
-    leaves the pod unrun (a CPU rehearsal with ``backend="fake-rig"``).
-    Raises on any mismatch."""
+    over the long poll of a stub without the stream wire. Then the node
+    lifecycle leg (`_lifecycle_leg`): a pod requeued off a killed node
+    rebinds on another and trains there. ``train=False`` leaves the pods
+    unrun (a CPU rehearsal with ``backend="fake-rig"``). Raises on any
+    mismatch."""
     import signal
     import tempfile
 
@@ -3699,6 +4003,7 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
         agent.send_signal(signal.SIGTERM)
         if agent.wait(timeout=10) != 0:
             raise AssertionError(f"the agent exited {agent.returncode}")
+        life = _lifecycle_leg(root, base_env, tmp, backend, train)
     finally:
         for b in binaries:
             b.stop()
@@ -3722,7 +4027,7 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
            "allocate_from": alloc, "pod_s": pod_s,
            "launches_fwd_dq_dkv": counted and counted["launches"],
            "launches_by_instance": counted and counted["by_instance"],
-           "losses": out and out["losses_full"],
+           "losses": out and out["losses_full"], **life,
            "seconds": time.perf_counter() - t0, "ok": True}
     emit(row)
     return row
@@ -3953,6 +4258,8 @@ def main() -> int:
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][0],
         "launches_scheduler_binary_run":
             sched_bin["launches_fwd_dq_dkv"][0],
+        "launches_lifecycle_run":
+            sched_bin["lifecycle"]["launches_fwd_dq_dkv"][0],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][0],
         "dispatches_checkers_step": checkers["train_kgt_flash_fwd"],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
@@ -3982,6 +4289,8 @@ def main() -> int:
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][1],
         "launches_scheduler_binary_run":
             sched_bin["launches_fwd_dq_dkv"][1],
+        "launches_lifecycle_run":
+            sched_bin["lifecycle"]["launches_fwd_dq_dkv"][1],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][1],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
@@ -4009,6 +4318,8 @@ def main() -> int:
         "launches_node_agent_run": device["launches_fwd_dq_dkv"][2],
         "launches_scheduler_binary_run":
             sched_bin["launches_fwd_dq_dkv"][2],
+        "launches_lifecycle_run":
+            sched_bin["lifecycle"]["launches_fwd_dq_dkv"][2],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][2],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),

@@ -6,7 +6,8 @@ same bodies: the node side's verbs (``get_node``, ``create_node``,
 ``patch_node_metadata``, ``get_pod``, ``update_pod_annotations``), the
 scheduler's (nodes and pods listed, bound one by one or all at once with
 ``bind_many``, annotated and deleted; PDBs, volumes and claims, quotas,
-events, leases), and the informer the scheduling engine consumes
+events, leases), the node lifecycle controller's (``create_pod`` for a
+requeued copy, ``delete_node`` for a lost node), and the informer the scheduling engine consumes
 (``add_watcher``, ``add_batch_watcher``, ``add_relist_listener``).
 
 ``wire="json"`` sends each request over a per-thread keep-alive HTTP/1.1
@@ -317,8 +318,14 @@ class HTTPAPIClient:
     def get_node(self, name: str) -> dict:
         return self._req("GET", f"/nodes/{name}")
 
+    def delete_node(self, name: str) -> dict:
+        return self._req("DELETE", f"/nodes/{name}")
+
     def patch_node_metadata(self, name: str, patch: dict) -> dict:
         return self._req("PATCH", f"/nodes/{name}/metadata", patch)
+
+    def create_pod(self, pod: dict) -> dict:
+        return self._req("POST", "/pods", pod)
 
     def get_pod(self, name: str) -> dict:
         return self._req("GET", f"/pods/{name}")

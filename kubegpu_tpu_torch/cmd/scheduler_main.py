@@ -20,10 +20,15 @@ solo (the default)
     Active/standby: replicas contend for one lease; only its holder
     schedules, and a replica that loses the lease stands by again.
 
+``--node-grace-s G`` (above 0) runs the node lifecycle controller
+(``scheduler/lifecycle.py``) beside either shape, singleton-elected on its
+own lease (``LIFECYCLE_LEASE``): a node whose heartbeat stands still for
+``--node-stale-s`` (default G / 3) is Stale, for G Lost, and its pods are
+evicted and requeued. ``--node-stale-s`` alone starts no controller.
+
 SIGTERM and SIGINT stop it cleanly (exit 0). The flags of what the port
 does not have yet refuse to start, naming the ROADMAP item that brings
-it (Queue 1, item 10): ``--node-grace-s``/``--node-stale-s`` (10.2, node
-lifecycle), ``--tenant-quota`` (10.5, quotas), ``--repair`` and config
+it (Queue 1, item 10): ``--tenant-quota`` (10.5, quotas), ``--repair`` and config
 ``extenders`` (10.6, repair and extenders), and ``--replicas`` above 1
 (10.7): sharded replicas rely on the API server's arbiter to refuse a
 card claimed twice, and the only server there is, the JAX package's,
@@ -40,10 +45,11 @@ import threading
 
 from kubegpu_tpu_torch import obs
 from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
-from kubegpu_tpu_torch.cluster.lease import Elector
+from kubegpu_tpu_torch.cluster.lease import LIFECYCLE_LEASE, Elector
 from kubegpu_tpu_torch.cmd import common
 from kubegpu_tpu_torch.scheduler import factory
 from kubegpu_tpu_torch.scheduler.core import Scheduler
+from kubegpu_tpu_torch.scheduler.lifecycle import NodeLifecycle
 from kubegpu_tpu_torch.scheduler.registry import build_device_scheduler
 
 LEASE_NAME = "kgtpu-scheduler"
@@ -60,10 +66,6 @@ def refuse_later_items(args, config: dict) -> None:
     """Raise `NotImplementedError` for a flag or config key whose
     controller the port does not have yet, naming its ROADMAP item."""
     later = []
-    if (args.node_grace_s or 0) > 0 or (args.node_stale_s or 0) > 0:
-        later.append("--node-grace-s/--node-stale-s: the node lifecycle "
-                     "controller (scheduler/lifecycle.py) is ROADMAP "
-                     "Queue 1, item 10.2")
     if args.tenant_quota:
         later.append("--tenant-quota: the tenant quota gate "
                      "(scheduler/quota.py) is ROADMAP Queue 1, item 10.5")
@@ -113,6 +115,24 @@ def build_scheduler(client, args, config: dict | None = None,
     return sched
 
 
+def start_lifecycle_elector(client, args, holder: str) -> Elector | None:
+    """The node lifecycle controller, gated on ``--node-grace-s`` and
+    singleton-elected on its own lease: exactly one replica runs evictions
+    (two controllers would race the requeues), and a dead holder's
+    successor takes over, whichever scheduling shape runs."""
+    if not args.node_grace_s or args.node_grace_s <= 0:
+        return None
+    stale = args.node_stale_s if args.node_stale_s > 0 \
+        else args.node_grace_s / 3.0
+    controller = NodeLifecycle(client, stale_after_s=stale,
+                               lost_after_s=args.node_grace_s)
+    elector = Elector(client.acquire_lease, LIFECYCLE_LEASE, holder,
+                      args.lease_ttl, on_acquire=controller.start,
+                      on_lose=controller.stop)
+    elector.start()
+    return elector
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="kgtpu-gpu-scheduler", description=__doc__,
@@ -146,11 +166,12 @@ def parser() -> argparse.ArgumentParser:
                    help="seconds a lease lives unrenewed; renewed every "
                         "third of it")
     p.add_argument("--node-grace-s", type=float, default=0.0,
-                   help="node lifecycle controller: not in the port yet "
-                        "(ROADMAP Queue 1, item 10.2); a value > 0 refuses "
-                        "to start")
+                   help="node lifecycle controller: seconds a node's "
+                        "heartbeat may stand still before the node is Lost "
+                        "and its pods are evicted and requeued; 0 disables")
     p.add_argument("--node-stale-s", type=float, default=0.0,
-                   help="node lifecycle controller (item 10.2, as above)")
+                   help="seconds to Stale (observational); default "
+                        "--node-grace-s / 3")
     p.add_argument("--tenant-quota", action="store_true",
                    help="tenant quota gate: not in the port yet (ROADMAP "
                         "Queue 1, item 10.5); refuses to start")
@@ -204,6 +225,8 @@ def main(argv=None) -> int:
     client = HTTPAPIClient(args.api, watch_batch_s=args.watch_batch_ms / 1e3,
                            watch_kinds=WATCH_KINDS, wire=args.wire)
     health = common.serve_health(args.healthz_port, extra_status=lambda: True)
+    holder = f"{os.uname().nodename}-{os.getpid()}"
+    lifecycle = start_lifecycle_elector(client, args, holder)
     try:
         if not args.leader_elect:
             sched = build_scheduler(client, args, config)
@@ -212,9 +235,17 @@ def main(argv=None) -> int:
             stop.wait()
             sched.stop()
         else:
-            run_leader_elected(client, args, config,
-                               f"{os.uname().nodename}-{os.getpid()}", stop)
+            run_leader_elected(client, args, config, holder, stop)
     finally:
+        if lifecycle is not None:
+            # demotes: the controller's loop joins and its parked
+            # requeues get a last flush
+            lifecycle.stop()
+            try:
+                client.release_lease(LIFECYCLE_LEASE, holder)
+            except Exception:
+                # the successor then waits out the TTL
+                pass
         stop_obs()
         client.close()
         if health is not None:

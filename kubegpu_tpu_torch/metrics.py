@@ -5,8 +5,10 @@ The exponential-bucket ``Histogram``, the ``Counter``, the settable
 ``Gauge`` and their labelled families; the four serving metrics (time to
 first token, inter-token latency, queue depth, slot utilization), the
 control-plane wire's bytes and frame codec times, the scheduling engine's
-counters and histograms, and those of the scheduler binary's client,
-leases and observability, all under the JAX package's names. Every metric
+counters and histograms (its default path's masked pass and batch cycle
+among them), the node lifecycle controller's, and those of the scheduler
+binary's client, leases and observability, all under the JAX package's
+names. Every metric
 is listed once in ``all_metrics()``, which the Prometheus exposition (the
 binaries' ``/metrics``), ``reset_all()`` and the metrics time-series
 (``obs/timeseries.py``, through each metric's ``snapshot()``) iterate.
@@ -261,6 +263,29 @@ SCHED_PHASE_MS = LabeledHistogram("sched_phase_ms", "phase", start_us=0.01)
 SCHED_QUEUE_DEPTH = LabeledGauge("sched_queue_depth", "queue")
 SCHED_THROUGHPUT = Gauge("sched_throughput_pods_per_s")
 
+# The engine's default path (scheduler/vectorized.py, batch.py and the
+# batch cycle of core.py): the masked pass's time and the nodes it served,
+# the nodes that fell out of the mask into the scalar chain (tainted,
+# carrying placed volumes or nominations, or the whole fleet for a pod
+# that needs object predicates), the admitted pods one drained backlog
+# carried, and the filter passes that cycle paid (batch classes plus
+# serial pods).
+FIT_VECTOR_PASS_MS = Histogram("fit_vector_pass_ms", start_us=0.25)
+FIT_VECTOR_NODES_PER_PASS = Histogram(
+    "fit_vector_nodes_per_pass", start_us=1.0, factor=2.0, count=15)
+FIT_SCALAR_FALLBACK = Counter("fit_scalar_fallback_total")
+SCHED_BATCH_SIZE = Histogram(
+    "sched_batch_size", start_us=1.0, factor=2.0, count=12)
+SCHED_BATCH_CLASSES = Histogram(
+    "sched_batch_classes_per_cycle", start_us=1.0, factor=2.0, count=12)
+
+# The node lifecycle controller (scheduler/lifecycle.py): the nodes Ready
+# at the last pass, Ready-to-Lost transitions, and pods evicted off Lost
+# nodes (whole gangs, survivors included).
+NODE_READY = Gauge("scheduler_node_ready")
+NODE_LOST = Counter("scheduler_node_lost_total")
+EVICTIONS = Counter("scheduler_evictions_total")
+
 # The scheduler binary's client, leases and observability
 # (cluster/httpapi.py, cluster/lease.py, obs/): the size of the last
 # delivered watch batch, events the server folded away before delivery,
@@ -282,7 +307,10 @@ _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         PREEMPTION_VICTIMS, INTERNAL_ERRORS, FIT_CACHE_HITS,
         FIT_CACHE_MISSES, FIT_CACHE_INVALIDATIONS, FIT_VERDICT_TIMEOUTS,
         BIND_LATENCY_MS, BIND_INFLIGHT, SCHED_CONFLICTS, SCHED_PHASE_MS,
-        SCHED_QUEUE_DEPTH, SCHED_THROUGHPUT, WATCH_BATCH_SIZE,
+        SCHED_QUEUE_DEPTH, SCHED_THROUGHPUT, FIT_VECTOR_PASS_MS,
+        FIT_VECTOR_NODES_PER_PASS, FIT_SCALAR_FALLBACK, SCHED_BATCH_SIZE,
+        SCHED_BATCH_CLASSES, NODE_READY, NODE_LOST, EVICTIONS,
+        WATCH_BATCH_SIZE,
         WATCH_COALESCED, WATCH_PUSH_LAG_MS, LEASE_TRANSITIONS, FLIGHT_DUMPS,
         PROFILE_SAMPLES)
 

@@ -13,12 +13,15 @@ cache entirely from node/pod annotations (SURVEY.md §6 checkpoint/resume).
 from __future__ import annotations
 
 import json
+import re
 import threading
 import time
 from typing import Any
 
+import numpy as np
+
 from kubegpu_tpu_torch import metrics
-from kubegpu_tpu_torch.core import codec
+from kubegpu_tpu_torch.core import codec, grammar
 from kubegpu_tpu_torch.core.types import NodeInfo, PodInfo
 from kubegpu_tpu_torch.scheduler import interpod
 from kubegpu_tpu_torch.scheduler.equivalence import EquivalenceCache
@@ -46,6 +49,8 @@ class CachedNode:
         self.pod_volumes: dict = {}     # pod name -> volume dicts (disk conflicts)
         self.pod_affinity: dict = {}    # pod name -> spec.affinity (interpod)
         self.pod_namespaces: dict = {}  # pod name -> namespace
+        self.pod_priorities: dict = {}  # pod name -> spec.priority (preempt scan)
+        self.pod_chips: dict = {}       # pod name -> charged card-leaf count
 
     def used_ports(self) -> set:
         out: set = set()
@@ -100,6 +105,20 @@ def _fit_fingerprint(kube_node: dict) -> str:
         sort_keys=True, default=str)
 
 
+def _charged_chip_count(pod_info: PodInfo) -> int:
+    """Card leaves (``.../gpu/<UUID>/cards``) this pod's allocation
+    charges — what eviction would free, exact by construction (the same
+    ``allocate_from`` values ``return_pod_resources`` walks). 0 for
+    device-less pods. The JAX package's counterpart counts TPU chips."""
+    cards = 0
+    for conts in (pod_info.init_containers, pod_info.running_containers):
+        for cont in conts.values():
+            for phys in cont.allocate_from.values():
+                if grammar.gpu_id_from_path(phys) is not None:
+                    cards += 1
+    return cards
+
+
 def _slim_node_copy(kube_node: dict) -> dict:
     """Copy only what predicates/priorities read (labels, annotations,
     taints, unschedulable, conditions, allocatable). The snapshot runs on
@@ -130,6 +149,371 @@ def _slim_node_copy(kube_node: dict) -> dict:
     }
 
 
+# ---- struct-of-arrays fleet mirror ------------------------------------------
+#
+# The vectorized scheduling core (scheduler/vectorized.py) filters and
+# scores the WHOLE fleet in masked array passes instead of per-node
+# Python predicate calls. These columns are its input: one row per node,
+# maintained under the SAME lock and on the SAME mutation paths that bump
+# fit generations today (set_node / remove_node / _charge_locked /
+# _invalidate_*), so a column can never disagree with the object it
+# mirrors. Rows hold only what the masked predicates read: condition
+# flags, taints, core alloc/req, free-card counts (the ``free_chips``
+# column keeps the JAX package's name), the canonical device-shape
+# fingerprint, and the min bound-pod priority (the vectorized victim
+# scan's prune key).
+
+_NO_PODS_PRIORITY = 2 ** 62
+# .../gpu/<UUID>/<suffix> — every card-attribute path (cards, memory)
+_CARD_SEG_RE = re.compile(r"^(.*/" + grammar.GPU_LEAF + r"/)([^/]+)(/[^/]+)$")
+
+
+def _canonical_paths(allocatable: dict) -> dict:
+    """path -> identity-normalized path: each card's UUID replaced by its
+    rank among the node's UUIDs in sorted order, so two nodes whose
+    inventories are identical modulo which physical card is which (the
+    gpugrp1/gpugrp0 tree, per-card memory, scorer values) produce
+    identical canonical paths. The ranks keep the UUIDs' order, so the
+    allocator's sorted-key search walks the same sequence on both, and
+    its verdict for a pod whose requests name no absolute device paths
+    (count mode translates per node) is the same: one search stands in
+    for a whole uniform fleet. The GPU counterpart of the JAX package's
+    TPU version, which shifts chip coordinates to the node's origin."""
+    parsed = {}
+    for res in allocatable:
+        m = _CARD_SEG_RE.match(res)
+        if m is not None:
+            parsed[res] = (m.group(1), m.group(2), m.group(3))
+    if not parsed:
+        return {}
+    rank = {uuid: i for i, uuid in
+            enumerate(sorted({uuid for _, uuid, _ in parsed.values()}))}
+    return {res: f"{head}{rank[uuid]}{tail}"
+            for res, (head, uuid, tail) in parsed.items()}
+
+
+def card_ids(canon: dict) -> frozenset:
+    """The UUIDs a node's canonicalization map renames: a device verdict
+    whose reasons name one of them is identity-specific and must not be
+    broadcast to another node of the same shape."""
+    return frozenset(m.group(2) for m in map(_CARD_SEG_RE.match, canon)
+                     if m is not None)
+
+
+class _NodeRow:
+    """Per-node columnar fields, recomputed only on the mutation path
+    that owns them (node flags at set_node, usage at charge time)."""
+
+    __slots__ = ("unschedulable", "n_notready", "mem_pressure",
+                 "disk_pressure", "tainted",
+                 "core_alloc", "canon", "alloc_id", "chip_paths",
+                 "used_key", "free_chips", "vol_heavy",
+                 "min_prio", "gen")
+
+    def __init__(self) -> None:
+        self.gen = 0
+        self.vol_heavy = False
+        self.min_prio = _NO_PODS_PRIORITY
+
+
+class ColumnarView:
+    """Read-only struct-of-arrays snapshot handed to one scheduling pass
+    (published under the cache lock and never written afterwards, so a
+    concurrent charge cannot tear a masked filter mid-pass; successive
+    views share untouched columns copy-on-write). ``names`` is sorted
+    and row-aligned with
+    ``cycle_snapshot``'s name list; ``dev_fps[i]`` is node i's canonical
+    device-shape fingerprint (equal fingerprint => identical device
+    verdict for any translation-invariant request); ``canon_maps[i]``
+    its path canonicalization (shared refs — treat as immutable)."""
+
+    __slots__ = ("names", "idx", "epoch", "gen", "unschedulable",
+                 "n_notready", "mem_pressure", "disk_pressure", "tainted",
+                 "vol_heavy", "free_chips",
+                 "min_pod_priority", "core_alloc", "core_req",
+                 "dev_fps", "canon_maps")
+
+
+class _FleetColumns:
+    """The live mirror. guarded-by: SchedulerCache._lock — every method
+    here is only called with the cache lock held. Arrays materialize
+    lazily after membership changes (a 4k-node fleet registering pays
+    one O(n) build, not n of them) and are updated in place per-row
+    afterwards; ``view()`` hands out copies."""
+
+    def __init__(self) -> None:
+        self.rows: dict = {}          # node name -> _NodeRow
+        self._alloc_ids: dict = {}    # canonical alloc/scorer tuple -> id
+        self._names: list = []
+        self._idx: dict = {}
+        self._arrays: dict | None = None
+        self._res_keys: tuple = ()
+        self._dirty = True
+        self.epoch = 0  # bumped per rebuild: O(1) membership identity
+        # Incremental-view state: which rows moved since the last view()
+        # was published. A steady stream of charges touches O(1) rows per
+        # pass, so the next view shares every untouched column with its
+        # predecessor (copy-on-write: published arrays are never written
+        # again) and pays only a memcpy + per-dirty-row writes for the
+        # columns that moved — not the full O(nodes) Python rebuild of
+        # dev_fps/canon_maps the snapshot copy used to run per pass.
+        self._view_cache: "ColumnarView | None" = None
+        # guarded-by: SchedulerCache._lock -- full-row changes (charge path)
+        self._dirty_rows: set = set()
+        self._dirty_gen: set = set()    # generation-only changes
+        self._dirty_canon: set = set()  # canonicalization map changes
+        self._gen_all = False           # bump_all_gens: whole gen column
+
+    # -- row computation (mutation-path hooks) ------------------------------
+
+    def set_node(self, cached: CachedNode) -> None:
+        name = cached.name
+        row = self.rows.get(name)
+        if row is None:
+            row = _NodeRow()
+            self.rows[name] = row
+            self._dirty = True
+        kube_node = cached.kube_node
+        spec = kube_node.get("spec") or {}
+        row.unschedulable = bool(spec.get("unschedulable"))
+        n_notready = 0
+        mem_p = disk_p = False
+        for cond in (kube_node.get("status") or {}).get("conditions") or []:
+            ctype, status = cond.get("type"), cond.get("status")
+            if ctype == "Ready" and status != "True":
+                n_notready += 1
+            elif ctype == "MemoryPressure" and status == "True":
+                mem_p = True
+            elif ctype == "DiskPressure" and status == "True":
+                disk_p = True
+        row.n_notready = n_notready
+        row.mem_pressure = mem_p
+        row.disk_pressure = disk_p
+        row.tainted = any(
+            taint.get("effect") in ("NoSchedule", "NoExecute")
+            for taint in spec.get("taints") or [])
+        row.core_alloc = cached.core_allocatable()
+        if set(row.core_alloc) - set(self._res_keys):
+            self._dirty = True
+        node_ex = cached.node_ex
+        row.canon = _canonical_paths(node_ex.allocatable)
+        canon = row.canon
+        alloc_key = (
+            tuple(sorted((canon.get(k, k), v)
+                         for k, v in node_ex.allocatable.items())),
+            tuple(sorted((canon.get(k, k), v)
+                         for k, v in node_ex.scorer.items())))
+        alloc_id = self._alloc_ids.get(alloc_key)
+        if alloc_id is None:
+            alloc_id = len(self._alloc_ids)
+            self._alloc_ids[alloc_key] = alloc_id
+        row.alloc_id = alloc_id
+        # card-leaf paths (.../gpu/<UUID>/cards) in canonical sorted
+        # order — the fixed roster the free-card count walks on every
+        # charge
+        row.chip_paths = tuple(sorted(
+            (p for p in node_ex.allocatable
+             if grammar.gpu_id_from_path(p) is not None),
+            key=lambda p: canon.get(p, p)))
+        if not self._dirty and self._arrays is not None:
+            # canon objects live outside the arrays; the delta view
+            # patches canon_maps from this set
+            self._dirty_canon.add(self._idx[name])
+        self.charge(cached)
+
+    def charge(self, cached: CachedNode) -> None:
+        """Usage-derived fields, recomputed on every pod charge/release
+        (the same event that bumps the node's fit generation)."""
+        row = self.rows.get(cached.name)
+        if row is None:
+            return
+        node_ex = cached.node_ex
+        canon = row.canon
+        used = node_ex.used
+        row.used_key = tuple(sorted(
+            (canon.get(k, k), v) for k, v in used.items() if v))
+        row.free_chips = sum(
+            max(node_ex.allocatable.get(path, 0) - used.get(path, 0), 0)
+            for path in row.chip_paths)
+        row.vol_heavy = bool(cached.pod_volumes)
+        row.min_prio = min(cached.pod_priorities.values()) \
+            if cached.pod_priorities else _NO_PODS_PRIORITY
+        if not self._dirty and self._arrays is not None:
+            self._write_row(self._idx[cached.name], row, cached)
+
+    def set_gen(self, name: str, gen: int) -> None:
+        row = self.rows.get(name)
+        if row is None:
+            return
+        row.gen = gen
+        if not self._dirty and self._arrays is not None:
+            i = self._idx[name]
+            self._arrays["gen"][i] = gen
+            self._dirty_gen.add(i)
+
+    def bump_all_gens(self, gens: dict) -> None:
+        for name, row in self.rows.items():
+            row.gen = gens.get(name, row.gen)
+        if not self._dirty and self._arrays is not None:
+            arr = self._arrays["gen"]
+            for i, name in enumerate(self._names):
+                arr[i] = self.rows[name].gen
+            self._gen_all = True
+
+    def drop(self, name: str) -> None:
+        if self.rows.pop(name, None) is not None:
+            self._dirty = True
+
+    # -- materialization ----------------------------------------------------
+
+    def _write_row(self, i: int, row: _NodeRow, cached: CachedNode) -> None:
+        arrays = self._arrays
+        self._dirty_rows.add(i)
+        arrays["free_chips"][i] = row.free_chips
+        arrays["min_prio"][i] = row.min_prio
+        arrays["vol_heavy"][i] = row.vol_heavy
+        arrays["gen"][i] = row.gen
+        arrays["unschedulable"][i] = row.unschedulable
+        arrays["n_notready"][i] = row.n_notready
+        arrays["mem_pressure"][i] = row.mem_pressure
+        arrays["disk_pressure"][i] = row.disk_pressure
+        arrays["tainted"][i] = row.tainted
+        arrays["dev_fps"][i] = (row.alloc_id, row.used_key)
+        req = cached.requested_core
+        for res in self._res_keys:
+            arrays["core_alloc"][res][i] = row.core_alloc.get(res, np.nan)
+            arrays["core_req"][res][i] = req.get(res, 0)
+
+    def _rebuild(self, nodes: dict) -> None:
+        self._names = sorted(self.rows)
+        self._idx = {n: i for i, n in enumerate(self._names)}
+        n = len(self._names)
+        res_keys: set = set()
+        for row in self.rows.values():
+            res_keys.update(row.core_alloc)
+        self._res_keys = tuple(sorted(res_keys))
+        self._arrays = {
+            "gen": np.zeros(n, dtype=np.int64),
+            "unschedulable": np.zeros(n, dtype=bool),
+            "n_notready": np.zeros(n, dtype=np.int16),
+            "mem_pressure": np.zeros(n, dtype=bool),
+            "disk_pressure": np.zeros(n, dtype=bool),
+            "tainted": np.zeros(n, dtype=bool),
+            "vol_heavy": np.zeros(n, dtype=bool),
+            "free_chips": np.zeros(n, dtype=np.int64),
+            "min_prio": np.zeros(n, dtype=np.int64),
+            "core_alloc": {res: np.full(n, np.nan)
+                           for res in self._res_keys},
+            "core_req": {res: np.zeros(n) for res in self._res_keys},
+            "dev_fps": [None] * n,
+        }
+        for i, name in enumerate(self._names):
+            self._write_row(i, self.rows[name], nodes[name])
+        self._dirty = False
+        self.epoch += 1
+        # row indices renumbered: the cached view and its dirty deltas
+        # no longer describe these arrays
+        self._view_cache = None
+        self._dirty_rows.clear()
+        self._dirty_gen.clear()
+        self._dirty_canon.clear()
+        self._gen_all = False
+
+    def view(self, nodes: dict) -> "ColumnarView | None":
+        if len(self.rows) != len(nodes):
+            return None
+        if self._dirty or self._arrays is None:
+            self._rebuild(nodes)
+        prev = self._view_cache
+        if prev is not None and prev.epoch == self.epoch:
+            out = self._delta_view(prev)
+        else:
+            out = self._full_view()
+        self._view_cache = out
+        self._dirty_rows.clear()
+        self._dirty_gen.clear()
+        self._dirty_canon.clear()
+        self._gen_all = False
+        return out
+
+    def _full_view(self) -> "ColumnarView":
+        arrays = self._arrays
+        out = ColumnarView()
+        out.names = list(self._names)
+        out.idx = self._idx
+        out.epoch = self.epoch
+        for field in ("gen", "unschedulable", "n_notready", "mem_pressure",
+                      "disk_pressure", "tainted", "vol_heavy",
+                      "free_chips"):
+            setattr(out, field, arrays[field].copy())
+        out.min_pod_priority = arrays["min_prio"].copy()
+        out.core_alloc = {res: arr.copy()
+                          for res, arr in arrays["core_alloc"].items()}
+        out.core_req = {res: arr.copy()
+                        for res, arr in arrays["core_req"].items()}
+        out.dev_fps = list(arrays["dev_fps"])
+        out.canon_maps = [self.rows[n].canon for n in self._names]
+        return out
+
+    def _delta_view(self, prev: "ColumnarView") -> "ColumnarView":
+        """O(changed) successor view. Published views are immutable —
+        in-place mutations only ever land in ``self._arrays`` — so a
+        column with no dirty rows since ``prev`` was published is
+        SHARED with it outright; a touched column is copied once and
+        patched at the dirty rows. A trickle pass (one charge + one gen
+        bump between views) therefore pays a handful of row writes and
+        skips the per-node Python rebuild of dev_fps/canon_maps that
+        the full snapshot copy runs, keeping 4k–64k-node fleets flat."""
+        arrays = self._arrays
+        ii = sorted(self._dirty_rows) if self._dirty_rows else None
+
+        def patched(live, prev_col, idx):
+            if idx is None:
+                return prev_col
+            col = prev_col.copy()
+            col[idx] = live[idx]
+            return col
+
+        out = ColumnarView()
+        out.names = prev.names
+        out.idx = prev.idx
+        out.epoch = prev.epoch
+        if self._gen_all:
+            out.gen = arrays["gen"].copy()
+        else:
+            gi = ii
+            if self._dirty_gen:
+                gi = sorted(self._dirty_rows | self._dirty_gen)
+            out.gen = patched(arrays["gen"], prev.gen, gi)
+        for field in ("unschedulable", "n_notready", "mem_pressure",
+                      "disk_pressure", "tainted", "vol_heavy",
+                      "free_chips"):
+            setattr(out, field, patched(arrays[field],
+                                        getattr(prev, field), ii))
+        out.min_pod_priority = patched(arrays["min_prio"],
+                                       prev.min_pod_priority, ii)
+        out.core_alloc = {res: patched(arr, prev.core_alloc[res], ii)
+                          for res, arr in arrays["core_alloc"].items()}
+        out.core_req = {res: patched(arr, prev.core_req[res], ii)
+                        for res, arr in arrays["core_req"].items()}
+        if ii is None:
+            out.dev_fps = prev.dev_fps
+        else:
+            live_fps = arrays["dev_fps"]
+            fps = list(prev.dev_fps)
+            for i in ii:
+                fps[i] = live_fps[i]
+            out.dev_fps = fps
+        if self._dirty_canon:
+            maps = list(prev.canon_maps)
+            for i in self._dirty_canon:
+                maps[i] = self.rows[self._names[i]].canon
+            out.canon_maps = maps
+        else:
+            out.canon_maps = prev.canon_maps
+        return out
+
+
 class SchedulerCache:
     def __init__(self, device_scheduler: Any) -> None:
         self.device_scheduler = device_scheduler
@@ -148,6 +532,9 @@ class SchedulerCache:
         self._gen: dict = {}            # node name -> generation
         self._snap: dict = {}           # node name -> (generation, NodeSnapshot)
         self.equivalence = EquivalenceCache()
+        # Struct-of-arrays fleet mirror for the vectorized scheduling
+        # core (scheduler/vectorized.py).
+        self.columns = _FleetColumns()
 
     # ---- generations / invalidation ----------------------------------------
 
@@ -158,6 +545,7 @@ class SchedulerCache:
         # fresh node retires nothing.
         self._gen[name] = self._gen.get(name, 0) + 1
         self._snap.pop(name, None)
+        self.columns.set_gen(name, self._gen[name])
         if record:
             metrics.FIT_CACHE_INVALIDATIONS.inc()
 
@@ -170,6 +558,7 @@ class SchedulerCache:
         for name in self.nodes:
             self._gen[name] = self._gen.get(name, 0) + 1
         self._snap.clear()
+        self.columns.bump_all_gens(self._gen)
         metrics.FIT_CACHE_INVALIDATIONS.inc(len(self.nodes))
 
     def node_generation(self, name: str) -> int:
@@ -205,6 +594,8 @@ class SchedulerCache:
             changed = old_labels is None or \
                 fingerprint != cached.fit_fingerprint
             cached.fit_fingerprint = fingerprint
+            if changed:
+                self.columns.set_node(cached)
             if not changed:
                 return
             if old_labels is None:
@@ -238,6 +629,7 @@ class SchedulerCache:
                     for aff in cached.pod_affinity.values())
                 self._required_anti_pods -= departed_anti
                 self.device_scheduler.remove_node(name)
+                self.columns.drop(name)
                 # the departed node's own generation must always move —
                 # it is no longer in self.nodes, so the all-flush below
                 # would skip it and a re-add could resume at a generation
@@ -319,6 +711,9 @@ class SchedulerCache:
                 self._affinity_pods += 1
                 self._required_anti_pods += required_anti
             cached.pod_namespaces[name] = meta.get("namespace") or "default"
+            cached.pod_priorities[name] = \
+                int((kube_pod.get("spec") or {}).get("priority") or 0)
+            cached.pod_chips[name] = _charged_chip_count(pod_info)
             self._charged.add(name)
         else:
             cached.pod_ports.pop(name, None)
@@ -328,7 +723,10 @@ class SchedulerCache:
                 self._affinity_pods -= 1
                 self._required_anti_pods -= required_anti
             cached.pod_namespaces.pop(name, None)
+            cached.pod_priorities.pop(name, None)
+            cached.pod_chips.pop(name, None)
             self._charged.discard(name)
+        self.columns.charge(cached)
         if required_anti:
             # A pod with REQUIRED anti-affinity changes predicate results
             # on every node sharing a topology domain — per-node
@@ -371,11 +769,14 @@ class SchedulerCache:
                 return None
             return NodeSnapshot(cached)
 
-    def cycle_snapshot(self) -> tuple:
-        """``(names, snapshots, generations)`` for one scheduling pass
-        under ONE lock acquisition — the per-pod-per-node
+    def cycle_snapshot(self, with_columns: bool = False) -> tuple:
+        """``(names, snapshots, generations[, columns])`` for one
+        scheduling pass under ONE lock acquisition — the per-pod-per-node
         ``snapshot_node`` storm was the hot loop's biggest fixed cost at
-        256 nodes.
+        256 nodes. ``with_columns`` additionally returns a
+        ``ColumnarView`` captured atomically with the snapshots and
+        generations, so the vectorized pass and
+        the object snapshots can never describe different states.
 
         Snapshots are generation-cached and SHARED across passes: a node
         whose generation has not moved hands out the same object it did
@@ -402,6 +803,8 @@ class SchedulerCache:
                     entry = (gen, NodeSnapshot(self.nodes[name]))
                     self._snap[name] = entry
                 snaps[name] = entry[1]
+            if with_columns:
+                return names, snaps, gens, self.columns.view(self.nodes)
             return names, snaps, gens
 
     def has_affinity_pods(self) -> bool:

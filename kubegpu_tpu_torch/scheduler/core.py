@@ -11,19 +11,26 @@ touch-points (§2.8), shaped like the modern scheduler-framework:
 Scheduling state is rebuilt from the API server on restart — the cache is
 disposable, annotations are the checkpoint (SURVEY.md §6).
 
-The port's copy of ``kubegpu_tpu/scheduler/core.py`` for NVIDIA cards. It
-runs the scalar path that the JAX engine keeps as its oracle
-(``KGTPU_VECTORIZE=0``, ``KGTPU_BATCH=0``): one pod a cycle, the predicate
-chain node by node. It differs from that engine where the JAX one counts
-TPU chips only: auto-topology pods (``alpha.gpu/gpu-generate-topology``)
-bypass the per-node caches, the room held for nominated preemptors counts
-``alpha.gpu/numgpu``, and gangs are planned host by host
-(``scheduler/gang.py``). A gang that does not fit stays buffered; there is
-no gang preemption.
+The port's copy of ``kubegpu_tpu/scheduler/core.py`` for NVIDIA cards, on
+the JAX engine's default path: one cycle drains the ready backlog and
+schedules it as one assignment problem (``scheduler/batch.py``), and the
+filter is one masked pass over the fleet's columns with one allocator
+search per canonical device shape (``scheduler/vectorized.py``).
+``KGTPU_BATCH=0`` and ``KGTPU_VECTORIZE=0`` keep the scalar path, one pod a
+cycle and the predicate chain node by node, which is the oracle: both
+paths place every pod alike. The engine differs from the JAX one where
+that counts TPU chips only: auto-topology pods
+(``alpha.gpu/gpu-generate-topology``) bypass the per-node caches and the
+masked pass, the room held for nominated preemptors, the batch ledger,
+the preemption prune and the fleet columns count ``alpha.gpu/numgpu`` and
+card leaves, GPU nodes have a canonical shape (their cards' UUIDs ranked),
+and gangs are planned host by host (``scheduler/gang.py``). A gang that
+does not fit stays buffered; there is no gang preemption.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import threading
@@ -35,8 +42,8 @@ from typing import Any, Callable, Iterable
 from kubegpu_tpu_torch import metrics, obs
 from kubegpu_tpu_torch.cluster.httpapi import Conflict, NotFound, QuotaExceeded
 from kubegpu_tpu_torch.core import codec, grammar
-from kubegpu_tpu_torch.scheduler import (factory, interpod, predicates,
-                                         priorities)
+from kubegpu_tpu_torch.scheduler import (batch, factory, interpod,
+                                         predicates, priorities, vectorized)
 from kubegpu_tpu_torch.scheduler.cache import SchedulerCache
 from kubegpu_tpu_torch.scheduler.equivalence import (devolumed_class,
                                                      equivalence_class)
@@ -86,6 +93,14 @@ class GenericScheduler:
         # a Policy file via `factory.algorithm_from_policy`) wins; else the
         # default provider with optional per-priority weight overrides.
         self.algorithm = algorithm or factory.default_algorithm(priority_weights)
+        # Vectorized scheduling core (scheduler/vectorized.py): one masked
+        # array pass per class replaces the per-node predicate loop when
+        # the algorithm is the default chain and the pod is array-eligible.
+        # None when KGTPU_VECTORIZE=0 — every consumer then takes the
+        # scalar path unchanged.
+        self.vector = vectorized.VectorizedFitPass(cache, device_scheduler) \
+            if vectorized.available() and self.algorithm.vector_predicates \
+            else None
         self._last_node_index = 0
         # Device-verdict shape cache: (node shape_key, pod device class) ->
         # (fits, reasons, score). A uniform 64-host fleet runs the grpalloc
@@ -174,8 +189,11 @@ class GenericScheduler:
             return (base if base.node_name == node_name else inv).clone()
         # exposed so the device-verdict cache can tell WHICH variant a
         # node evaluates: the pod's annotated node sees the pinned
-        # allocation, everyone else the invalidated one
+        # allocation, everyone else the invalidated one; the vectorized
+        # pass reads the invalidated PodInfo directly to derive the
+        # broadcastable demand class
         get.pinned_node = base.node_name
+        get.inv_info = inv
         return get
 
     # ---- nominated-node reservations --------------------------------------
@@ -557,15 +575,42 @@ class GenericScheduler:
         elif memo_ok:
             vol_split = devolumed_class(kube_pod)
         pod_info_get = self._pod_info_provider(kube_pod)
+        # A PVC pod's masked pass runs its DEVOLUMED sibling (verdicts
+        # are monotone in volumes); survivors owe the volume-reading
+        # predicates a scalar run against the real pod afterwards —
+        # exactly the devolumed-split contract the scalar path applies.
+        filter_pod = kube_pod if vol_split is None else vol_split[1]
         lookup_class = eq_class if eq_class is not None else \
             (vol_split[0] if vol_split is not None else None)
+        # The affinity pre-gate reads only a counter, not the metadata:
+        # when the cluster holds placed (anti-)affinity pods this pass
+        # ends scalar anyway (``meta`` below nulls the columns), so skip
+        # paying the columnar snapshot copy up front. The post-snapshot
+        # ``meta`` check stays authoritative — a stale False here just
+        # means one wasted column copy, never a wrong verdict.
+        want_vector = (
+            self.vector is not None and lookup_class is not None
+            and not interpod.pod_declares_interpod_affinity(kube_pod)
+            and not self.cache.has_affinity_pods()
+            and self.vector.pod_eligible(filter_pod, pod_info_get.inv_info))
         # Snapshots + generations BEFORE the metadata snapshot: a watcher
         # invalidation racing the metadata build must make the eventual
         # store() land under a never-served generation — a verdict
         # computed from pre-invalidation metadata stored under a
-        # post-invalidation generation would persist wrongly.
-        names, snaps, eq_gens = self.cache.cycle_snapshot()
+        # post-invalidation generation would persist wrongly. The
+        # columnar view rides the same lock acquisition so the masked
+        # pass and the object snapshots describe ONE state.
+        if want_vector:
+            names, snaps, eq_gens, cols = \
+                self.cache.cycle_snapshot(with_columns=True)
+        else:
+            names, snaps, eq_gens = self.cache.cycle_snapshot()
+            cols = None
         meta = self._interpod_meta(kube_pod)
+        if meta is not None:
+            # placed pods carry (anti-)affinity metadata: every node owes
+            # MatchInterPodAffinity an object-level run — scalar pass
+            cols = None
         device_class = self._device_class(kube_pod, auto_topology)
         # Nominations and memo hits resolve serially, up front: the
         # nominations in one lock pass, the memo in one `lookup_many` —
@@ -578,12 +623,49 @@ class GenericScheduler:
         nom_fps = {n: tuple(sorted(p["metadata"]["name"] for p in pods))
                    for n, pods in nom_by_node.items()}
         results: dict = {}
+        scalar_names = names
+        if cols is not None:
+            # ONE masked pass resolves every array-eligible node's
+            # verdict; the remainder (tainted / volume-carrying /
+            # nominated nodes) falls through to the scalar path below.
+            t0v = time.perf_counter()
+            results, scalar_names = self.vector.run_filter(
+                filter_pod, lookup_class, cols, snaps, nom_by_node,
+                pod_info_get)
+            if vol_split is not None:
+                # positive sibling verdicts: only the volume-reading
+                # predicates remain, run against the REAL pod (few
+                # survivors — the sibling pass pruned the fleet)
+                for n, r in results.items():
+                    if not r[0]:
+                        continue
+                    ctx = factory.PredicateContext(kube_pod, snaps[n],
+                                                   meta, vol)
+                    for _pname, pred in self._volume_predicates:
+                        ok, reasons = pred(ctx)
+                        if not ok:
+                            results[n] = (False, reasons, 0.0)
+                            break
+            metrics.FIT_VECTOR_PASS_MS.observe(
+                (time.perf_counter() - t0v) * 1e3)
+            metrics.FIT_VECTOR_NODES_PER_PASS.observe(
+                len(names) - len(scalar_names))
+            if scalar_names:
+                metrics.FIT_SCALAR_FALLBACK.inc(len(scalar_names))
+        elif self.vector is not None:
+            # the array machinery exists but this pod (or this pass's
+            # inter-pod metadata) needs object predicates: the whole
+            # fleet is a scalar fallback — visible in the rate
+            metrics.FIT_SCALAR_FALLBACK.inc(len(names))
         hits: dict = {}
-        if lookup_class is not None and names:
+        if lookup_class is not None and scalar_names:
             hits = self.cache.equivalence.lookup_many(
-                lookup_class, eq_gens, nom_fps)
+                lookup_class,
+                eq_gens if cols is None
+                else {n: eq_gens[n] for n in scalar_names},
+                nom_fps)
         pending = []
-        for n in names:
+        for n in scalar_names:
             hit = hits.get(n)
             if hit is not None and (vol_split is None or not hit[0]):
                 # a positive sibling verdict still owes the volume-
@@ -637,6 +719,22 @@ class GenericScheduler:
         ``snaps`` are the fit pass's shared cycle snapshots (read-only);
         a feasible node missing from them (direct callers) is snapshotted
         here."""
+        if meta is self._AUTO_META:
+            meta = self._interpod_meta(kube_pod)
+        if self.vector is not None and self.algorithm.vector_priorities \
+                and meta is None:
+            # every configured priority has an array kernel and no
+            # placed pod carries affinity metadata: score the survivors
+            # as column arithmetic (float-for-float the scalar combine)
+            scored = self.vector.run_scores(
+                kube_pod, feasible, snaps or {}, self.algorithm,
+                self._owner_selectors(kube_pod))
+            if scored is not None:
+                for ext in self.extenders:
+                    for name, score in ext.prioritize(
+                            kube_pod, sorted(scored)).items():
+                        scored[name] = scored.get(name, 0.0) + score
+                return scored
         pod_requests = _pod_core_requests(kube_pod)
         snaps = snaps or {}
         facts: dict = {}
@@ -821,7 +919,16 @@ class GenericScheduler:
         vol = self._volume_snapshot(kube_pod)
         pdb_state = self._pdb_state()
         pod_info_get = self._pod_info_provider(kube_pod)
-        names, cycle_snaps, gens = self.cache.cycle_snapshot()
+        want_vector = (
+            self.vector is not None and meta is None and vol is None
+            and not self._requests_auto_topology(kube_pod)
+            and self.vector.pod_eligible(kube_pod, pod_info_get.inv_info))
+        if want_vector:
+            names, cycle_snaps, gens, cols = \
+                self.cache.cycle_snapshot(with_columns=True)
+        else:
+            names, cycle_snaps, gens = self.cache.cycle_snapshot()
+            cols = None
         if failures is None:
             # Direct call without a fit pass: the memo's stored negatives
             # stand in for one — a node whose cached verdict failed on an
@@ -871,7 +978,21 @@ class GenericScheduler:
             return any(_pod_priority(pods_by_name[p]) < prio
                        for p in snap.pod_names if p in pods_by_name)
 
-        names = [n for n in names if _has_evictable(n)]
+        if cols is not None:
+            # Columnar twin of the per-pod loop: the min bound-pod
+            # priority column answers "anything evictable here?" in one
+            # compare per node. Assumed pods widen the column's min, so
+            # this prune only KEEPS extra nodes (the simulation still
+            # decides) — it can never drop a node the loop would keep.
+            def _has_evictable_fast(node_name: str) -> bool:
+                i = cols.idx.get(node_name)
+                if i is None:
+                    return _has_evictable(node_name)
+                return bool(cols.min_pod_priority[i] < prio)
+
+            names = [n for n in names if _has_evictable_fast(n)]
+        else:
+            names = [n for n in names if _has_evictable(n)]
         device_class = self._device_class(kube_pod)
         # One PodInfo decode per victim candidate per PASS: the
         # simulation charges each victim up to three times per node
@@ -889,6 +1010,38 @@ class GenericScheduler:
                 info_cache[pod_name] = info
             return info
 
+        fast = vectorized.FastPreemptFit(self.vector, kube_pod,
+                                         pod_info_get, cols) \
+            if cols is not None else None
+        # Canonical-simulation memo (fast path only): nodes whose
+        # (device shape, usage, core state, ordered victim roster)
+        # fingerprints match run isomorphic simulations, so one
+        # representative's victim indices + violation count stand for
+        # the whole group — the uniform-fleet victim scan collapses to
+        # one simulation plus fingerprint computation per node.
+        sim_memo: dict | None = {} if fast is not None else None
+        if fast is not None:
+            # card-capacity prune off the columns: a node whose free +
+            # evictable cards cannot cover the demand fails phase 1 of
+            # the simulation by construction — skip it before paying a
+            # private snapshot + full evict-and-reprieve
+            names = [n for n in names
+                     if cycle_snaps.get(n) is None
+                     or fast.might_fit_after_full_eviction(
+                         n, prio, pods_by_name, cycle_snaps[n])]
+        if fast is not None and names:
+            cidx, tnt, vh = cols.idx, cols.tainted, cols.vol_heavy
+            n_fast = sum(1 for n in names
+                         if (i := cidx.get(n)) is not None
+                         and not tnt[i] and not vh[i])
+            if n_fast * 2 < len(names):
+                # Mostly off-columns nodes (tainted / volume-carrying):
+                # the canonical-shape memo can't collapse this scan, and
+                # the serial dispatch below would forfeit the 16-way
+                # pool for nothing — run the scalar parallel path.
+                fast = None
+                sim_memo = None
+
         def eval_node(node_name: str) -> tuple | None:
             snap = self.cache.snapshot_node(node_name)
             if snap is None:
@@ -896,7 +1049,7 @@ class GenericScheduler:
             found = self._victims_on_node(kube_pod, snap, prio, meta,
                                           pdb_state, pods_by_name,
                                           pod_info_get, vol, device_class,
-                                          info_of)
+                                          fast, sim_memo, info_of)
             if found is None:
                 return None
             victims, violations = found
@@ -909,8 +1062,15 @@ class GenericScheduler:
         # Victim search parallelized over nodes with the fit pool — each
         # worker simulates on its own snapshot (the reference runs this
         # 16-way too). min() over keys keeps selection deterministic.
-        results = [r for r in self._parallel_map(eval_node, names)
-                   if r is not None]
+        # With the vectorized fast fit active the scan runs serially: its
+        # canonical-shape verdict memo is scheduling-thread-owned, and on
+        # a uniform fleet the memo collapses the whole scan to a handful
+        # of allocator searches — cheaper than any pool dispatch.
+        if fast is not None:
+            results = [r for r in map(eval_node, names) if r is not None]
+        else:
+            results = [r for r in self._parallel_map(eval_node, names)
+                       if r is not None]
         if not results:
             return None
         return min(results, key=lambda r: r[0])[1]
@@ -993,7 +1153,8 @@ class GenericScheduler:
     def _fits_after_evictions(self, kube_pod: dict, snap: Any,
                               meta: Any, evicted: set,
                               pod_info_get: Any = None, vol: Any = None,
-                              device_class: Any = None) -> bool:
+                              device_class: Any = None,
+                              fast: Any = None) -> bool:
         """Full predicate chain against the mutated snapshot — taints,
         selectors, volume conflicts, inter-pod terms AND device fit — the
         reference's podFitsOnNode during preemption. A node where only
@@ -1005,6 +1166,13 @@ class GenericScheduler:
         repeat across nodes, so the grpalloc search runs once per unique
         (shape, demand) instead of ~2x per candidate per node — this is
         what holds preemption p50 flat at cluster scale."""
+        if fast is not None:
+            # vectorized evict-and-reprieve fit: columns for the
+            # eviction-invariant gates, the canonical-shape memo for the
+            # device search. None = this node needs the scalar chain.
+            verdict = fast.fits(snap)
+            if verdict is not None:
+                return verdict
         sim_meta = meta
         if meta is not None and evicted:
             sim_meta = interpod.InterPodMetadata(
@@ -1021,6 +1189,7 @@ class GenericScheduler:
                          pods_by_name: dict | None = None,
                          pod_info_get: Any = None, vol: Any = None,
                          device_class: Any = None,
+                         fast: Any = None, sim_memo: dict | None = None,
                          info_of: Any = None) -> tuple | None:
         pod_host_ports = predicates.pod_host_ports
         pod_volumes = predicates.pod_volumes
@@ -1044,7 +1213,9 @@ class GenericScheduler:
                 candidates.append(p)
         if not candidates:
             return None
-        # Reprieve processing order is pure over (candidates, pdb_state).
+        # Reprieve processing order is pure over (candidates, pdb_state)
+        # — computed up front so the canonical-simulation memo can key
+        # and replay it before any charge is paid.
         violating, non_violating = self._split_by_pdb_violation(
             candidates, pdb_state or [])
         violating_names = {p["metadata"]["name"] for p in violating}
@@ -1054,6 +1225,16 @@ class GenericScheduler:
         nominated = self._nominated_pods_on(snap.name,
                                             exclude=preemptor_name,
                                             min_priority=prio)
+        memo_key = None
+        if fast is not None and sim_memo is not None and \
+                info_of is not None and not nominated:
+            memo_key = fast.sim_key(snap, order, pdb_state or [], info_of)
+            if memo_key is not None and memo_key in sim_memo:
+                hit = sim_memo[memo_key]
+                if hit is None:
+                    return None
+                victim_idx, violations = hit
+                return [order[i] for i in victim_idx], violations
         evicted: set = set()
 
         def charge(pod: dict, sign: int) -> None:
@@ -1094,7 +1275,10 @@ class GenericScheduler:
         if nominated:
             self._charge_nominated(nominated, snap)
         if not self._fits_after_evictions(kube_pod, snap, meta, evicted,
-                                          pod_info_get, vol, device_class):
+                                          pod_info_get, vol, device_class,
+                                          fast):
+            if memo_key is not None:
+                sim_memo[memo_key] = None
             return None
         # Phase 2: reprieve — PDB-violating candidates FIRST (so they're
         # kept whenever possible, minimizing violations), then the rest;
@@ -1105,14 +1289,23 @@ class GenericScheduler:
         for pod in order:
             charge(pod, +1)
             if self._fits_after_evictions(kube_pod, snap, meta, evicted,
-                                          pod_info_get, vol, device_class):
+                                          pod_info_get, vol, device_class,
+                                          fast):
                 continue  # reprieved
             charge(pod, -1)
             victims.append(pod)
         if not victims:
+            if memo_key is not None:
+                sim_memo[memo_key] = None
             return None
         violations = sum(1 for v in victims
                          if v["metadata"]["name"] in violating_names)
+        if memo_key is not None:
+            victim_names = {v["metadata"]["name"] for v in victims}
+            sim_memo[memo_key] = (
+                tuple(i for i, p in enumerate(order)
+                      if p["metadata"]["name"] in victim_names),
+                violations)
         return victims, violations
 
 
@@ -1318,6 +1511,13 @@ class Scheduler:
         # concurrently with the drainer
         self._throughput_lock = threading.Lock()
         self._bound_window: deque = deque()
+        # Whole-backlog batch scheduling (scheduler/batch.py): one pass
+        # drains the ready backlog and schedules it as one assignment
+        # problem — one fleet filter/score pass per equivalence class,
+        # single-node refits per award. Captured once at construction;
+        # KGTPU_BATCH=0 keeps the pod-at-a-time loop as oracle/fallback
+        # (the KGTPU_VECTORIZE=0 discipline).
+        self._batch = batch.enabled()
         self._stop = threading.Event()
         # A transport exposing batched watch delivery (HTTPAPIClient)
         # gets the whole batch applied under one cache lock; the
@@ -1633,8 +1833,17 @@ class Scheduler:
     # ---- the loop (`scheduler.go:439-502`) ---------------------------------
 
     def schedule_one(self, timeout: float = 0.0) -> bool:
-        """One pass: pop one pod and schedule it; returns False when the
-        queue stayed empty."""
+        """One pass; returns False when the queue stayed empty. With
+        batch scheduling on (the default; ``KGTPU_BATCH=0`` reverts to
+        the pod-at-a-time oracle) one pass drains the whole ready
+        backlog and schedules it as one assignment problem."""
+        if self._batch:
+            pods = self.queue.pop_many(batch.MAX_BATCH_PODS,
+                                       timeout=timeout)
+            if not pods:
+                return False
+            self._schedule_backlog(pods)
+            return True
         kube_pod = self.queue.pop(timeout=timeout)
         if kube_pod is None:
             return False
@@ -1643,8 +1852,126 @@ class Scheduler:
             self._schedule_admitted(kube_pod)
         return True
 
+    def _schedule_backlog(self, pods: list) -> None:
+        """One batch cycle: intake every popped pod (shard/freshness/
+        gang/quota — identical per-pod treatment to the serial loop),
+        group the admitted remainder by batch class, then award hosts
+        in the exact pop order the serial loop would have used. Each
+        class pays ONE fleet filter/score pass (its first member's);
+        every award dirties the awarded host in all live class passes
+        and charges the cycle's capacity ledger, so the next pick sees
+        it — a refit of one node, not a pass over the fleet."""
+        self.cache.expire_assumed()
+        if len(pods) == 1:
+            # trickle shape: a single-pod cycle can share nothing, so
+            # skip class grouping (and its content hash) entirely and
+            # take the serial tail verbatim — the batch path costs
+            # nothing when the queue never builds a backlog
+            admitted = self._prepare_backlog_pod(pods[0])
+            if admitted is not None:
+                metrics.SCHED_BATCH_SIZE.observe(1)
+                metrics.SCHED_BATCH_CLASSES.observe(1)
+                self._schedule_admitted(admitted)
+            return
+        ledger = batch.CapacityLedger()
+        passes: dict = {}  # class key -> ClassPass | None (None: serial)
+        counted: set = set()
+        n_scheduled = 0
+        n_classes = 0
+        for popped in pods:
+            # intake AND scheduling run per pod in pop order — a gang
+            # that completes during a later pod's intake must see every
+            # earlier pod's award, exactly as the serial loop's
+            # pop/schedule interleaving would have shown it
+            kube_pod = self._prepare_backlog_pod(popped)
+            if kube_pod is None:
+                if passes and gang_key(popped) is not None:
+                    # the pod routed to the gang handler, which may have
+                    # just committed a whole gang: node state moved under
+                    # every open class pass, so drop the cycle's shared
+                    # state and let later pods re-open against fresh truth
+                    passes.clear()
+                    ledger = batch.CapacityLedger()
+                continue
+            n_scheduled += 1
+            key = batch.batch_class(self.generic, kube_pod)
+            cp = None
+            opened = False
+            if key is None:
+                n_classes += 1
+            else:
+                if key not in counted:
+                    counted.add(key)
+                    n_classes += 1
+                if key in passes:
+                    cp = passes[key]
+                    if cp is not None:
+                        # class-pass reuse IS the equivalence cache
+                        # working: every node served without a recompute
+                        # folds into the fit-memo effectiveness counters
+                        # (the refit lookups account for themselves)
+                        self.cache.equivalence.record(
+                            max(len(cp.feasible) + len(cp.failures)
+                                - len(cp.dirty), 0), 0)
+                else:
+                    with self._batch_filter(kube_pod):
+                        cp = batch.open_class_pass(self.generic, key,
+                                                   kube_pod)
+                    passes[key] = cp
+                    opened = True
+            if cp is None:
+                # unbatchable pod (volumes, affinity, gang leftovers,
+                # extenders...) — the serial path IS the batch fallback
+                host = self._schedule_admitted(kube_pod)
+                chips, core = self._pod_demand(kube_pod)
+            else:
+                if not opened:
+                    # a fresh pass has no dirty host to refit
+                    with self._batch_filter(kube_pod):
+                        batch.refresh_class_pass(self.generic, cp, ledger)
+                host = self._schedule_admitted(kube_pod, cp)
+                chips, core = cp.chips, cp.core_requests
+            if host is None:
+                continue
+            # ledger balances must never UNDERestimate remaining
+            # capacity (covers() prunes without a refit): the first
+            # award on a node seeds from its post-award snapshot — the
+            # award is already subtracted there — later ones decrement
+            ledger.note_award(host, self.cache.snapshot_node(host),
+                              chips, core)
+            for other in passes.values():
+                if other is not None:
+                    other.dirty.add(host)
+        if n_scheduled:
+            metrics.SCHED_BATCH_SIZE.observe(n_scheduled)
+            metrics.SCHED_BATCH_CLASSES.observe(n_classes)
+
+    @contextlib.contextmanager
+    def _batch_filter(self, kube_pod: dict):
+        """The filter phase of a batched pod — its class's shared pass
+        opened, or the hosts earlier awards dirtied refitted — traced and
+        observed as the serial path's ``filter`` phase is."""
+        with obs.span("filter", pod=kube_pod["metadata"]["name"],
+                      proc=self.obs_name, batched=True) as sp:
+            yield sp
+        metrics.SCHED_PHASE_MS.labels("filter").observe(sp.dur_s * 1e3)
+
+    def _pod_demand(self, kube_pod: dict) -> tuple:
+        """(cards, core requests) a placed pod consumes, for the batch
+        ledger. The card demand may UNDERcount for exotic request shapes
+        (absolute device paths) — an undercharge only ever costs an
+        extra refit, never a wrong prune."""
+        try:
+            info = codec.kube_pod_to_pod_info(kube_pod,
+                                              invalidate_existing=True)
+            chips = batch.pod_chip_demand(info)
+        except Exception:
+            chips = 0
+        return chips, _pod_core_requests(kube_pod)
+
     def _prepare_backlog_pod(self, kube_pod: dict) -> dict | None:
-        """Per-pod intake: shard ownership, informer-mirror freshness, gang
+        """Per-pod intake, shared verbatim by the serial loop and the
+        batch cycle: shard ownership, informer-mirror freshness, gang
         routing, and the DRF quota gate. Returns the fresh, admitted
         pod ready for a scheduling cycle — or None when the pod was
         fully handled here (parked, gang-buffered, deleted, already
@@ -1688,17 +2015,36 @@ class Scheduler:
             return None  # over fair share: parked in the gate
         return kube_pod
 
-    def _schedule_admitted(self, kube_pod: dict) -> str | None:
+    def _schedule_admitted(self, kube_pod: dict,
+                           cp: Any = None) -> str | None:
         """One scheduling cycle for an admitted pod: pick a host, assume
-        volumes, allocate devices, assume, bind. Returns the host on a
-        successful award (reached assume+bind), else None."""
+        volumes, allocate devices, assume, bind. ``cp`` is the pod's
+        shared batch ClassPass — the host then comes from the class's
+        score table (``batch.pick_host``) instead of a fresh fleet pass;
+        every error path is the serial one, shared verbatim. Returns the
+        host on a successful award (reached assume+bind), else None."""
         name = kube_pod["metadata"]["name"]
         metrics.SCHEDULE_ATTEMPTS.inc()
         t0 = time.perf_counter()
-        self.cache.expire_assumed()
+        if cp is None:
+            self.cache.expire_assumed()
         with obs.span("schedule_cycle", pod=name, proc=self.obs_name) as cyc:
             try:
-                host = self.generic.schedule(kube_pod)
+                if cp is None:
+                    host = self.generic.schedule(kube_pod)
+                else:
+                    with obs.span("schedule", pod=name, proc=self.obs_name,
+                                  batched=True) as alg:
+                        host = batch.pick_host(self.generic, cp)
+                        alg.attrs["host"] = host
+                    if host is None:
+                        # the class's table holds no host for this pod,
+                        # but its failure map cannot name why: a host the
+                        # ledger pruned or a refit refused since the pass
+                        # opened left no reason. The serial pass raises
+                        # the oracle's FitError, every node's reasons in
+                        # it, which the event and preemption read.
+                        host = self.generic.schedule(kube_pod)
                 if not self._assume_volumes(kube_pod, host):
                     # volume state moved between the fit pass and host
                     # selection (another pod grabbed the PV): requeue, the

@@ -131,7 +131,8 @@ class EquivalenceCache:
         ``nom_fps``, default ``()``). Per-node lookups from 16 parallel
         fit workers convoyed on this lock; the pass now resolves every
         hit serially — plain dict gets — and dispatches only the misses.
-        ``record=False`` peeks without hit/miss accounting."""
+        ``record=False`` peeks without hit/miss accounting (the
+        vectorized pass does its own, folding mask-memo reuse in)."""
         out: dict = {}
         with self._lock:
             for node_name, gen in gens.items():
@@ -148,6 +149,34 @@ class EquivalenceCache:
             if len(gens) > len(out):
                 metrics.FIT_CACHE_MISSES.inc(len(gens) - len(out))
         return out
+
+    def record(self, hits: int, misses: int) -> None:
+        """Fold externally-resolved lookups into the hit/miss accounting
+        — the vectorized pass serves most verdicts from its generation-
+        vector mask memo and reports them here so the fit-memo
+        effectiveness counters keep describing the WHOLE filter path."""
+        with self._lock:
+            self.hits += hits
+            self.misses += misses
+        if hits:
+            metrics.FIT_CACHE_HITS.inc(hits)
+        if misses:
+            metrics.FIT_CACHE_MISSES.inc(misses)
+
+    def store_many(self, eq_class: str, results: dict, gens: dict,
+                   nom_fp: tuple = ()) -> None:
+        """Batch store under ONE lock acquisition: ``results`` maps node
+        -> verdict, ``gens`` node -> the generation it was computed
+        against. Same monotonic-generation guard as ``store``."""
+        with self._lock:
+            for node_name, result in results.items():
+                classes = self._by_node.setdefault(node_name, {})
+                existing = classes.get((eq_class, nom_fp))
+                if existing is not None and existing[0] > gens[node_name]:
+                    continue
+                if len(classes) >= MAX_CLASSES_PER_NODE:
+                    classes.pop(next(iter(classes)))
+                classes[(eq_class, nom_fp)] = (gens[node_name], result)
 
     def store(self, node_name: str, eq_class: str, generation: int,
               result, nom_fp: tuple = ()) -> None:

@@ -59,6 +59,15 @@ class AlgorithmConfig:
         self.priorities = priorities_list
         self.device_weight = device_weight
         self.hard_pod_affinity_weight = hard_pod_affinity_weight
+        # Vector-safety marks (set by the factory functions): the masked
+        # pass in scheduler/vectorized.py hard-codes the DEFAULT
+        # predicate chain's semantics, so only an algorithm using
+        # exactly that chain (unparameterized) may vectorize its filter;
+        # priorities vectorize when every configured name has an array
+        # kernel. A policy-composed algorithm defaults to scalar — the
+        # sound choice for predicate sets the kernels don't model.
+        self.vector_predicates = False
+        self.vector_priorities = False
 
 
 # ---- fit predicate registry -------------------------------------------------
@@ -98,20 +107,24 @@ def _declare(*reads):
     return wrap
 
 
+# vector-gate: pod_eligible routes nodeName-pinned pods to the scalar chain
 def _p_host(args):
     return lambda ctx: predicates.pod_fits_host(ctx.kube_pod, ctx.snap.kube_node)
 
 
+# vector-gate: pod_eligible routes nodeSelector/required-affinity pods to the scalar chain
 def _p_selector(args):
     return lambda ctx: predicates.pod_matches_node_selector(
         ctx.kube_pod, ctx.snap.kube_node)
 
 
+# vector-gate: pod_eligible routes hostPort-requesting pods to the scalar chain
 def _p_ports(args):
     return lambda ctx: predicates.pod_fits_host_ports(
         ctx.kube_pod, ctx.snap.used_ports)
 
 
+# vector-gate: the tainted column drops NoSchedule/NoExecute nodes out of the mask
 def _p_taints(args):
     return lambda ctx: predicates.pod_tolerates_node_taints(
         ctx.kube_pod, ctx.snap.kube_node)
@@ -164,11 +177,13 @@ def _p_resources(args):
         ctx.kube_pod, ctx.snap.core_allocatable, ctx.snap.requested_core)
 
 
+# vector-gate: the vol_heavy column drops nodes with placed pod volumes; pod_eligible routes volume-carrying pods scalar
 def _p_disk_conflict(args):
     return lambda ctx: predicates.no_disk_conflict(
         ctx.kube_pod, ctx.snap.pod_volumes)
 
 
+# vector-gate: vol_heavy column + pod_eligible volume gate (see _p_disk_conflict)
 def _p_max_volumes(kind: str, default_cap: int):
     def build(args):
         cap = int((args or {}).get("maxVolumes") or default_cap)
@@ -178,11 +193,13 @@ def _p_max_volumes(kind: str, default_cap: int):
     return build
 
 
+# vector-gate: pod_eligible routes volume-carrying pods to the scalar chain
 def _p_volume_zone(args):
     return lambda ctx: predicates.no_volume_zone_conflict(
         ctx.kube_pod, ctx.snap.kube_node)
 
 
+# vector-gate: the devolumed-sibling split runs the masked pass volume-free; survivors pay the volume predicates scalar
 def _p_volume_binding(args):
     """CheckVolumeBinding (`predicates.go:1443-1465`): bound PVCs' PVs must
     tolerate the node; unbound PVCs must have a matchable available PV.
@@ -205,6 +222,7 @@ def _p_general(args):
         ctx.snap.core_allocatable, ctx.snap.requested_core)
 
 
+# vector-gate: find_nodes_that_fit nulls the columns whenever inter-pod metadata exists (meta is not None => scalar pass)
 def _p_interpod(args):
     def fn(ctx):
         if ctx.meta is None:
@@ -446,8 +464,9 @@ def default_algorithm(priority_weights: dict | None = None) -> AlgorithmConfig:
     if priority_weights is None:
         prios = [(name, weight, PRIORITIES[name](None))
                  for name, weight in DEFAULT_PRIORITIES]
-        return AlgorithmConfig(preds, prios,
-                               device_weight=DEFAULT_DEVICE_WEIGHT)
+        return _mark_vector_safe(
+            AlgorithmConfig(preds, prios,
+                            device_weight=DEFAULT_DEVICE_WEIGHT))
     device_weight = 0.0
     prios = []
     for key in sorted(priority_weights):
@@ -458,7 +477,21 @@ def default_algorithm(priority_weights: dict | None = None) -> AlgorithmConfig:
         name = PRIORITY_ALIASES.get(key, key)
         if weight and name in PRIORITIES:
             prios.append((name, weight, PRIORITIES[name](None)))
-    return AlgorithmConfig(preds, prios, device_weight=device_weight)
+    return _mark_vector_safe(
+        AlgorithmConfig(preds, prios, device_weight=device_weight))
+
+
+def _mark_vector_safe(algo: AlgorithmConfig) -> AlgorithmConfig:
+    """Set the vector-safety marks for an algorithm built from the
+    DEFAULT predicate chain: the masked filter models exactly that
+    chain; priorities vectorize iff every name has an array kernel."""
+    from kubegpu_tpu_torch.scheduler.vectorized import VECTOR_SCORABLE_PRIORITIES
+
+    algo.vector_predicates = True
+    algo.vector_priorities = all(
+        name in VECTOR_SCORABLE_PRIORITIES
+        for name, _weight, _fn in algo.priorities)
+    return algo
 
 
 class PolicyError(ValueError):
@@ -474,7 +507,7 @@ def cluster_autoscaler_algorithm() -> AlgorithmConfig:
         ("MostRequestedPriority", w, PRIORITIES["MostRequestedPriority"](None))
         if name == "LeastRequestedPriority" else (name, w, fn)
         for name, w, fn in algo.priorities]
-    return algo
+    return _mark_vector_safe(algo)
 
 
 ALGORITHM_PROVIDERS = {

@@ -215,7 +215,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "scheduler.cache", "scheduler.factory",
                  "scheduler.registry", "scheduler.gang", "scheduler.core",
                  "cluster.lease", "obs.flight", "obs.profile",
-                 "obs.timeseries", "obs.validate", "cmd.scheduler_main"):
+                 "obs.timeseries", "obs.validate", "cmd.scheduler_main",
+                 "scheduler.lifecycle", "scheduler.vectorized",
+                 "scheduler.batch"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

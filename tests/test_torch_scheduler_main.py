@@ -6,7 +6,9 @@ a seeded stream exactly as the port's engine in process does
 binary with the port's plugin leaves it buffered, refuses a TPU pod with an
 event, fails over under ``--leader-elect``, serves ``/debug/pod/<name>``,
 runs its profiler and metrics time-series, writes one flight dump for a
-conflict streak, and refuses the flags of later ROADMAP items. Two engines
+conflict streak, runs the node lifecycle controller (a node whose
+heartbeat stops loses its pod, which the binary binds elsewhere), and
+refuses the flags of later ROADMAP items. Two engines
 behind their shard coordinators, in process, split the work of two
 shards with every pod bound once."""
 
@@ -485,8 +487,12 @@ def test_sharded_replicas_bind_every_pod_once():
             for name in names:
                 api.create_pod(ts.pod(name, 1))
             names += ["g-0", "g-1"]
-            _wait(lambda: all(_bound(api, n) for n in names), timeout=30,
-                  what="every pod bound")
+            # a replica records its commit when the bind's reply is back,
+            # a moment after the bind reaches the server
+            _wait(lambda: all(_bound(api, n) for n in names) and
+                  set(names) <= set(reps[0]["committed"]) |
+                  set(reps[1]["committed"]), timeout=30,
+                  what="every pod bound and its commit recorded")
             assert all(len(binds[n]) == 1 for n in names)
             cards = []
             for n in names:
@@ -587,13 +593,10 @@ def test_a_conflict_streak_writes_one_flight_dump(tmp_path):
 
 
 @pytest.mark.parametrize("args,config,item", [
-    (("--node-grace-s", "5"), None, "10.2"),
-    (("--node-stale-s", "2"), None, "10.2"),
     (("--tenant-quota",), None, "10.5"),
     (("--repair",), None, "10.6"),
     ((), {"extenders": [{"urlPrefix": "http://127.0.0.1:1"}]}, "10.6"),
     ((), {"policy": {"extenders": [{"urlPrefix": "http://x"}]}}, "10.6"),
-    ((), {"node_grace_s": 5}, "10.2"),
     (("--replicas", "2", "--shard", "1"), None, "10.7"),
     ((), {"replicas": 3}, "10.7")])
 def test_flags_of_later_items_refuse_to_start(tmp_path, args, config, item):
@@ -608,6 +611,98 @@ def test_flags_of_later_items_refuse_to_start(tmp_path, args, config, item):
     assert r.returncode != 0
     assert "NotImplementedError" in r.stderr
     assert f"ROADMAP Queue 1, item {item}" in r.stderr
+
+
+@pytest.mark.parametrize("args,config,controller", [
+    (("--node-grace-s", "5"), None, True),
+    (("--node-stale-s", "2"), None, False),
+    ((), {"node_grace_s": 5}, True)])
+def test_the_node_lifecycle_flags_start_the_binary(tmp_path, args, config,
+                                                   controller):
+    """``--node-grace-s`` above 0 (on the command line or from the config
+    file) starts the binary with its lifecycle elector, which takes the
+    lifecycle lease and counts the Ready nodes; ``--node-stale-s`` alone
+    leaves the grace at 0, so there is no controller (the JAX binary's
+    rule)."""
+    if config is not None:
+        path = tmp_path / "config.json"
+        path.write_text(json.dumps(config))
+        args = (*args, "--config", str(path))
+    with served(fake.hgx_h100_inventory(), fake.pcie_h100_inventory()) as \
+            (api, url):
+        binary = Binary(url, tmp_path, *args)
+        try:
+            assert binary.said("scheduler running")
+            if controller:
+                _wait(lambda: api.lease_holder(lease.LIFECYCLE_LEASE),
+                      what="the lifecycle lease")
+                _wait(lambda: binary.metric("scheduler_node_ready") == 2,
+                      what="two Ready nodes")
+            else:
+                api.create_pod(ts.pod("p", 1))
+                _wait(lambda: _bound(api, "p"), what="the pod")
+                assert api.lease_holder(lease.LIFECYCLE_LEASE) is None
+                assert binary.metric("scheduler_node_ready") == 0
+        finally:
+            assert binary.stop() == 0, binary.stderr()
+        if controller:
+            # a clean stop hands the lease back
+            assert api.lease_holder(lease.LIFECYCLE_LEASE) is None
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_a_node_whose_heartbeat_stops_loses_its_pod_to_another_node(
+        tmp_path, wire):
+    """Two hosts advertise; the binary binds an 8-card pod, then the
+    pod's host stops stamping its heartbeat. The controller marks it
+    Stale, then Lost, deletes the node, evicts the pod and requeues a copy
+    without its cards, which the binary binds on the live host."""
+    api = InMemoryAPIServer()
+    hosts = {f"host{i}": GPUHost(api, f"host{i}", inv) for i, inv in
+             enumerate((fake.hgx_h100_inventory(0),
+                        fake.hgx_h100_inventory(1)))}
+    alive = set(hosts)
+    stop = threading.Event()
+
+    def beat():
+        while not stop.is_set():
+            for name in sorted(alive):
+                hosts[name].advertiser.advertise_once()
+            stop.wait(0.1)
+
+    beater = threading.Thread(target=beat, daemon=True)
+    beater.start()
+    try:
+        with served(api=api) as (api, url):
+            binary = Binary(url, tmp_path, "--wire", wire, "--node-grace-s",
+                            "1.5", "--node-stale-s", "0.5")
+            try:
+                api.create_pod(ts.pod("p", 8))
+                first = _wait(lambda: _bound(api, "p"), what="the pod")
+                _, cards = ts.placement(api, "p")
+                alive.discard(first)
+                other = next(n for n in hosts if n != first)
+                # placement() answers None while the pod is evicted and
+                # not yet requeued
+                _wait(lambda: (ts.placement(api, "p") or (None,))[0] ==
+                      other, timeout=20, what="the pod rebound on the live "
+                      "host")
+                _, moved = ts.placement(api, "p")
+                assert set(moved["main"].values()).isdisjoint(
+                    cards["main"].values())
+                assert first not in {n["metadata"]["name"]
+                                     for n in api.list_nodes()}
+                reasons = {e["reason"] for e in api.list_events(first)}
+                assert {"NodeLost"} <= reasons, reasons
+                assert any(e["reason"] == "Evicted"
+                           for e in api.list_events("p"))
+                assert binary.metric("scheduler_node_lost_total") == 1
+                assert binary.metric("scheduler_evictions_total") == 1
+            finally:
+                assert binary.stop() == 0, binary.stderr()
+    finally:
+        stop.set()
+        beater.join()
 
 
 def test_the_config_file_fills_in_what_the_command_line_leaves(tmp_path):

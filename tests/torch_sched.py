@@ -4,10 +4,12 @@ by the port's engine (`kubegpu_tpu_torch.scheduler.core.Scheduler` over
 `build_device_scheduler`) or by the JAX engine with the port's plugin
 file (the `make_cluster` pattern of tests/test_torch_gpu_e2e.py).
 
-The JAX engine runs its scalar path (``KGTPU_VECTORIZE=0``,
-``KGTPU_BATCH=0``), the one the port copies. The port's engine catches
-the port's typed API errors, so it sees the in-memory server through
-`PortAPI`, which re-raises the JAX server's errors as the port's."""
+By default the JAX engine runs its scalar path (``KGTPU_VECTORIZE=0``,
+``KGTPU_BATCH=0``) and the port's engine its default path (batch cycle
+and masked pass on); ``path=`` picks either for either engine. The port's
+engine catches the port's typed API errors, so it sees the in-memory
+server through `PortAPI`, which re-raises the JAX server's errors as the
+port's."""
 
 from __future__ import annotations
 
@@ -53,18 +55,25 @@ class PortAPI:
         return call
 
 
-def cluster(engine: str, *inventories, tweak=None, monkeypatch=None):
+def cluster(engine: str, *inventories, tweak=None, monkeypatch=None,
+            path: str | None = None):
     """``(api, hosts, scheduler)``: one `GPUHost` per inventory
     (``host0``, ``host1``, ...), ``tweak(api, hosts)`` applied to the
-    cluster before the engine starts, then the engine."""
+    cluster before the engine starts, then the engine on ``path``
+    (``"scalar"`` or ``"default"``; the JAX engine's is scalar unless
+    asked, the port's default). Without ``monkeypatch`` the port's engine
+    takes the path the environment gives it."""
     api = InMemoryAPIServer()
     hosts = {f"host{i}": GPUHost(api, f"host{i}", inv)
              for i, inv in enumerate(inventories)}
     if tweak is not None:
         tweak(api, hosts)
+    path = path or ("scalar" if engine == "jax" else "default")
+    if monkeypatch is not None:
+        switch = "1" if path == "default" else "0"
+        monkeypatch.setenv("KGTPU_VECTORIZE", switch)
+        monkeypatch.setenv("KGTPU_BATCH", switch)
     if engine == "jax":
-        monkeypatch.setenv("KGTPU_VECTORIZE", "0")
-        monkeypatch.setenv("KGTPU_BATCH", "0")
         ds = JaxRegistry()
         ds.add_device(TPUScheduler())
         assert ds.add_devices_from_plugins(SCHEDULER_PLUGINS) == 1
