@@ -192,7 +192,17 @@ T = 2048, no remat), random weights from a seed:
    (2000 cards) created before the first pass onto 1024 HGX hosts (8192
    cards): every pod bound on the default path, its seconds and pods/s,
    the oracle's pods/s over what it binds in 30 s, and the allocator
-   searches a bound pod on each path (counted at ``pod_fits_device``);
+   searches a bound pod on each path (counted at ``pod_fits_device``).
+   Then two legs, each printing its own line: gang preemption (16 HGX
+   hosts full of 1-card pods, priority 10 but on 4 hosts priority 0, one
+   of those under a PDB allowing no disruption; a gang of 3 x 8 cards at
+   priority 5 evicts the 24 pods of the 3 unguarded hosts and binds
+   there: the ``gang_preempt`` span's ms, sets tried, plans and victims,
+   and first eviction to the gang bound), and the tenant quota gate (64
+   HGX hosts, weights a:b = 2:1, 400 one-card pods of each tenant before
+   the first pass: a binds 341 cards and b 170, the seconds to that state
+   and ``quota_parked_total``; the 256-pod stream of one tenant with the
+   gate on and off, equal placements and each one's p50);
    scheduler_binary: ``kgtpu-gpu-scheduler`` over a stub API server: two
    ``--leader-elect`` binaries, the leader binds the node agent's pod,
    which trains 3 steps (18 sm90 launches of each kernel), the standby
@@ -205,7 +215,18 @@ T = 2048, no remat), random weights from a seed:
    ``AllocationMismatch``, and the pod trained 3 steps through B's hook
    (18 sm90 launches of each, ``launches_lifecycle_run``): kill to Lost
    and Lost to rebound seconds, the pod's seconds, and the binary's
-   ``scheduler_node_lost_total`` and ``scheduler_evictions_total``;
+   ``scheduler_node_lost_total`` and ``scheduler_evictions_total``; then
+   the repair leg (its own line): ``--repair --tenant-quota`` with a
+   config declaring a filter extender (a stub here) that vetoes a third
+   node with no agent, the pod bound to A trains 3 steps with
+   ``--checkpoint-dir D --checkpoint-every 1``, A's card is reported
+   failed (A's agent SIGSTOPped, this process running the advertiser's
+   pass with the card failed), the controller stamps the checkpoint
+   request, evicts and requeues the pod, which binds to B and resumes
+   from the step-3 checkpoint for 3 more steps (18 sm90 launches of
+   each, ``launches_repair_run``): failure to eviction seconds, eviction
+   to rebind ms, the resumed first step, ``scheduler_repairs_total`` and
+   the extender's calls;
 23. checkers: under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
@@ -2324,7 +2345,8 @@ class _EngineFace:
     """The in-process face of a dict-backed API server: the calls the
     port's scheduling engine makes (nodes and pods listed and read; pods
     created, bound, annotated and deleted; a gang bound at once with
-    ``bind_many``; events recorded; watch callbacks), over the dicts and
+    ``bind_many``; events recorded; PDBs listed; watch callbacks), over
+    the dicts and
     the lock that the HTTP routes of `_StubAPIServer` use. Callbacks run
     after the lock is released; ``log(kind, event, obj)``, when set, sees
     every change first (the stub's watch log)."""
@@ -2333,6 +2355,7 @@ class _EngineFace:
         self.nodes, self.pods, self._lock = nodes, pods, lock
         self._watchers: list = []
         self.events: dict = {}          # pod name -> [(reason, message)]
+        self.pdbs: list = []            # PodDisruptionBudgets, as listed
         self.log = None
 
     @staticmethod
@@ -2446,6 +2469,10 @@ class _EngineFace:
             obj = self._pod(name)
             del self.pods[name]
         self.notify("pod", "deleted", obj)
+
+    def list_pdbs(self) -> list:
+        with self._lock:
+            return self._copy(self.pdbs)
 
     def record_event(self, kind: str, name: str, event_type: str,
                      reason: str, message: str) -> None:
@@ -3158,12 +3185,14 @@ def _start_agent(root: str, base_env: dict, stub, tmp: str,
     return proc, cri, healthz, err, watchdog
 
 
-def _run_training_pod(cri: str, pod: str, config: dict) -> tuple:
+def _run_training_pod(cri: str, pod: str, config: dict,
+                      extra: tuple = ()) -> tuple:
     """Launch the training pod (train_demo at the training config,
-    DEVICE_STEPS steps, under POD_RUNNER's launch counts) through the
-    agent's hook at ``cri`` for ``pod``, and wait for it: ``(seconds,
-    train_demo's summary, the launch counts)``. Raises unless it exits 0
-    with finite losses and 18 sm90 launches of each of K1-K3."""
+    DEVICE_STEPS steps and ``extra`` arguments, under POD_RUNNER's launch
+    counts) through the agent's hook at ``cri`` for ``pod``, and wait for
+    it: ``(seconds, train_demo's summary, the launch counts)``. Raises
+    unless it exits 0 with finite losses and 18 sm90 launches of each of
+    K1-K3."""
     import math
 
     t = time.perf_counter()
@@ -3176,7 +3205,7 @@ def _run_training_pod(cri: str, pod: str, config: dict) -> tuple:
             "--d-model", str(TRAIN_MODEL["d_model"]),
             "--d-ff", str(TRAIN_MODEL["d_ff"]),
             "--n-layers", str(TRAIN_MODEL["n_layers"]),
-            "--n-heads", str(TRAIN_MODEL["n_heads"])]})
+            "--n-heads", str(TRAIN_MODEL["n_heads"]), *extra]})
     cid = launched["id"]
 
     def exited():
@@ -3443,6 +3472,219 @@ def _mass_arrival(engine, hgx, path: str, budget_s) -> dict:
             "searches_per_pod": len(calls) / len(bound)}
 
 
+def _cards_of(pod: dict) -> list:
+    """The card paths a bound pod's containers hold."""
+    from kubegpu_tpu_torch.core import codec, grammar
+
+    info = codec.kube_pod_to_pod_info(pod, invalidate_existing=False)
+    return [p for c in info.running_containers.values()
+            for p in c.allocate_from.values() if grammar.gpu_id_from_path(p)]
+
+
+def _stream_256(engine, hgx, path: str, tenant: str | None = None,
+                **kw) -> tuple:
+    """256 count-mode pods of 1, 2, 4 and 8 cards (of ``tenant``, when
+    given) submitted one at a time onto 64 HGX hosts, one scheduling cycle
+    each, by an engine on ``path`` built with ``kw`` (``quota=``):
+    ``(cycle times, [(node, cards)] per pod)``. Raises unless every card
+    is used once and some pod binds."""
+    import numpy as np
+
+    from kubegpu_tpu_torch import metrics
+
+    with _engine_path(path):
+        face, sched = engine([hgx(i) for i in range(64)], **kw)
+    passes = metrics.FIT_VECTOR_PASS_MS.n
+    fallback = metrics.FIT_SCALAR_FALLBACK.value
+    cycle_ms = []
+    for i in range(256):
+        pod = _gpu_pod(f"p{i}", (1, 2, 4, 8)[i % 4])
+        if tenant:
+            pod["metadata"]["labels"] = {"kgtpu.io/tenant": tenant}
+        face.create_pod(pod)
+        t = time.perf_counter()
+        if not sched.schedule_one(timeout=0.0):
+            raise AssertionError(f"{path}: p{i} was not queued")
+        cycle_ms.append((time.perf_counter() - t) * 1e3)
+    sched.stop()
+    placed = [face.get_pod(f"p{i}") for i in range(256)]
+    n_bound = sum(1 for p in placed if p["spec"].get("nodeName"))
+    used = [c for p in placed for c in _cards_of(p)]
+    if len(used) != len(set(used)) or len(used) > 512 or n_bound == 0:
+        raise AssertionError(f"{path}: {n_bound} bound over {len(used)} "
+                             f"cards ({len(set(used))} distinct)")
+    return ({"p50": float(np.percentile(cycle_ms, 50)),
+             "p95": float(np.percentile(cycle_ms, 95)),
+             "max": max(cycle_ms), "bound": n_bound, "cards_used": len(used),
+             "masked_passes": metrics.FIT_VECTOR_PASS_MS.n - passes,
+             "scalar_fallback_nodes":
+                 metrics.FIT_SCALAR_FALLBACK.value - fallback},
+            [(p["spec"].get("nodeName"), _cards_of(p)) for p in placed])
+
+
+PREEMPT_HOSTS = 16
+PREEMPT_LOW = (3, 7, 11, 15)     # the hosts of priority-0 pods
+PREEMPT_GUARDED = 7              # ... of which a PDB guards this one
+PREEMPT_GANG = (3, 8, 5)         # members, cards each, priority
+
+
+def _gang_preempt_leg(engine, hgx) -> dict:
+    """Gang preemption on the default path: PREEMPT_HOSTS HGX hosts full
+    of 1-card pods, of priority 10 but on PREEMPT_LOW, where they are of
+    priority 0 and a PDB with no disruption allowed covers PREEMPT_GUARDED's.
+    A gang of 3 members of 8 cards at priority 5 places nowhere; the
+    engine evicts the 24 pods of the three unguarded low hosts (the
+    cheapest set: no PDB violated, priority 0; equal-cost units taken by
+    name) and binds the gang there. Raises unless exactly those pods went
+    and the gang bound on those hosts. Prints and returns the search's
+    span (ms, sets tried, plans, victims) and the ms from the first
+    eviction to the last member's bind."""
+    from kubegpu_tpu_torch import obs
+    from kubegpu_tpu_torch.core import codec, grammar
+
+    obs.RECORDER.clear()
+    nodes = [hgx(i) for i in range(PREEMPT_HOSTS)]
+    face, sched = engine(nodes)
+    face.pdbs.append({"metadata": {"name": "guarded"}, "spec": {
+        "selector": {"matchLabels": {"app": "guarded"}}, "minAvailable": 8}})
+    for i, node in enumerate(nodes):
+        cards = sorted(p for p in codec.annotation_to_node_info(
+            node["metadata"]).allocatable if grammar.gpu_id_from_path(p))
+        low = i in PREEMPT_LOW
+        for c, path in enumerate(cards):
+            pod = _gpu_pod(f"{'low' if low else 'high'}{i:02d}-{c}", 1)
+            info = codec.kube_pod_to_pod_info(pod, invalidate_existing=False)
+            cont = info.running_containers["main"]
+            cont.dev_requests[path] = 1
+            cont.allocate_from[path] = path
+            info.node_name = node["metadata"]["name"]
+            codec.pod_info_to_annotation(pod["metadata"], info)
+            pod["spec"].update(nodeName=info.node_name,
+                               priority=0 if low else 10)
+            if i == PREEMPT_GUARDED:
+                pod["metadata"]["labels"] = {"app": "guarded"}
+            face.create_pod(pod)
+    before = set(face.pods)
+    n_members, n_cards, prio = PREEMPT_GANG
+    members = [f"pg{r}" for r in range(n_members)]
+    stamps: dict = {}
+    bound: set = set()
+
+    def watch(kind, event, obj):
+        name = obj["metadata"]["name"]
+        if kind == "pod" and event == "deleted":
+            stamps.setdefault("evicted", time.perf_counter())
+        if kind == "pod" and name in members and \
+                (obj.get("spec") or {}).get("nodeName"):
+            bound.add(name)
+            if len(bound) == n_members:
+                stamps.setdefault("bound", time.perf_counter())
+
+    face.add_watcher(watch)
+    for name in members:
+        pod = _gpu_pod(name, n_cards, gang=31, size=n_members)
+        pod["spec"]["priority"] = prio
+        face.create_pod(pod)
+    t = time.perf_counter()
+    sched.run_until_idle()
+    wall = time.perf_counter() - t
+    sched.stop()
+    gone = sorted(before - set(face.pods))
+    freed = [f"hgx{i}" for i in PREEMPT_LOW if i != PREEMPT_GUARDED]
+    want = sorted(f"low{int(h[3:]):02d}-{c}" for h in freed
+                  for c in range(8))
+    placed = sorted(face.get_pod(m)["spec"].get("nodeName") or ""
+                    for m in members)
+    spans = [sp for sp in obs.RECORDER.spans() if sp.name == "gang_preempt"]
+    plans = [sp.dur_s * 1e3 for sp in obs.RECORDER.spans()
+             if sp.name == "gang_plan"]
+    if gone != want or placed != sorted(freed) or len(spans) != 1 or \
+            spans[0].attrs.get("victims") != len(want):
+        raise AssertionError(f"gang preemption evicted {gone}, placed the "
+                             f"gang on {placed}, spans "
+                             f"{[sp.attrs for sp in spans]}")
+    row = {"leg": "gang_preempt", "hosts": PREEMPT_HOSTS,
+           "gang": {"members": n_members, "cards": n_cards,
+                    "priority": prio},
+           "evicted_hosts": freed, "victims": len(gone),
+           "gang_nodes": placed,
+           "gang_preempt_ms": spans[0].dur_s * 1e3,
+           "sets_tried": spans[0].attrs["sets_tried"],
+           "plans": spans[0].attrs["plans"], "units": spans[0].attrs["units"],
+           "gang_plan_ms": plans,
+           "first_eviction_to_bound_ms":
+               (stamps["bound"] - stamps["evicted"]) * 1e3,
+           "run_until_idle_s": wall}
+    emit(row)
+    return row
+
+
+QUOTA_HOSTS = 64
+QUOTA_PODS = 400                 # one-card pods a tenant
+QUOTA_WEIGHTS = {"a": 2.0, "b": 1.0}
+
+
+def _quota_leg(engine, hgx, unlabelled: dict) -> dict:
+    """The tenant quota gate on the default path: QUOTA_HOSTS HGX hosts
+    (512 cards), weights a:b = 2:1, and QUOTA_PODS one-card pods of each
+    tenant created before the first pass. a binds 341 cards and b 170:
+    each holds its weighted share rounded down, and the last card stays
+    free, for either tenant's next pod would overshoot its share while
+    the other, below its own, is still demanding (the gate does not
+    preempt). Then the 256-pod stream of one tenant with the gate on and
+    off: equal placements, and each one's cycle p50 beside that of the
+    unlabelled stream (``unlabelled``; a tenant label alone moves
+    placements, through the priorities that read pod labels). Raises on
+    any other outcome."""
+    from kubegpu_tpu_torch import metrics
+    from kubegpu_tpu_torch.scheduler.quota import DRFQuotaGate
+
+    gate = DRFQuotaGate(weights=QUOTA_WEIGHTS)
+    with _engine_path("default"):
+        face, sched = engine([hgx(i) for i in range(QUOTA_HOSTS)],
+                             quota=gate)
+    for i in range(QUOTA_PODS):
+        for tenant in sorted(QUOTA_WEIGHTS):
+            pod = _gpu_pod(f"{tenant}{i}", 1)
+            pod["metadata"]["labels"] = {"kgtpu.io/tenant": tenant}
+            face.create_pod(pod)
+    parked = metrics.QUOTA_PARKED.value
+    t = time.perf_counter()
+    sched.run_until_idle()
+    wall = time.perf_counter() - t
+    sched.stop()
+    with face._lock:
+        placed = [p for p in face.pods.values() if p["spec"].get("nodeName")]
+    cards = {t: sum(len(_cards_of(p)) for p in placed
+                    if p["metadata"]["labels"]["kgtpu.io/tenant"] == t)
+             for t in sorted(QUOTA_WEIGHTS)}
+    used = [c for p in placed for c in _cards_of(p)]
+    if cards != {"a": 341, "b": 170} or len(set(used)) != len(used):
+        raise AssertionError(f"the quota gate bound {cards} "
+                             f"({len(used)} cards, {len(set(used))} "
+                             f"distinct)")
+    gated, gated_placed = _stream_256(
+        engine, hgx, "default", tenant="a",
+        quota=DRFQuotaGate(weights=QUOTA_WEIGHTS))
+    plain, plain_placed = _stream_256(engine, hgx, "default", tenant="a")
+    if gated_placed != plain_placed:
+        raise AssertionError("one tenant's stream placed otherwise with the "
+                             "gate on")
+    row = {"leg": "quota", "hosts": QUOTA_HOSTS,
+           "cards": QUOTA_HOSTS * 8, "weights": QUOTA_WEIGHTS,
+           "pods_per_tenant": QUOTA_PODS, "cards_bound": cards,
+           "cards_idle": QUOTA_HOSTS * 8 - len(used),
+           "seconds_to_steady_state": wall,
+           "quota_parked_total": metrics.QUOTA_PARKED.value - parked,
+           "stream_256_cycle_ms_gate_on": gated,
+           "stream_256_cycle_ms_gate_off": plain,
+           "stream_256_p50_ms": {"gate_on": gated["p50"],
+                                 "gate_off": plain["p50"],
+                                 "unlabelled_gate_off": unlabelled["p50"]}}
+    emit(row)
+    return row
+
+
 def scheduler_phase(backend=None) -> dict:
     """The port's scheduling engine in process, over dicts
     (`_EngineFace`): a gang of one pod more than this card's host has
@@ -3450,14 +3692,14 @@ def scheduler_phase(backend=None) -> dict:
     ``fake.rig_inventory`` host joins; then the engine's host times on
     this machine: the 256-pod stream on the default path and on the
     scalar oracle (equal placements), a 16-member gang, the
-    auto-topology stream and the mass arrival (`_mass_arrival`).
+    auto-topology stream, the mass arrival (`_mass_arrival`), gang
+    preemption (`_gang_preempt_leg`) and the tenant quota gate
+    (`_quota_leg`).
     ``backend`` stands in for the card's NVML (a CPU rehearsal). Raises on
     any mismatch."""
     import threading
 
-    import numpy as np
-
-    from kubegpu_tpu_torch import metrics, obs
+    from kubegpu_tpu_torch import obs
     from kubegpu_tpu_torch.core import codec, grammar
     from kubegpu_tpu_torch.node import fake
     from kubegpu_tpu_torch.scheduler.core import Scheduler
@@ -3471,20 +3713,14 @@ def scheduler_phase(backend=None) -> dict:
 
         backend = NVMLBackend()
 
-    def engine(nodes):
+    def engine(nodes, **kw):
         face = _EngineFace({n["metadata"]["name"]: n for n in nodes}, {},
                            threading.Lock())
-        return face, Scheduler(face, build_device_scheduler())
+        return face, Scheduler(face, build_device_scheduler(), **kw)
 
     def hgx(i):
         return _gpu_node(f"hgx{i}", fake.FakeGPUBackend(
             fake.hgx_h100_inventory(host=i)))
-
-    def cards_of(pod):
-        info = codec.kube_pod_to_pod_info(pod, invalidate_existing=False)
-        return [p for c in info.running_containers.values()
-                for p in c.allocate_from.values()
-                if grammar.gpu_id_from_path(p)]
 
     # 1. all or nothing on the card's host, then with a rig host beside it
     real = _gpu_node(NODE, backend)
@@ -3507,7 +3743,7 @@ def scheduler_phase(backend=None) -> dict:
     contracts = {m: json.loads(p["metadata"]["annotations"][
         GANG_PROCESS_ANNOTATION]) for m, p in bound.items()}
     nodes = {m: p["spec"].get("nodeName") for m, p in bound.items()}
-    cards = [c for p in bound.values() for c in cards_of(p)]
+    cards = [c for p in bound.values() for c in _cards_of(p)]
     want = [{"gang": 21, "rank": r, "count": len(members),
              "coordinator_node": nodes[members[0]],
              "coordinator_port": gang_coordinator_port(21)}
@@ -3524,34 +3760,7 @@ def scheduler_phase(backend=None) -> dict:
     cycles = {}
     placements = {}
     for path in ("default", "oracle"):
-        with _engine_path(path):
-            face, sched = engine([hgx(i) for i in range(64)])
-        passes = metrics.FIT_VECTOR_PASS_MS.n
-        fallback = metrics.FIT_SCALAR_FALLBACK.value
-        cycle_ms = []
-        for i in range(256):
-            face.create_pod(_gpu_pod(f"p{i}", (1, 2, 4, 8)[i % 4]))
-            t = time.perf_counter()
-            if not sched.schedule_one(timeout=0.0):
-                raise AssertionError(f"{path}: p{i} was not queued")
-            cycle_ms.append((time.perf_counter() - t) * 1e3)
-        sched.stop()
-        placed = [face.get_pod(f"p{i}") for i in range(256)]
-        placements[path] = [(p["spec"].get("nodeName"), cards_of(p))
-                            for p in placed]
-        n_bound = sum(1 for p in placed if p["spec"].get("nodeName"))
-        used = [c for p in placed for c in cards_of(p)]
-        if len(used) != len(set(used)) or len(used) > 512 or n_bound == 0:
-            raise AssertionError(f"{path}: {n_bound} bound over {len(used)} "
-                                 f"cards ({len(set(used))} distinct)")
-        cycles[path] = {"p50": float(np.percentile(cycle_ms, 50)),
-                        "p95": float(np.percentile(cycle_ms, 95)),
-                        "max": max(cycle_ms), "bound": n_bound,
-                        "cards_used": len(used),
-                        "masked_passes": metrics.FIT_VECTOR_PASS_MS.n
-                        - passes,
-                        "scalar_fallback_nodes":
-                            metrics.FIT_SCALAR_FALLBACK.value - fallback}
+        cycles[path], placements[path] = _stream_256(engine, hgx, path)
     if placements["default"] != placements["oracle"]:
         diff = [i for i, (a, b) in enumerate(zip(placements["default"],
                                                  placements["oracle"]))
@@ -3583,7 +3792,7 @@ def scheduler_phase(backend=None) -> dict:
     plan_ms = [sp.dur_s * 1e3 for sp in obs.RECORDER.spans()
                if sp.name == "gang_plan"]
     gang_pods = [face.get_pod(f"g{r:02d}") for r in range(16)]
-    gang_cards = [c for p in gang_pods for c in cards_of(p)]
+    gang_cards = [c for p in gang_pods for c in _cards_of(p)]
     if len(plan_ms) != 1 or \
             len({p["spec"].get("nodeName") for p in gang_pods}) != 16 or \
             len(set(gang_cards)) != 128:
@@ -3611,6 +3820,11 @@ def scheduler_phase(backend=None) -> dict:
             "default": _mass_arrival(engine, hgx, "default", None),
             "oracle": _mass_arrival(engine, hgx, "oracle", MASS_ORACLE_S)}
 
+    # 6. gang preemption, and 7. the tenant quota gate (each prints its
+    # own line)
+    preempt = _gang_preempt_leg(engine, hgx)
+    quota = _quota_leg(engine, hgx, cycles["default"])
+
     row = {"phase": "scheduler", "nvidia_smi": smi_line(),
            "note": "host times of the card's machine, the engine in one "
                    "process over dicts",
@@ -3623,8 +3837,8 @@ def scheduler_phase(backend=None) -> dict:
            "gang_16x8_on_16_hgx": {"plan_ms": plan_ms[0],
                                    "commit_ms": gang_ms - plan_ms[0],
                                    "cycle_ms": gang_ms},
-           "auto_topology": auto, "seconds": time.perf_counter() - t0,
-           "ok": True}
+           "auto_topology": auto, "gang_preempt": preempt, "quota": quota,
+           "seconds": time.perf_counter() - t0, "ok": True}
     emit(row)
     return row
 
@@ -3884,6 +4098,231 @@ def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
         "losses": out and out["losses_full"]}}
 
 
+class _ExtenderStub:
+    """A filter extender on loopback (the scheduler extender protocol of
+    ``scheduler/extender.py``) that vetoes node ``veto``; ``calls`` counts
+    the filter requests it answered."""
+
+    def __init__(self, veto: str):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        stub = self
+        self.calls = 0
+        self._lock = threading.Lock()
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                with stub._lock:
+                    stub.calls += 1
+                names = body.get("nodeNames") or []
+                data = json.dumps({
+                    "nodeNames": [n for n in names if n != veto],
+                    "failedNodes": {veto: "vetoed by the smoke extender"}
+                    if veto in names else {}}).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._server.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
+        threading.Thread(target=self._server.serve_forever,
+                         kwargs={"poll_interval": 0.05}, daemon=True).start()
+
+    def close(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
+
+def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
+                train: bool) -> dict:
+    """The repair controller of ``kgtpu-gpu-scheduler --repair
+    --tenant-quota`` with a config declaring one filter extender
+    (`_ExtenderStub`, which vetoes node C, registered with a fake rig
+    inventory and no agent), over a stub of its own, with two node agents
+    on the card under the names A and B. The pod (tenant ``smoke``; not a
+    gang, whose planner consults no extender) binds to A; ``train`` runs
+    train_demo 3 steps with
+    ``--checkpoint-dir D --checkpoint-every 1`` through A's hook. Then A's
+    card is reported failed: NVML reports every card healthy and A's
+    agent stamps its health every second, so A's agent is SIGSTOPped (the
+    lifecycle controller is off, so its still heartbeat is no fault) and
+    this process runs the advertiser's own pass (`DeviceAdvertiser`) over
+    the card's inventory with the card failed, which patches A's node
+    exactly as A's agent would: the card out of the allocatable inventory
+    and in the ChipHealth annotation. The controller stamps the checkpoint
+    request, evicts the pod and requeues it; the binary binds the copy to
+    B, where the same command resumes from the step-3 checkpoint in D and
+    trains 3 more steps (18 sm90 launches of each of K1-K3). Returns the
+    ``repair`` field of the scheduler_binary row, also printed as a line
+    of its own."""
+    import shutil
+    import signal
+
+    from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
+    from kubegpu_tpu_torch.cmd.common import build_backend
+    from kubegpu_tpu_torch.core import codec, grammar
+    from kubegpu_tpu_torch.node import fake
+    from kubegpu_tpu_torch.node.advertiser import DeviceAdvertiser
+    from kubegpu_tpu_torch.node.manager import (DevicesManager,
+                                                GPUDeviceManager)
+    from kubegpu_tpu_torch.scheduler.lifecycle import \
+        CHECKPOINT_REQUEST_ANNOTATION
+
+    node_a, node_b, node_c = "smoke-node-a", "smoke-node-b", "smoke-node-c"
+    ckpt = os.path.join(tmp, "repair-ckpt")
+    extra = ("--checkpoint-dir", ckpt, "--checkpoint-every", "1")
+    stub = _StubAPIServer()
+    ext = _ExtenderStub(node_c)
+    config = os.path.join(tmp, "repair-config.json")
+    with open(config, "w") as f:
+        json.dump({"extenders": [{"urlPrefix": ext.url,
+                                  "filterVerb": "filter"}],
+                   "tenantWeights": {"smoke": 1.0}}, f)
+    agents: list = []
+    binary = None
+    stamps: dict = {}
+    requests: list = []
+
+    def watch(kind, event, obj):
+        if kind != "pod" or obj["metadata"]["name"] != "repair-pod":
+            return
+        now = time.perf_counter()
+        ann = obj["metadata"].get("annotations") or {}
+        if CHECKPOINT_REQUEST_ANNOTATION in ann and not requests:
+            requests.append(json.loads(ann[CHECKPOINT_REQUEST_ANNOTATION]))
+            stamps.setdefault("checkpoint_request", now)
+        if event == "deleted" and "degraded" in stamps:
+            stamps.setdefault("evicted", now)
+        if (obj.get("spec") or {}).get("nodeName") == node_b:
+            stamps.setdefault("rebound", now)
+
+    def advertised(node):
+        with stub._lock:
+            ann = (stub.nodes.get(node, {}).get("metadata") or {}).get(
+                "annotations") or {}
+        return codec.NODE_ANNOTATION_KEY in ann
+
+    try:
+        agents.append(_start_agent(root, base_env, stub, tmp, backend,
+                                   node=node_a))
+        _wait_for(lambda: advertised(node_a), 60, "node A's advertise")
+        stub.face.add_node(_gpu_node(node_c, fake.FakeGPUBackend(
+            fake.rig_inventory(7))))
+        binary = _SchedulerBinary(
+            root, base_env, tmp, stub.url, "--wire", "stream", "--repair",
+            "--tenant-quota", "--lease-ttl", "2", "--config", config)
+        stub.face.add_watcher(watch)
+        pod = _gpu_pod("repair-pod", 1)
+        pod["metadata"]["labels"] = {"kgtpu.io/tenant": "smoke"}
+        _create_to_bound_ms(stub, pod, 30, "the pod's bind to node A")
+        first = stub.face.get_pod("repair-pod")
+        if first["spec"]["nodeName"] != node_a:
+            raise AssertionError(f"repair-pod bound to {first['spec']}")
+        alloc = codec.kube_pod_to_pod_info(
+            first, invalidate_existing=False).running_containers[
+            "main"].allocate_from
+        uuid = next(grammar.gpu_id_from_path(p) for p in alloc.values()
+                    if grammar.gpu_id_from_path(p))
+        agents.append(_start_agent(root, base_env, stub, tmp, backend,
+                                   node=node_b))
+        cri_a, cri_b = agents[0][1], agents[1][1]
+        _wait_for(lambda: advertised(node_b), 60, "node B's advertise")
+        pod_s_a = out_a = None
+        if train:
+            pod_s_a, out_a, _ = _run_training_pod(
+                cri_a, "repair-pod", {"devices": [], "envs": []}, extra)
+        # A's card fails: A's agent stops, and the advertiser's own pass
+        # reports the card as A's agent would
+        agents[0][0].send_signal(signal.SIGSTOP)
+        reported = fake.FakeGPUBackend(build_backend(backend).enumerate())
+        reported.set_chip_health(uuid, "failed")
+        mgr = DevicesManager()
+        mgr.add_device(GPUDeviceManager(reported))
+        mgr.start()
+        client = HTTPAPIClient(stub.url, wire="json")
+        try:
+            stamps["degraded"] = time.perf_counter()
+            DeviceAdvertiser(client, mgr, node_a,
+                             address="127.0.0.1").advertise_once()
+        finally:
+            client.close()
+        _wait_for(lambda: "rebound" in stamps, 30,
+                  "the repaired pod's bind to node B")
+        placed = stub.face.get_pod("repair-pod")
+        with stub._lock:
+            reasons = [r for r, _ in stub.face.events.get("repair-pod", [])]
+        if not {"CheckpointRequested", "Evicted"} <= set(reasons) or \
+                not requests or requests[0].get("dir") != \
+                "ckpt/repair-pod" or CHECKPOINT_REQUEST_ANNOTATION in \
+                placed["metadata"].get("annotations", {}):
+            raise AssertionError(f"the repair's events {reasons}, "
+                                 f"checkpoint requests {requests}")
+        metrics_text = binary.get("/metrics")
+        repaired = [float(line.split()[-1])
+                    for line in metrics_text.splitlines()
+                    if line.startswith('scheduler_repairs_total{outcome='
+                                       '"repaired"}')]
+        if repaired != [1.0]:
+            raise AssertionError(f"scheduler_repairs_total {repaired}")
+        pod_s_b = out_b = counted = None
+        if train:
+            # the older steps are not read again: only the newest stays
+            for step in sorted(os.listdir(ckpt))[:-1]:
+                shutil.rmtree(os.path.join(ckpt, step), ignore_errors=True)
+            pod_s_b, out_b, counted = _run_training_pod(
+                cri_b, "repair-pod", {"devices": [], "envs": []}, extra)
+            if out_b["resumed_from_step"] != DEVICE_STEPS:
+                raise AssertionError(f"the repaired pod resumed from step "
+                                     f"{out_b['resumed_from_step']}")
+        if binary.stop() != 0:
+            raise AssertionError(f"the repair binary exited "
+                                 f"{binary.proc.returncode}: "
+                                 f"{binary.stderr()}")
+        with ext._lock:
+            ext_calls = ext.calls
+        if ext_calls < 2:
+            raise AssertionError(f"the extender answered {ext_calls} calls")
+    finally:
+        if binary is not None:
+            binary.stop()
+        for i, (proc, _, _, err, watchdog) in enumerate(agents):
+            watchdog.cancel()
+            if proc.poll() is None:
+                if i == 0:
+                    proc.send_signal(signal.SIGCONT)
+                proc.kill()
+            proc.wait()
+            proc.stdout.close()
+            err.close()
+        stub.close()
+        ext.close()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    row = {"leg": "repair", "nodes": [node_a, node_b, node_c],
+           "vetoed": node_c, "failed_card": uuid,
+           "degraded_to_evicted_s": stamps["evicted"] - stamps["degraded"],
+           "evicted_to_rebound_ms":
+               (stamps["rebound"] - stamps["evicted"]) * 1e3,
+           "checkpoint_request": requests[0],
+           "scheduler_repairs_total": repaired[0],
+           "extender_calls": ext_calls,
+           "pod_s": {"node_a": pod_s_a, "node_b": pod_s_b},
+           "first_step_on_b": out_b and out_b["resumed_from_step"] + 1,
+           "losses": {"node_a": out_a and out_a["losses_full"],
+                      "node_b": out_b and out_b["losses_full"]},
+           "launches_fwd_dq_dkv": counted and counted["launches"],
+           "launches_by_instance": counted and counted["by_instance"]}
+    emit(row)
+    return {"repair": row}
+
+
 def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
     """``kgtpu-gpu-scheduler`` (the port's binary, a subprocess) places the
     node agent's pod on this card: the agent over NVML (``backend``) and
@@ -3895,7 +4334,10 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
     second pod (placed only); a third binary ``--wire json`` binds a pod
     over the long poll of a stub without the stream wire. Then the node
     lifecycle leg (`_lifecycle_leg`): a pod requeued off a killed node
-    rebinds on another and trains there. ``train=False`` leaves the pods
+    rebinds on another and trains there; and the repair leg
+    (`_repair_leg`): a pod moved off a failed card by the repair
+    controller resumes its checkpoint on another node. ``train=False``
+    leaves the pods
     unrun (a CPU rehearsal with ``backend="fake-rig"``). Raises on any
     mismatch."""
     import signal
@@ -4004,6 +4446,7 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
         if agent.wait(timeout=10) != 0:
             raise AssertionError(f"the agent exited {agent.returncode}")
         life = _lifecycle_leg(root, base_env, tmp, backend, train)
+        repair = _repair_leg(root, base_env, tmp, backend, train)
     finally:
         for b in binaries:
             b.stop()
@@ -4027,7 +4470,7 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
            "allocate_from": alloc, "pod_s": pod_s,
            "launches_fwd_dq_dkv": counted and counted["launches"],
            "launches_by_instance": counted and counted["by_instance"],
-           "losses": out and out["losses_full"], **life,
+           "losses": out and out["losses_full"], **life, **repair,
            "seconds": time.perf_counter() - t0, "ok": True}
     emit(row)
     return row
@@ -4260,6 +4703,7 @@ def main() -> int:
             sched_bin["launches_fwd_dq_dkv"][0],
         "launches_lifecycle_run":
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][0],
+        "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][0],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][0],
         "dispatches_checkers_step": checkers["train_kgt_flash_fwd"],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
@@ -4291,6 +4735,7 @@ def main() -> int:
             sched_bin["launches_fwd_dq_dkv"][1],
         "launches_lifecycle_run":
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][1],
+        "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][1],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][1],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
@@ -4320,6 +4765,7 @@ def main() -> int:
             sched_bin["launches_fwd_dq_dkv"][2],
         "launches_lifecycle_run":
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][2],
+        "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][2],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][2],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),

@@ -9,7 +9,9 @@ The port's copy of ``kubegpu_tpu/cmd/scheduler_main.py`` (the reference's
 JSON against a server without the stream wire), watching nodes, pods,
 volumes, claims and quotas. ``--config`` (JSON or YAML) fills in every
 flag not given on the command line, and its ``policy``, ``policyFile`` or
-``algorithmProvider`` recompose the predicates and priorities.
+``algorithmProvider`` recompose the predicates and priorities; its
+``extenders`` and the policy's (``scheduler/extender.py``) are consulted
+after the engine's own filter and score, and may own the binding.
 
 Two shapes:
 
@@ -25,14 +27,18 @@ solo (the default)
 own lease (``LIFECYCLE_LEASE``): a node whose heartbeat stands still for
 ``--node-stale-s`` (default G / 3) is Stale, for G Lost, and its pods are
 evicted and requeued. ``--node-stale-s`` alone starts no controller.
+``--repair`` runs the repair controller (``scheduler/repair.py``) the same
+way on ``REPAIR_LEASE``: a bound pod (a whole gang) on a card its node
+reports degraded is checkpoint-signalled, evicted and requeued.
+``--tenant-quota`` puts the dominant-resource fair-share gate
+(``scheduler/quota.py``) in front of every scheduling cycle, weighted by
+the config's ``tenantWeights`` ({tenant: weight}).
 
-SIGTERM and SIGINT stop it cleanly (exit 0). The flags of what the port
-does not have yet refuse to start, naming the ROADMAP item that brings
-it (Queue 1, item 10): ``--tenant-quota`` (10.5, quotas), ``--repair`` and config
-``extenders`` (10.6, repair and extenders), and ``--replicas`` above 1
-(10.7): sharded replicas rely on the API server's arbiter to refuse a
-card claimed twice, and the only server there is, the JAX package's,
-keys TPU chips and not GPU cards.
+SIGTERM and SIGINT stop it cleanly (exit 0). ``--replicas`` above 1
+refuses to start, naming the ROADMAP item that brings it (Queue 1, item
+10.7): sharded replicas rely on the API server's arbiter to refuse a card
+claimed twice, and the only server there is, the JAX package's, keys TPU
+chips and not GPU cards.
 """
 
 from __future__ import annotations
@@ -45,52 +51,45 @@ import threading
 
 from kubegpu_tpu_torch import obs
 from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
-from kubegpu_tpu_torch.cluster.lease import LIFECYCLE_LEASE, Elector
+from kubegpu_tpu_torch.cluster.lease import (LIFECYCLE_LEASE, REPAIR_LEASE,
+                                             Elector)
 from kubegpu_tpu_torch.cmd import common
 from kubegpu_tpu_torch.scheduler import factory
 from kubegpu_tpu_torch.scheduler.core import Scheduler
+from kubegpu_tpu_torch.scheduler.extender import load_extenders
 from kubegpu_tpu_torch.scheduler.lifecycle import NodeLifecycle
+from kubegpu_tpu_torch.scheduler.quota import DRFQuotaGate
 from kubegpu_tpu_torch.scheduler.registry import build_device_scheduler
+from kubegpu_tpu_torch.scheduler.repair import RepairController
 
 LEASE_NAME = "kgtpu-scheduler"
 # what the engine consumes: Event records never ride this watch
 WATCH_KINDS = ("node", "pod", "pv", "pvc", "quota")
-# the flags the config file may set: the JAX binary's, and the health
-# port and flight directory
+# the keys the config file may set: the JAX binary's flags, the health
+# port and flight directory, and the tenants' fair-share weights
+# (``tenantWeights``, read by `build_scheduler`)
 CONFIG_KEYS = ("api", "wire", "parallelism", "lease_ttl", "node_grace_s",
                "node_stale_s", "bind_workers", "watch_batch_ms", "replicas",
-               "shard", "healthz_port", "flight_dir")
+               "shard", "healthz_port", "flight_dir", "tenantWeights")
 
 
-def refuse_later_items(args, config: dict) -> None:
-    """Raise `NotImplementedError` for a flag or config key whose
-    controller the port does not have yet, naming its ROADMAP item."""
-    later = []
-    if args.tenant_quota:
-        later.append("--tenant-quota: the tenant quota gate "
-                     "(scheduler/quota.py) is ROADMAP Queue 1, item 10.5")
-    if args.repair:
-        later.append("--repair: the repair controller (scheduler/repair.py)"
-                     " is ROADMAP Queue 1, item 10.6")
-    policy = config.get("policy") or {}
-    if config.get("extenders") or (isinstance(policy, dict)
-                                   and policy.get("extenders")):
-        later.append("config extenders: scheduler extenders "
-                     "(scheduler/extender.py) are ROADMAP Queue 1, item "
-                     "10.6")
+def refuse_later_items(args) -> None:
+    """Raise `NotImplementedError` for a flag whose support the port does
+    not have yet, naming its ROADMAP item: ``--replicas`` above 1."""
     if (args.replicas or 1) > 1:
-        later.append("--replicas > 1: sharded replicas need an API server "
-                     "whose arbiter refuses a GPU card claimed twice (the "
-                     "JAX server's keys TPU chips only); the port's API "
-                     "server is ROADMAP Queue 1, item 10.7")
-    if later:
-        raise NotImplementedError("; ".join(later))
+        raise NotImplementedError(
+            "--replicas > 1: sharded replicas need an API server whose "
+            "arbiter refuses a GPU card claimed twice (the JAX server's "
+            "keys TPU chips only); the port's API server is ROADMAP Queue "
+            "1, item 10.7")
 
 
 def build_scheduler(client, args, config: dict | None = None,
                     shard_owned=None, name: str | None = None) -> Scheduler:
     """The engine over ``client``: `GPUScheduler` compiled in, the plugins
-    of ``--scheduler-plugins-dir``, and the algorithm of ``config``."""
+    of ``--scheduler-plugins-dir``, the algorithm and extenders of
+    ``config``, and with ``--tenant-quota`` the fair-share gate weighted by
+    its ``tenantWeights``."""
     config = config or {}
     ds = build_device_scheduler()
     if args.scheduler_plugins_dir:
@@ -106,11 +105,18 @@ def build_scheduler(client, args, config: dict | None = None,
         algorithm = factory.algorithm_provider(config["algorithmProvider"])
     else:
         algorithm = None
+    # extenders declared inside the policy join the top-level ones
+    # (upstream puts them in the policy)
+    extenders = load_extenders(config)
+    if isinstance(policy, dict) and policy.get("extenders"):
+        extenders += load_extenders({"extenders": policy["extenders"]})
+    quota = DRFQuotaGate(weights=config.get("tenantWeights")) \
+        if args.tenant_quota else None
     sched = Scheduler(client, ds, bind_async=bool(args.bind_async),
-                      parallelism=args.parallelism,
+                      parallelism=args.parallelism, extenders=extenders,
                       priority_weights=config.get("priorityWeights"),
                       algorithm=algorithm, bind_workers=args.bind_workers,
-                      shard_owned=shard_owned, name=name)
+                      shard_owned=shard_owned, name=name, quota=quota)
     sched.preemption_enabled = not args.disable_preemption
     return sched
 
@@ -127,6 +133,20 @@ def start_lifecycle_elector(client, args, holder: str) -> Elector | None:
     controller = NodeLifecycle(client, stale_after_s=stale,
                                lost_after_s=args.node_grace_s)
     elector = Elector(client.acquire_lease, LIFECYCLE_LEASE, holder,
+                      args.lease_ttl, on_acquire=controller.start,
+                      on_lose=controller.stop)
+    elector.start()
+    return elector
+
+
+def start_repair_elector(client, args, holder: str) -> Elector | None:
+    """The repair controller, gated on ``--repair`` and singleton-elected
+    on its own lease, as the lifecycle controller is: two controllers
+    planning the same gang's migration would evict it twice."""
+    if not args.repair:
+        return None
+    controller = RepairController(client)
+    elector = Elector(client.acquire_lease, REPAIR_LEASE, holder,
                       args.lease_ttl, on_acquire=controller.start,
                       on_lose=controller.stop)
     elector.start()
@@ -173,11 +193,17 @@ def parser() -> argparse.ArgumentParser:
                    help="seconds to Stale (observational); default "
                         "--node-grace-s / 3")
     p.add_argument("--tenant-quota", action="store_true",
-                   help="tenant quota gate: not in the port yet (ROADMAP "
-                        "Queue 1, item 10.5); refuses to start")
+                   help="dominant-resource fair-share card quotas across "
+                        "tenants (pods labelled kgtpu.io/tenant): a tenant "
+                        "over its share parks with a typed QuotaExceeded "
+                        "reason at pop time and is requeued when cards "
+                        "free up; weights from the config's tenantWeights")
     p.add_argument("--repair", action="store_true",
-                   help="repair controller: not in the port yet (ROADMAP "
-                        "Queue 1, item 10.6); refuses to start")
+                   help="repair controller: a pod (a whole gang) on a card "
+                        "its node reports degraded is checkpoint-signalled,"
+                        " evicted and requeued, or parked with a typed "
+                        "reason when nothing could take it; singleton-"
+                        "elected on its own lease")
     p.add_argument("--healthz-port", type=int, default=0,
                    help="/healthz, /metrics, /metrics/history, "
                         "/debug/traces, /debug/pod/<name> and "
@@ -212,7 +238,7 @@ def main(argv=None) -> int:
     # any of them stall a cycle for milliseconds
     sys.setswitchinterval(0.0005)
     args, config = parse_args(argv)
-    refuse_later_items(args, config)
+    refuse_later_items(args)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     signal.signal(signal.SIGINT, lambda *a: stop.set())
@@ -227,6 +253,7 @@ def main(argv=None) -> int:
     health = common.serve_health(args.healthz_port, extra_status=lambda: True)
     holder = f"{os.uname().nodename}-{os.getpid()}"
     lifecycle = start_lifecycle_elector(client, args, holder)
+    repair = start_repair_elector(client, args, holder)
     try:
         if not args.leader_elect:
             sched = build_scheduler(client, args, config)
@@ -237,12 +264,15 @@ def main(argv=None) -> int:
         else:
             run_leader_elected(client, args, config, holder, stop)
     finally:
-        if lifecycle is not None:
+        for elector, lease in ((lifecycle, LIFECYCLE_LEASE),
+                               (repair, REPAIR_LEASE)):
+            if elector is None:
+                continue
             # demotes: the controller's loop joins and its parked
             # requeues get a last flush
-            lifecycle.stop()
+            elector.stop()
             try:
-                client.release_lease(LIFECYCLE_LEASE, holder)
+                client.release_lease(lease, holder)
             except Exception:
                 # the successor then waits out the TTL
                 pass

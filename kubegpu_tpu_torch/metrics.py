@@ -286,6 +286,14 @@ NODE_READY = Gauge("scheduler_node_ready")
 NODE_LOST = Counter("scheduler_node_lost_total")
 EVICTIONS = Counter("scheduler_evictions_total")
 
+# The tenant quota gate (scheduler/quota.py): pods parked over their
+# tenant's fair share. The repair controller (scheduler/repair.py): its
+# outcomes (repaired, failed, deferred_pdb, parked_unrepairable,
+# parked_budget) and the ms from a fault's detection to its unit's repair.
+QUOTA_PARKED = Counter("quota_parked_total")
+REPAIRS = LabeledCounter("scheduler_repairs_total", ("outcome",))
+REPAIR_LATENCY_MS = Histogram("repair_latency_ms", start_us=0.25)
+
 # The scheduler binary's client, leases and observability
 # (cluster/httpapi.py, cluster/lease.py, obs/): the size of the last
 # delivered watch batch, events the server folded away before delivery,
@@ -310,7 +318,7 @@ _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         SCHED_QUEUE_DEPTH, SCHED_THROUGHPUT, FIT_VECTOR_PASS_MS,
         FIT_VECTOR_NODES_PER_PASS, FIT_SCALAR_FALLBACK, SCHED_BATCH_SIZE,
         SCHED_BATCH_CLASSES, NODE_READY, NODE_LOST, EVICTIONS,
-        WATCH_BATCH_SIZE,
+        QUOTA_PARKED, REPAIRS, REPAIR_LATENCY_MS, WATCH_BATCH_SIZE,
         WATCH_COALESCED, WATCH_PUSH_LAG_MS, LEASE_TRANSITIONS, FLIGHT_DUMPS,
         PROFILE_SAMPLES)
 

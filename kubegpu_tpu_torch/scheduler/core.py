@@ -25,7 +25,9 @@ masked pass, the room held for nominated preemptors, the batch ledger,
 the preemption prune and the fleet columns count ``alpha.gpu/numgpu`` and
 card leaves, GPU nodes have a canonical shape (their cards' UUIDs ranked),
 and gangs are planned host by host (``scheduler/gang.py``). A gang that
-does not fit stays buffered; there is no gang preemption.
+does not fit preempts by pod-sets released host by host
+(`Scheduler._try_gang_preempt`), where the JAX engine searches
+ICI-contiguous blocks.
 """
 
 from __future__ import annotations
@@ -1728,29 +1730,39 @@ class Scheduler:
                         exc_info=True)
             return
         # wholesale replacement: a quota deleted during a watch gap
-        # must revert to the default weight, not survive a merge
-        self.quota.set_weights(
-            {tenant: float((spec or {}).get("weight") or 1.0)
-             for tenant, spec in quotas.items()})
+        # must revert to the default weight, not survive a merge. The
+        # default is the tenant's configured weight (the binary's
+        # tenantWeights), where the JAX engine drops it for 1.0
+        configured = self._configured_weights()
+        weights = dict(configured)
+        for tenant, spec in quotas.items():
+            weight = (spec or {}).get("weight")
+            weights[tenant] = float(weight) if weight else \
+                configured.get(tenant, 1.0)
+        self.quota.set_weights(weights)
+
+    def _configured_weights(self) -> dict:
+        return dict(getattr(self.quota, "configured_weights", None) or {})
 
     def _apply_quota_event(self, event: str, obj: dict) -> None:
         """Quota config changed on the apiserver: feed the tenant's
         fair-share weight to the DRF gate (a deleted quota reverts to
-        the default weight). The apiserver emits these as ``quota``
-        watch records; clients that should react must include the kind
-        in their watch filter."""
+        the tenant's configured weight, 1.0 by default). The apiserver
+        emits these as ``quota`` watch records; clients that should
+        react must include the kind in their watch filter."""
         tenant = (obj.get("metadata") or {}).get("name")
         if not tenant:
             return
+        default = self._configured_weights().get(tenant, 1.0)
         if event == "deleted":
-            self.quota.set_weight(tenant, 1.0)
+            self.quota.set_weight(tenant, default)
             return
         # set_quota replaces the spec wholesale, so a spec WITHOUT a
         # weight means "default", not "keep the old one" — otherwise a
         # running replica and a restarted one would diverge
         weight = (obj.get("spec") or {}).get("weight")
         self.quota.set_weight(
-            tenant, float(weight) if weight is not None else 1.0)
+            tenant, float(weight) if weight is not None else default)
 
     def _on_event_batch(self, events: list) -> None:
         """Batched informer apply (HTTP transport): the whole watch batch
@@ -2388,8 +2400,10 @@ class Scheduler:
     def _handle_gang_pod(self, kube_pod: dict, gang: int, size: int) -> None:
         """Buffer gang members; when complete, place the whole pod-set
         host by host (`GangPlanner.plan`), all-or-nothing. A gang that
-        does not fit stays buffered and one member waits in the
-        unschedulable set, so a cluster change retries the whole gang."""
+        does not fit preempts lower-priority pods when it can
+        (`_try_gang_preempt`); otherwise it stays buffered and one member
+        waits in the unschedulable set, so a cluster change retries the
+        whole gang."""
         members = self.gang_buffer.add(kube_pod, gang, size)
         if members is None:
             return  # waiting for the rest of the gang
@@ -2412,15 +2426,26 @@ class Scheduler:
             assignment = self.gang_planner.plan(members, reserved=reserved)
             sp.attrs["planned"] = assignment is not None
         if assignment is None:
-            # members stay buffered; requeue one so a later pop retries
-            # the whole gang once the cluster changes
-            metrics.SCHEDULE_FAILURES.inc()
-            self._quota_forget(*members)
-            self._event(kube_pod["metadata"]["name"], "Warning",
-                        "FailedScheduling",
-                        f"gang {gang} of {size} does not fit")
-            self.queue.add_unschedulable(kube_pod)
-            return
+            outcome = (self._try_gang_preempt(members, gang_prio, reserved)
+                       if self.preemption_enabled else False)
+            if isinstance(outcome, dict):
+                assignment = outcome  # room among free cards: place now
+            elif outcome:
+                # victims evicted, each member nominated onto its host:
+                # retry promptly (members stay buffered; the pop re-plans)
+                metrics.SCHEDULE_FAILURES.inc()
+                self.queue.push(kube_pod)
+                return
+            else:
+                # members stay buffered; requeue one so a later pop
+                # retries the whole gang once the cluster changes
+                metrics.SCHEDULE_FAILURES.inc()
+                self._quota_forget(*members)
+                self._event(kube_pod["metadata"]["name"], "Warning",
+                            "FailedScheduling",
+                            f"gang {gang} of {size} does not fit")
+                self.queue.add_unschedulable(kube_pod)
+                return
         # any member nominations did their job (the planner just placed
         # the gang); clear them so sibling reservations don't double-
         # charge the per-member validation below
@@ -2728,6 +2753,150 @@ class Scheduler:
             # nomination below still protects the room this side of a
             # scheduler restart
         self.generic.nominate(kube_pod, node_name)
+        return True
+
+    def _try_gang_preempt(self, members: list, gang_prio: int,
+                          reserved: dict | None = None) -> Any:
+        """Gang preemption: when the gang places nowhere, evict the
+        cheapest set of lower-priority pods whose cards let it place
+        (`GangPlanner.plan_preemption`). Victim cost follows the
+        reference's pickOneNodeForPreemption order (fewest PDB
+        violations, lowest highest victim priority, lowest priority sum,
+        fewest victims, then the victims' sorted names); the freed room
+        is held by per-member nominations until the retry lands, as on
+        the single-pod path.
+
+        Returns the assignment when the search placed the gang on cards
+        already free (place now, no eviction), True when victims were
+        evicted and the members nominated (requeue and retry), False
+        otherwise."""
+        try:
+            # bound pods only, from the informer mirror (read-only;
+            # victims are deleted by name)
+            pods = self._view_list_bound()
+        except Exception:
+            return False
+        pods_by_name: dict = {}
+        owners: dict = {}
+        may_evict: set = set()
+        gang_of: dict = {}       # bound pod -> its gang id
+        gang_members: dict = {}  # gang id -> bound member names
+        member_names = {m["metadata"]["name"] for m in members}
+        for p in pods:
+            name = p["metadata"]["name"]
+            if name in member_names:
+                continue
+            node = p["spec"]["nodeName"]
+            try:
+                info = codec.kube_pod_to_pod_info(
+                    p, invalidate_existing=False)
+            except Exception:
+                # this pod's cards cannot be attributed to an owner, so
+                # they are invisible to preemption planning
+                log.debug("unreadable device annotation on %s; its cards "
+                          "are not preemptible this pass", name,
+                          exc_info=True)
+                continue
+            pods_by_name[name] = p
+            for _, cont, _ in info.all_containers():
+                for path in cont.allocate_from.values():
+                    prefix = grammar.gpu_prefix_from_path(path)
+                    if prefix is not None:
+                        owners[(node, prefix)] = name
+            gk = gang_key(p)
+            if gk is not None:
+                gang_of[name] = gk[0]
+                gang_members.setdefault(gk[0], set()).add(name)
+            if _pod_priority(p) < gang_prio:
+                may_evict.add(name)
+        if not may_evict:
+            return False
+        pdb_state = self.generic._pdb_state()
+
+        def closure(victim_names) -> frozenset | None:
+            """Victims widened to whole bound gangs: evicting one member
+            of a running gang strands its siblings mid-collective, so the
+            eviction unit is the gang. None when a widened member may not
+            be evicted (its priority is not below the gang's)."""
+            out = set(victim_names)
+            for n in victim_names:
+                g = gang_of.get(n)
+                if g is not None:
+                    out |= gang_members[g]
+            if not out <= may_evict:
+                return None
+            return frozenset(out)
+
+        def cost(victim_names: frozenset) -> tuple | None:
+            if not victim_names:
+                # below every real eviction set (priorities may be
+                # negative, so only a shorter tuple is safely minimal)
+                return (-1,)
+            full = closure(victim_names)
+            if full is None:
+                return None
+            victims = [pods_by_name[n] for n in full]
+            violating, _ = GenericScheduler._split_by_pdb_violation(
+                victims, pdb_state)
+            prios = [_pod_priority(v) for v in victims]
+            return (len(violating), max(prios), sum(prios), len(victims))
+
+        units: dict = {}
+        for name in sorted(may_evict):
+            full = closure({name})
+            if full is not None and full not in units:
+                units[full] = [pods_by_name[n] for n in sorted(full)]
+        stats: dict = {}
+        with obs.span("gang_preempt", pod=sorted(member_names)[0],
+                      proc=self.obs_name, units=len(units)) as sp:
+            found = self.gang_planner.plan_preemption(
+                members, list(units.values()), owners, cost,
+                reserved=reserved, stats=stats)
+            sp.attrs.update(stats)
+            sp.attrs["victims"] = len(found[1]) if found else 0
+        if found is None:
+            return False
+        assignment, victim_names = found
+        if not victim_names:
+            # the search placed the gang on cards already free: hand the
+            # assignment straight back — retrying plan() would fail the
+            # same way and ping-pong forever
+            return assignment
+        for victim_name in sorted(victim_names):
+            metrics.PREEMPTION_VICTIMS.inc()
+            self._event(victim_name, "Normal", "Preempted",
+                        f"by gang of {sorted(member_names)}")
+            try:
+                self.api.delete_pod(victim_name)
+            except KeyError:
+                pass  # victim already gone: the room is free either way
+            except Exception:
+                return False  # retry later; cache unchanged for the rest
+        # hold the freed room: nominate every member onto its planned
+        # host, persisted in ONE batched request when the transport
+        # offers it (restart-safe, like _try_preempt)
+        batch_ann: dict = {}
+        for member in members:
+            name = member["metadata"]["name"]
+            annotations = dict(
+                (member.get("metadata") or {}).get("annotations") or {})
+            annotations[self.NOMINATED_NODE_ANNOTATION] = assignment[name][0]
+            batch_ann[name] = annotations
+        update_many = getattr(self.api, "update_pod_annotations_many", None)
+        try:
+            if update_many is not None:
+                update_many(batch_ann)
+            else:
+                for name, annotations in batch_ann.items():
+                    self.api.update_pod_annotations(name, annotations)
+        except Exception:
+            # the in-memory nominations below still hold the room; only
+            # restart-safety is lost — worth a trace
+            log.warning("could not persist nominated-node annotations on "
+                        "gang %s", sorted(batch_ann), exc_info=True)
+        for member in members:
+            self.generic.nominate(member,
+                                  assignment[member["metadata"]["name"]][0])
         return True
 
     def _assume_volumes(self, kube_pod: dict, host: str) -> bool:

@@ -9,7 +9,10 @@ goes to the host where the plugin's own per-host fit leaves the fewest
 free cards (`GangPlanner.plan`). The gang layer only *decides*, emitting
 pinned allocations per pod (exact card paths, identity allocate_from);
 the normal assume/bind path then revalidates and commits them
-all-or-nothing.
+all-or-nothing. A gang that does not fit may preempt: in place of the
+JAX planner's cheapest contiguous block, `GangPlanner.plan_preemption`
+ranks sets of lower-priority pod-sets by eviction cost and plans the gang
+on hosts where a set's cards are released.
 
 Gang membership rides in pod-level annotation requests, under the JAX
 package's keys so both engines read one wire:
@@ -175,10 +178,13 @@ class GangBuffer:
 
 
 class GangPlanner:
-    """Places a gang host by host, through the device plugins' own fit."""
+    """Places a gang host by host, through the device plugins' own fit
+    (``devices``, by default the scheduler cache's)."""
 
-    def __init__(self, cache):
+    def __init__(self, cache, devices=None):
         self.cache = cache
+        self.devices = devices if devices is not None \
+            else cache.device_scheduler
 
     @staticmethod
     def _demand(pods: list) -> dict | None:
@@ -213,34 +219,43 @@ class GangPlanner:
         for res in cls._free_cards(node)[-count:]:
             node.used[res] = node.allocatable[res]
 
-    def plan(self, pods: list, reserved: dict | None = None):
+    def hosts(self, reserved: dict | None = None) -> dict:
+        """{node name: a private copy of its cycle-snapshot inventory},
+        in name order, with ``reserved`` ({node: card count}) withheld
+        from each node's free cards."""
+        names, snaps, _ = self.cache.cycle_snapshot()
+        out = {}
+        for name in names:
+            node = snaps[name].node_ex.clone()
+            self._withhold(node, (reserved or {}).get(name, 0))
+            out[name] = node
+        return out
+
+    def plan(self, pods: list, reserved: dict | None = None,
+             hosts: dict | None = None):
         """Assign each gang pod a host and its exact cards.
 
         Returns ``{pod_name: (node_name, {(is_init, container): {card path:
         value}})}`` or None, in which case nothing is pinned. Members are
-        taken largest first, then by name; each tries every host of the
-        cycle snapshot in name order on a copy of the host's inventory
-        already charged with the gang's earlier members and with
-        ``reserved`` ({node: card count}) withheld. A host fits when the
-        device plugins' fit succeeds there with allocation on; among
-        those, the one left with the fewest free cards wins, then the
-        name (the JAX planner's best-fit rule). Member sizes may differ;
-        the plugins apply each member's memory floor."""
+        taken largest first, then by name; each tries every host in order
+        (``hosts``, which the plan does not change; by default the cycle
+        snapshot's, with ``reserved`` ({node: card count}) withheld) on a
+        copy of the host's inventory already charged with the gang's
+        earlier members. A host fits when the device plugins' fit succeeds
+        there with allocation on; among those, the one left with the
+        fewest free cards wins, then the name (the JAX planner's best-fit
+        rule). Member sizes may differ; the plugins apply each member's
+        memory floor."""
         sizes = self._demand(pods)
         if sizes is None:
             return None
-        devices = self.cache.device_scheduler
-        names, snaps, _ = self.cache.cycle_snapshot()
-        hosts = {}
-        for name in names:
-            node = snaps[name].node_ex.clone()
-            self._withhold(node, (reserved or {}).get(name, 0))
-            hosts[name] = node
+        hosts = dict(self.hosts(reserved) if hosts is None else hosts)
+        devices = self.devices
         by_name = {p["metadata"]["name"]: p for p in pods}
         assignment = {}
         for pod_name in sorted(sizes, key=lambda n: (-sizes[n], n)):
             best = None
-            for host in names:
+            for host in hosts:
                 trial = hosts[host].clone()
                 info = codec.kube_pod_to_pod_info(by_name[pod_name],
                                                   invalidate_existing=True)
@@ -261,6 +276,172 @@ class GangPlanner:
                 for cname, cont, is_init in info.all_containers()
                 if cont.allocate_from})
         return assignment
+
+    # -- preemption ---------------------------------------------------------
+
+    MAX_VICTIM_SETS = 64     # plans one preemption search may run
+    EXACT_UNITS = 10         # up to this many units, every set is ranked
+
+    @staticmethod
+    def _counts_fit(sizes: list, free: dict) -> bool:
+        """The plan's rule on counts alone: members largest first, each on
+        the host left with the fewest free cards, then the name. In count
+        mode, where the plugins' fit asks only for free cards, this is the
+        plan's own outcome; a set it refuses is never planned."""
+        left = dict(free)
+        for need in sizes:
+            fitting = [(n - need, h) for h, n in left.items() if n >= need]
+            if not fitting:
+                return False
+            rest, host = min(fitting)
+            left[host] = rest
+        return True
+
+    def plan_preemption(self, pods: list, units: list, owners: dict,
+                        cost, reserved: dict | None = None,
+                        stats: dict | None = None):
+        """Gang preemption: the cheapest set of eviction units whose cards,
+        released, let the gang place host by host (the GPU counterpart of
+        the JAX planner's block search, `generic_scheduler.go:226-290`'s
+        victim selection run against pod-sets).
+
+        ``units`` are lists of bound pods evicted together (a pod widened
+        to its whole bound gang), each below the gang's priority; a unit
+        that holds no card is left out;
+        ``owners`` maps ``(node, card prefix)`` to the pod holding that
+        card; ``cost(frozenset of pod names)`` returns a sortable key
+        (smaller is cheaper) or None to forbid a set. Sets are tried in
+        cost order, then by their sorted pod names. Up to
+        ``EXACT_UNITS`` units every set is ranked (exact); above, units
+        are added cheapest first until the gang places, then each is
+        dropped again, dearest first, when the gang still places without
+        it. A set is planned only once `_counts_fit` passes on each
+        host's free cards plus the cards it frees, and at most
+        ``MAX_VICTIM_SETS`` plans are run. Reservations withhold truly
+        free cards only: withholding a victim's card instead would let the
+        gang take exactly the free room a nominated preemptor is owed.
+
+        Returns ``(assignment, victim names)`` or None. The victims are
+        the units whose cards the assignment uses; none when the plan
+        found room among cards already free. ``stats`` (a dict), when
+        given, receives ``sets_tried`` (sets counted) and ``plans``."""
+        sizes = self._demand(pods)
+        stats = stats if stats is not None else {}
+        stats.update(sets_tried=0, plans=0)
+        if sizes is None:
+            return None
+        devices = self.devices
+        base = self.hosts(reserved)
+        free = {h: len(self._free_cards(n)) for h, n in base.items()}
+        demand = sorted(sizes.values(), reverse=True)
+        held_units = []  # (unit, {host: cards it holds there})
+        for unit in units:
+            held: dict = {}
+            for pod in unit:
+                host = (pod.get("spec") or {}).get("nodeName")
+                node = base.get(host)
+                if node is None:
+                    continue
+                info = codec.kube_pod_to_pod_info(pod,
+                                                  invalidate_existing=False)
+                for _, cont, _ in info.all_containers():
+                    for path in cont.allocate_from.values():
+                        if grammar.gpu_id_from_path(path) is not None and \
+                                path in node.allocatable:
+                            held[host] = held.get(host, 0) + 1
+            if held:  # a unit holding no card frees nothing
+                held_units.append((unit, held))
+        if not held_units:
+            return None
+        units = [u for u, _ in held_units]
+        freed = [h for _, h in held_units]
+        names = [frozenset(p["metadata"]["name"] for p in u) for u in units]
+
+        def counts_fit(chosen) -> bool:
+            stats["sets_tried"] += 1
+            after = dict(free)
+            for i in chosen:
+                for host, n in freed[i].items():
+                    after[host] += n
+            return self._counts_fit(demand, after)
+
+        def place(chosen):
+            stats["plans"] += 1
+            hosts = {h: n.clone() for h, n in base.items()}
+            for i in chosen:
+                for pod in units[i]:
+                    host = (pod.get("spec") or {}).get("nodeName")
+                    if host in hosts:
+                        devices.return_pod_resources(
+                            codec.kube_pod_to_pod_info(
+                                pod, invalidate_existing=False), hosts[host])
+            return self.plan(pods, hosts=hosts)
+
+        def key_of(chosen):
+            victims = frozenset().union(*(names[i] for i in chosen))
+            key = cost(victims)
+            return None if key is None else (key, tuple(sorted(victims)))
+
+        found = None
+        if len(units) <= self.EXACT_UNITS:
+            ranked = []
+            for mask in range(1, 1 << len(units)):
+                chosen = [i for i in range(len(units)) if mask >> i & 1]
+                key = key_of(chosen)
+                if key is not None:
+                    ranked.append((key, chosen))
+            ranked.sort(key=lambda kc: kc[0])
+            for _, chosen in ranked:
+                if not counts_fit(chosen):
+                    continue
+                if stats["plans"] >= self.MAX_VICTIM_SETS:
+                    return None
+                assignment = place(chosen)
+                if assignment is not None:
+                    found = (assignment, chosen)
+                    break
+        else:
+            order = sorted((k, [i]) for i in range(len(units))
+                           if (k := key_of([i])) is not None)
+            chosen: list = []
+            for _, (i,) in order:
+                chosen.append(i)
+                if not counts_fit(chosen):
+                    continue
+                if stats["plans"] >= self.MAX_VICTIM_SETS:
+                    return None
+                assignment = place(chosen)
+                if assignment is not None:
+                    found = (assignment, list(chosen))
+                    break
+            if found is not None:
+                # keep the set minimal: drop each unit, dearest first,
+                # when the gang still places without it
+                assignment, chosen = found
+                for i in reversed(list(chosen)):
+                    rest = [j for j in chosen if j != i]
+                    if not rest or not counts_fit(rest):
+                        continue
+                    if stats["plans"] >= self.MAX_VICTIM_SETS:
+                        break
+                    trial = place(rest)
+                    if trial is not None:
+                        assignment, chosen = trial, rest
+                found = (assignment, chosen)
+        if found is None:
+            return None
+        assignment, chosen = found
+        used = set()
+        for host, cards in assignment.values():
+            for paths in cards.values():
+                for path in paths:
+                    owner = owners.get((host, grammar.gpu_prefix_from_path(
+                        path)))
+                    if owner is not None:
+                        used.add(owner)
+        victims = frozenset().union(*(names[i] for i in chosen
+                                      if names[i] & used))
+        return assignment, victims
 
     @staticmethod
     def pin_pod(kube_pod: dict, node_name: str, cards: dict) -> dict:

@@ -217,7 +217,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "cluster.lease", "obs.flight", "obs.profile",
                  "obs.timeseries", "obs.validate", "cmd.scheduler_main",
                  "scheduler.lifecycle", "scheduler.vectorized",
-                 "scheduler.batch"):
+                 "scheduler.batch", "cluster.apf", "scheduler.quota",
+                 "scheduler.extender", "scheduler.repair"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -7,8 +7,11 @@ binary with the port's plugin leaves it buffered, refuses a TPU pod with an
 event, fails over under ``--leader-elect``, serves ``/debug/pod/<name>``,
 runs its profiler and metrics time-series, writes one flight dump for a
 conflict streak, runs the node lifecycle controller (a node whose
-heartbeat stops loses its pod, which the binary binds elsewhere), and
-refuses the flags of later ROADMAP items. Two engines
+heartbeat stops loses its pod, which the binary binds elsewhere), gates
+tenants by their configured weights (``--tenant-quota``), repairs a pod
+off a failed card (``--repair``, elected as the JAX binary elects its
+controller), calls the config's and the policy's extenders, and refuses
+``--replicas`` above 1 (a later ROADMAP item). Two engines
 behind their shard coordinators, in process, split the work of two
 shards with every pod bound once."""
 
@@ -593,10 +596,6 @@ def test_a_conflict_streak_writes_one_flight_dump(tmp_path):
 
 
 @pytest.mark.parametrize("args,config,item", [
-    (("--tenant-quota",), None, "10.5"),
-    (("--repair",), None, "10.6"),
-    ((), {"extenders": [{"urlPrefix": "http://127.0.0.1:1"}]}, "10.6"),
-    ((), {"policy": {"extenders": [{"urlPrefix": "http://x"}]}}, "10.6"),
     (("--replicas", "2", "--shard", "1"), None, "10.7"),
     ((), {"replicas": 3}, "10.7")])
 def test_flags_of_later_items_refuse_to_start(tmp_path, args, config, item):
@@ -611,6 +610,161 @@ def test_flags_of_later_items_refuse_to_start(tmp_path, args, config, item):
     assert r.returncode != 0
     assert "NotImplementedError" in r.stderr
     assert f"ROADMAP Queue 1, item {item}" in r.stderr
+
+
+def _config(tmp_path, config: dict) -> tuple:
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(config))
+    return ("--config", str(path))
+
+
+def test_tenant_quota_parks_a_tenant_over_its_weighted_share(tmp_path):
+    """``--tenant-quota`` with ``tenantWeights`` {a: 3}: on one HGX host
+    with 8 a-pods and 4 b-pods of one card pending before the binary
+    starts, a binds its weighted share, 6 cards, and b its 2; the pods
+    over a share park in the gate."""
+    with served(fake.hgx_h100_inventory()) as (api, url):
+        names = [f"a{i}" for i in range(8)] + [f"b{i}" for i in range(4)]
+        for name in names:
+            api.create_pod(ts.pod(name, 1,
+                                  labels={"kgtpu.io/tenant": name[0]}))
+        binary = Binary(url, tmp_path, "--tenant-quota",
+                        *_config(tmp_path, {"tenantWeights": {"a": 3.0}}))
+        try:
+            _wait(lambda: sum(1 for n in names if _bound(api, n)) == 8,
+                  what="8 pods bound")
+            time.sleep(0.3)
+            bound = [n for n in names if _bound(api, n)]
+            assert [n[0] for n in sorted(bound)] == ["a"] * 6 + ["b"] * 2
+            assert binary.metric("quota_parked_total") >= 1
+        finally:
+            assert binary.stop() == 0, binary.stderr()
+
+
+def test_repair_takes_its_lease_and_moves_a_pod_off_a_failed_card(tmp_path):
+    """``--repair`` elects the repair controller on ``REPAIR_LEASE``; a
+    card of the bound pod fails, the controller evicts and requeues the
+    pod, and the binary binds the copy off that card."""
+    api = InMemoryAPIServer()
+    hosts = [GPUHost(api, f"host{i}", fake.hgx_h100_inventory(host=i))
+             for i in range(2)]
+    with served(api=api) as (api, url):
+        binary = Binary(url, tmp_path, "--repair", "--lease-ttl", "2")
+        try:
+            _wait(lambda: api.lease_holder(lease.REPAIR_LEASE),
+                  what="the repair lease")
+            api.create_pod(ts.pod("p", 8))
+            node = _wait(lambda: _bound(api, "p"), what="the pod")
+            _, alloc = ts.placement(api, "p")
+            uuid = grammar.gpu_id_from_path(sorted(alloc["main"].values())[0])
+            host = next(h for h in hosts if h.advertiser.node_name == node)
+            host.backend.set_chip_health(uuid, "failed")
+            host.advertiser.advertise_once()
+            _wait(lambda: (ts.placement(api, "p") or (None,))[0] not in
+                  (None, node), timeout=20, what="the pod rebound elsewhere")
+            reasons = [e["reason"] for e in api.list_events("p")]
+            assert {"CheckpointRequested", "Evicted"} <= set(reasons)
+            _wait(lambda: "outcome=\"repaired\"} 1" in binary.get(
+                "/metrics"), what="scheduler_repairs_total")
+        finally:
+            assert binary.stop() == 0, binary.stderr()
+        # a clean stop hands the lease back
+        assert api.lease_holder(lease.REPAIR_LEASE) is None
+
+
+class _ExtenderStub:
+    """A filter extender on loopback vetoing ``host0``."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        calls = self.calls = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers["Content-Length"])))
+                calls.append(body["pod"]["metadata"]["name"])
+                keep = [n for n in body["nodeNames"] if n != "host0"]
+                data = json.dumps({"nodeNames": keep, "failedNodes": {
+                    "host0": "vetoed"}}).encode()
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever,
+                         kwargs={"poll_interval": 0.02}, daemon=True).start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+@pytest.mark.parametrize("where", ["config", "policy"])
+def test_config_extenders_are_called(tmp_path, where):
+    """An extender declared in the config (top level, or inside its
+    policy) filters every pod: host0, which it vetoes, gets none."""
+    stub = _ExtenderStub()
+    declared = [{"urlPrefix": stub.url, "filterVerb": "filter"}]
+    config = {"extenders": declared} if where == "config" else \
+        {"policy": {"predicates": [{"name": "PodFitsResources"}],
+                    "extenders": declared}}
+    try:
+        with served(fake.hgx_h100_inventory(0),
+                    fake.hgx_h100_inventory(1)) as (api, url):
+            binary = Binary(url, tmp_path, *_config(tmp_path, config))
+            try:
+                for i in range(3):
+                    api.create_pod(ts.pod(f"p{i}", 2))
+                nodes = [_wait(lambda i=i: _bound(api, f"p{i}"),
+                               what=f"p{i}") for i in range(3)]
+                assert nodes == ["host1"] * 3
+                assert sorted(set(stub.calls)) == ["p0", "p1", "p2"]
+            finally:
+                assert binary.stop() == 0, binary.stderr()
+    finally:
+        stub.close()
+
+
+def test_the_repair_elector_is_wired_as_jax_wires_it():
+    """`start_repair_elector` twins the JAX binary's: nothing without
+    ``--repair``; with it, an elector on ``REPAIR_LEASE`` under the
+    holder's name that starts the controller, and stops it on demotion."""
+    import argparse
+
+    from kubegpu_tpu.cluster import lease as jax_lease
+    from kubegpu_tpu.cmd import scheduler_main as jax_main
+
+    assert lease.REPAIR_LEASE == jax_lease.REPAIR_LEASE
+    for repair_on in (False, True):
+        args = argparse.Namespace(repair=repair_on, lease_ttl=2.0)
+        holders = []
+        for start, client in (
+                (scheduler_main.start_repair_elector,
+                 ts.PortAPI(InMemoryAPIServer())),
+                (jax_main.start_repair_elector, InMemoryAPIServer())):
+            elector = start(client, args, "me")
+            if not repair_on:
+                assert elector is None
+                continue
+            try:
+                _wait(lambda: client.lease_holder(lease.REPAIR_LEASE),
+                      what="the repair lease")
+                holders.append(client.lease_holder(lease.REPAIR_LEASE))
+                controller = elector._on_acquire.__self__
+                _wait(lambda: controller._thread is not None and
+                      controller._thread.is_alive(), what="its loop")
+            finally:
+                elector.stop()
+            assert not controller._thread.is_alive()
+            assert type(controller).__name__ == "RepairController"
+        assert holders == (["me", "me"] if repair_on else [])
 
 
 @pytest.mark.parametrize("args,config,controller", [

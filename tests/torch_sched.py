@@ -1,4 +1,6 @@
-"""Shared by tests/test_torch_scheduler.py and tests/test_torch_gang.py:
+"""Shared by the port's engine tests (tests/test_torch_scheduler.py,
+test_torch_gang.py, test_torch_gang_preempt.py, test_torch_quota.py,
+test_torch_extender.py and test_torch_repair.py among them):
 GPU clusters on the JAX package's in-memory API server, scheduled either
 by the port's engine (`kubegpu_tpu_torch.scheduler.core.Scheduler` over
 `build_device_scheduler`) or by the JAX engine with the port's plugin
@@ -56,13 +58,14 @@ class PortAPI:
 
 
 def cluster(engine: str, *inventories, tweak=None, monkeypatch=None,
-            path: str | None = None):
+            path: str | None = None, **engine_kw):
     """``(api, hosts, scheduler)``: one `GPUHost` per inventory
     (``host0``, ``host1``, ...), ``tweak(api, hosts)`` applied to the
     cluster before the engine starts, then the engine on ``path``
     (``"scalar"`` or ``"default"``; the JAX engine's is scalar unless
-    asked, the port's default). Without ``monkeypatch`` the port's engine
-    takes the path the environment gives it."""
+    asked, the port's default), built with ``engine_kw`` (``quota=``,
+    ``extenders=``). Without ``monkeypatch`` the port's engine takes the
+    path the environment gives it."""
     api = InMemoryAPIServer()
     hosts = {f"host{i}": GPUHost(api, f"host{i}", inv)
              for i, inv in enumerate(inventories)}
@@ -77,8 +80,9 @@ def cluster(engine: str, *inventories, tweak=None, monkeypatch=None,
         ds = JaxRegistry()
         ds.add_device(TPUScheduler())
         assert ds.add_devices_from_plugins(SCHEDULER_PLUGINS) == 1
-        return api, hosts, JaxScheduler(api, ds)
-    return api, hosts, Scheduler(PortAPI(api), build_device_scheduler())
+        return api, hosts, JaxScheduler(api, ds, **engine_kw)
+    return api, hosts, Scheduler(PortAPI(api), build_device_scheduler(),
+                                 **engine_kw)
 
 
 def edit_node(api, name: str, labels=None, taints=None) -> None:
@@ -141,3 +145,38 @@ def free_gang_id() -> int:
             except OSError:
                 continue
     raise RuntimeError("no free coordinator port")
+
+
+def card_paths(api, node: str) -> dict:
+    """``{card UUID: its cards-leaf path}`` as ``node`` advertises them."""
+    info = codec.annotation_to_node_info(api.get_node(node)["metadata"])
+    return {grammar.gpu_id_from_path(p): p for p in info.allocatable
+            if grammar.gpu_id_from_path(p) is not None}
+
+
+def bound_pod(api, node: str, name: str, uuids, *, priority: int = 0,
+              labels=None, gang_id=None, gang_size=None) -> dict:
+    """A pod already bound to exact cards of ``node`` (identity
+    ``allocate_from``, as the engine pins a gang member), created on the
+    API server: a fixed pattern for preemption scenarios."""
+    paths = card_paths(api, node)
+    p = pod(name, len(uuids), priority=priority, labels=labels,
+            gang_id=gang_id, gang_size=gang_size)
+    pi = jax_codec.kube_pod_to_pod_info(p, invalidate_existing=False)
+    cont = pi.running_containers["main"]
+    for uuid in uuids:
+        cont.dev_requests[paths[uuid]] = 1
+        cont.allocate_from[paths[uuid]] = paths[uuid]
+    pi.node_name = node
+    jax_codec.pod_info_to_annotation(p["metadata"], pi)
+    p["spec"]["nodeName"] = node
+    api.create_pod(p)
+    return p
+
+
+def alive(api, name: str) -> bool:
+    try:
+        api.get_pod(name)
+        return True
+    except KeyError:
+        return False
