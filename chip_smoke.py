@@ -227,6 +227,20 @@ T = 2048, no remat), random weights from a seed:
    each, ``launches_repair_run``): failure to eviction seconds, eviction
    to rebind ms, the resumed first step, ``scheduler_repairs_total`` and
    the extender's calls;
+   control_plane: the port's own control plane, every part a subprocess:
+   ``kgtpu-gpu-apiserver --wal-dir D --apf`` on the stream wire, 1024
+   fake HGX hosts registered through the port's client, the node agent
+   on this card, and two ``kgtpu-gpu-scheduler --replicas 2 --shard I``;
+   a 1-card pod placed on the card's node trains 3 steps through the
+   agent (18 sm90 launches of each, ``launches_control_plane_run``); the
+   mass arrival's 1000 pods each bound once with no card held twice
+   (seconds to all bound, pods/s, each replica's commits and conflicts);
+   the server SIGKILLed and restarted on its port and WAL (seconds to
+   ``/healthz``, nodes and pods equal to before, a new pod bound by the
+   replicas, a ``/bindmany`` claiming the trained pod's card refused 409
+   naming it); one tenant's create flood shed with 429s while node
+   PATCHes pass (their p50/p99, idle and under the flood); and the same
+   burst with one replica on a fresh server;
 23. checkers: under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
@@ -2697,7 +2711,7 @@ class _StubAPIServer:
                     out["per_pod"] = e.per_pod
                 return encode(409, out)
 
-        def push(conn, since, kinds):
+        def push(conn, wlock, since, kinds):
             """A subscribed connection: every batch after ``since`` as a
             ``PUSH``, a ``PING`` when idle, until the client goes."""
             cursor = since
@@ -2706,10 +2720,10 @@ class _StubAPIServer:
                 if seq > cursor:
                     payload = codec.encode_watch_batch(
                         evs, seq, epoch=outer.epoch, ts=time.time())
-                    stream.send_frame(conn, stream.PUSH, 0, payload)
+                    stream.send_frame(conn, wlock, stream.PUSH, 0, payload)
                     cursor = seq
                 elif not outer._closing:
-                    stream.send_frame(conn, stream.PING, 0, b"")
+                    stream.send_frame(conn, wlock, stream.PING, 0, b"")
 
         class Handler(BaseHTTPRequestHandler):
             # keep-alive and no Nagle, as the JAX API server: a reply's
@@ -2743,6 +2757,8 @@ class _StubAPIServer:
                 self.end_headers()
                 self.wfile.flush()
                 self.close_connection = True
+                # this handler's thread is the connection's one writer
+                wlock = threading.Lock()
                 try:
                     while True:
                         ftype, rid, payload = stream.read_frame(self.rfile)
@@ -2757,16 +2773,17 @@ class _StubAPIServer:
                                 outer.subscriptions += 1
                             # the ack before any push
                             stream.send_frame(
-                                self.connection, stream.RESP, rid,
+                                self.connection, wlock, stream.RESP, rid,
                                 codec.encode_response(200, {
                                     "seq": outer._seq,
                                     "epoch": outer.epoch}))
-                            return push(self.connection, since, kinds)
+                            return push(self.connection, wlock, since,
+                                        kinds)
                         if ftype != stream.REQ:
                             raise stream.FrameError(f"frame type {ftype}")
                         method, path, body, _ = codec.decode_request(payload)
                         stream.send_frame(
-                            self.connection, stream.RESP, rid,
+                            self.connection, wlock, stream.RESP, rid,
                             dispatch(method, path, body,
                                      codec.encode_response))
                         with lock:
@@ -3865,7 +3882,8 @@ class _SchedulerBinary:
         self.lines: list = []
         for line in self.proc.stdout:
             self.lines.append(line.strip())
-            if line.startswith(("scheduler running", "scheduler candidate")):
+            if line.startswith(("scheduler running", "scheduler candidate",
+                                "scheduler replica")):
                 break
         else:
             watchdog.cancel()
@@ -4476,6 +4494,458 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
     return row
 
 
+CP_TTL_S = 3.0
+CP_LABEL = {"kgtpu.io/smoke": "card"}
+CP_FLOOD_THREADS = 400
+CP_FLOOD_S = 3.0
+CP_PATCHES = 100
+
+
+class _APIServerProc:
+    """``python -m kubegpu_tpu_torch.cmd.apiserver_main ARGS`` on a fixed
+    loopback port, waited for until it says it listens (killed, and the
+    phase failed with its stderr, when it has not within 60 s); `start`
+    again after `stop` restarts it on the same port and arguments."""
+
+    def __init__(self, root: str, env: dict, tmp: str, *args):
+        self.port = _free_port()
+        self.url = f"http://127.0.0.1:{self.port}"
+        self.root, self.env, self.tmp, self.args = root, env, tmp, args
+        self.proc = self._err = None
+        self.lives = 0
+
+    def start(self) -> None:
+        import threading
+
+        self.lives += 1
+        self.err_path = os.path.join(
+            self.tmp, f"apiserver-{self.port}-{self.lives}.err")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kubegpu_tpu_torch.cmd.apiserver_main",
+             "--port", str(self.port), *self.args],
+            cwd=self.root, env=self.env, stdout=subprocess.PIPE,
+            stderr=self._err, text=True)
+        watchdog = threading.Timer(60, self.proc.kill)
+        watchdog.start()
+        line = self.proc.stdout.readline()
+        watchdog.cancel()
+        if not line.startswith("apiserver listening at "):
+            self.stop()
+            raise AssertionError(f"the apiserver said {line!r}: "
+                                 f"{self.stderr()}")
+
+    def stderr(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()[-3000:]
+
+    def metric(self, line_start: str) -> float:
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + "/metrics", timeout=30) as r:
+            for line in r.read().decode().splitlines():
+                if line.startswith(line_start + " "):
+                    return float(line.split()[-1])
+        return 0.0
+
+    def stop(self, sig=None) -> int:
+        import signal
+
+        if self.proc is None:
+            return 0
+        if self.proc.poll() is None:
+            self.proc.send_signal(sig or signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=30)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.proc.stdout.close()
+            self._err.close()
+
+
+def _register_hosts(client, hosts: int) -> float:
+    """``hosts`` fake HGX hosts (``cp-hgx<i>``, eight cards each) created
+    through ``client``; their seconds."""
+    from kubegpu_tpu_torch.node import fake
+
+    nodes = [_gpu_node(f"cp-hgx{i}", fake.FakeGPUBackend(
+        fake.hgx_h100_inventory(i))) for i in range(hosts)]
+    t = time.perf_counter()
+    for node in nodes:
+        client.create_node(node)
+    return time.perf_counter() - t
+
+
+class _BindWatch:
+    """A watcher of pod binds through the port's client: every node each
+    pod was seen bound to, and the last bind's host clock."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.nodes: dict = {}
+        self.last = 0.0
+
+    def __call__(self, kind, event, obj):
+        node = (obj.get("spec") or {}).get("nodeName")
+        if kind == "pod" and node:
+            with self.lock:
+                self.nodes.setdefault(obj["metadata"]["name"],
+                                      set()).add(node)
+                self.last = time.perf_counter()
+
+    def bound(self, names) -> int:
+        with self.lock:
+            return sum(1 for n in names if n in self.nodes)
+
+
+def _burst(client, watch, pods: int, timeout: float) -> dict:
+    """MASS_SIZES cards a pod, cycling, ``pods`` pods created one by one
+    through ``client``, then waited for until every one is bound: its
+    seconds from the first create to the last bind, and pods/s."""
+    names = [f"ma{i}" for i in range(pods)]
+    t = time.perf_counter()
+    for i, name in enumerate(names):
+        client.create_pod(_gpu_pod(name, MASS_SIZES[i % 4]))
+    created = time.perf_counter() - t
+    _wait_for(lambda: watch.bound(names) == pods, timeout,
+              f"{pods} pods bound")
+    wall = watch.last - t
+    with watch.lock:
+        twice = [n for n in names if len(watch.nodes[n]) != 1]
+    if twice:
+        raise AssertionError(f"pods bound to two nodes: {twice[:5]}")
+    return {"pods": pods, "create_s": created, "all_bound_s": wall,
+            "pods_per_s": pods / wall}
+
+
+def _cards_held_once(client) -> int:
+    """Raise unless no ``(node, card UUID)`` is in two bound pods'
+    allocations; the cards held."""
+    from kubegpu_tpu_torch.core import grammar
+
+    held: dict = {}
+    for pod in client.list_pods(bound=True):
+        node = pod["spec"]["nodeName"]
+        for path in _cards_of(pod):
+            key = (node, grammar.gpu_id_from_path(path))
+            if key in held:
+                raise AssertionError(f"card {key} held by {held[key]} and "
+                                     f"{pod['metadata']['name']}")
+            held[key] = pod["metadata"]["name"]
+    return len(held)
+
+
+def _pctl(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def _patch_ms(client, node: str, n: int) -> list:
+    """``n`` PATCHes of ``node``'s metadata, each one's ms; raises if one
+    is refused."""
+    out = []
+    for i in range(n):
+        t = time.perf_counter()
+        client.patch_node_metadata(node, {"annotations": {
+            "kgtpu.io/smoke-patch": str(i)}})
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def _flood(url: str, node: str, threads: int, min_s: float) -> dict:
+    """One tenant floods pod creates from ``threads`` connections for at
+    least ``min_s`` seconds (and until one is shed, at most 20 s) while
+    this thread PATCHes ``node``'s metadata (the system band): the
+    creates admitted and shed (with the advised retry), and the PATCH
+    p50/p99 under the flood against idle."""
+    import threading
+
+    from kubegpu_tpu_torch.cluster.httpapi import (HTTPAPIClient,
+                                                    TooManyRequests)
+
+    client = HTTPAPIClient(url, wire="stream")
+    idle = _patch_ms(client, node, CP_PATCHES)
+    stop = threading.Event()
+    lock = threading.Lock()
+    tally = {"admitted": 0, "shed": 0, "retry_after_s": set(), "errors": []}
+
+    def flood(k: int) -> None:
+        c = HTTPAPIClient(url, wire="stream")
+        i = 0
+        try:
+            while not stop.is_set():
+                pod = _gpu_pod(f"flood-{k}-{i}", 1)
+                pod["metadata"]["labels"] = {"kgtpu.io/tenant": "flood"}
+                i += 1
+                try:
+                    c.create_pod(pod)
+                    with lock:
+                        tally["admitted"] += 1
+                except TooManyRequests as err:
+                    with lock:
+                        tally["shed"] += 1
+                        tally["retry_after_s"].add(err.retry_after_s)
+        except Exception as err:  # noqa: BLE001
+            with lock:
+                tally["errors"].append(f"{type(err).__name__}: {err}")
+        finally:
+            c.close()
+
+    workers = [threading.Thread(target=flood, args=(k,), daemon=True,
+                                name=f"tenant-flood-{k}")
+               for k in range(threads)]
+    t = time.perf_counter()
+    for w in workers:
+        w.start()
+    loaded: list = []
+    while True:
+        loaded += _patch_ms(client, node, 10)
+        elapsed = time.perf_counter() - t
+        with lock:
+            shed = tally["shed"]
+        if elapsed >= 20 or (elapsed >= min_s and shed and
+                             len(loaded) >= CP_PATCHES):
+            break
+    stop.set()
+    for w in workers:
+        w.join(timeout=60)
+    client.close()
+    if tally["errors"]:
+        raise AssertionError(f"the flood's clients failed: "
+                             f"{tally['errors'][:3]}")
+    if not tally["shed"] or not all(r > 0 for r in tally["retry_after_s"]):
+        raise AssertionError(f"the flood was not shed with retry_after_s: "
+                             f"{tally}")
+    return {"threads": threads, "seconds": elapsed,
+            "admitted": tally["admitted"], "shed_429": tally["shed"],
+            "retry_after_s": sorted(tally["retry_after_s"]),
+            "patches_idle": len(idle), "patches_loaded": len(loaded),
+            "patch_ms_idle": {"p50": _pctl(idle, 0.5),
+                              "p99": _pctl(idle, 0.99)},
+            "patch_ms_loaded": {"p50": _pctl(loaded, 0.5),
+                                "p99": _pctl(loaded, 0.99)}}
+
+
+def _replica_metrics(reps) -> dict:
+    return {"commits": [r.metric("scheduler_binding_latency_microseconds"
+                                 "_count") for r in reps],
+            "conflicts": [r.metric("sched_conflicts_total") for r in reps]}
+
+
+def control_plane_phase(backend: str = "nvml", train: bool = True,
+                        hosts: int = MASS_HOSTS,
+                        pods: int = MASS_PODS) -> dict:
+    """The port's own control plane, every part a subprocess: a
+    ``kgtpu-gpu-apiserver --wal-dir D --apf`` on the stream wire, ``hosts``
+    fake HGX hosts registered through the port's client, the node agent
+    on this card (``backend``), and two ``kgtpu-gpu-scheduler --replicas 2
+    --shard I`` replicas. A 1-card pod is placed on the card's node (a
+    nodeSelector on a label of it) and, with ``train``, trains DEVICE_STEPS
+    steps through the agent (18 sm90 launches of each of K1-K3,
+    ``launches_control_plane_run``). Then the mass arrival: ``pods`` pods
+    of MASS_SIZES cards, each bound once, no card in two pods; seconds to
+    all bound, pods/s, each replica's commits and conflicts. The server
+    is SIGKILLed and restarted on its port and directory: seconds to the
+    first ``/healthz`` 200, nodes and pods equal to before, a pod created
+    after bound by the replicas (their watches resumed), and a
+    ``/bindmany`` that claims the trained pod's card for another pod
+    answered 409 naming the card. With the replicas stopped, one tenant
+    floods creates (`_flood`): at least one 429 with ``retry_after_s``,
+    every node PATCH answered, their p50/p99. Last, the same burst with
+    one replica on a fresh server. Raises on any mismatch."""
+    import signal
+    import tempfile
+    import types
+    import urllib.request
+
+    from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
+    from kubegpu_tpu_torch.cluster.lease import SHARD_LEASE_PREFIX
+    from kubegpu_tpu_torch.core import codec, grammar
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base_env = {k: v for k, v in os.environ.items() if k not in (
+        "CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER",
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-control-plane-")
+    server = _APIServerProc(root, base_env, tmp, "--wal-dir",
+                            os.path.join(tmp, "wal"), "--apf")
+    solo_server = _APIServerProc(root, base_env, tmp, "--wal-dir",
+                                 os.path.join(tmp, "wal-solo"), "--apf")
+    clients: list = []
+    reps: list = []
+    agent = watchdog = agent_err = None
+    try:
+        server.start()
+        client = HTTPAPIClient(server.url, wire="stream")
+        clients.append(client)
+        register_s = _register_hosts(client, hosts)
+        agent, cri, _, agent_err, watchdog = _start_agent(
+            root, base_env, types.SimpleNamespace(url=server.url), tmp,
+            backend)
+        _wait_for(lambda: codec.NODE_ANNOTATION_KEY in (
+            client.get_node(NODE)["metadata"].get("annotations") or {}),
+            60, "the agent's advertise")
+        client.patch_node_metadata(NODE, {"labels": CP_LABEL})
+        reps = [_SchedulerBinary(root, base_env, tmp, server.url,
+                                 "--replicas", "2", "--shard", str(s),
+                                 "--lease-ttl", str(CP_TTL_S),
+                                 "--wire", "stream") for s in range(2)]
+        # each replica takes the other's vacant shard until it sees its
+        # lease: the pods come once both are held and a tick has passed
+        _wait_for(lambda: all(client.lease_holder(
+            f"{SHARD_LEASE_PREFIX}-{s}") for s in range(2)), 30,
+            "both shard leases held")
+        time.sleep(CP_TTL_S / 3 + 0.5)
+        watch = _BindWatch()
+        client.add_watcher(watch)
+        # the pod on the card, first: its node's one card is then taken
+        pod = _gpu_pod("cp-pod", 1)
+        pod["spec"]["nodeSelector"] = dict(CP_LABEL)
+        t = time.perf_counter()
+        client.create_pod(pod)
+        _wait_for(lambda: watch.bound(["cp-pod"]), 60, "cp-pod bound")
+        cp_bound_ms = (watch.last - t) * 1e3
+        placed = client.get_pod("cp-pod")
+        alloc = codec.kube_pod_to_pod_info(
+            placed, invalidate_existing=False).running_containers[
+            "main"].allocate_from
+        card = [grammar.gpu_id_from_path(p) for p in alloc.values()
+                if grammar.gpu_id_from_path(p)]
+        if placed["spec"]["nodeName"] != NODE or len(card) != 1:
+            raise AssertionError(f"cp-pod on {placed['spec']['nodeName']} "
+                                 f"with {alloc}")
+        pod_s = out = counted = None
+        if train:
+            pod_s, out, counted = _run_training_pod(
+                cri, "cp-pod", {"devices": [], "envs": []})
+        before = _replica_metrics(reps)
+        two = _burst(client, watch, pods, 300)
+        after = _replica_metrics(reps)
+        commits = [a - b for a, b in zip(after["commits"],
+                                         before["commits"])]
+        conflicts = [a - b for a, b in zip(after["conflicts"],
+                                           before["conflicts"])]
+        if sum(commits) != pods or not all(commits):
+            raise AssertionError(f"the replicas committed {commits} of "
+                                 f"{pods}")
+        two.update(cards_held=_cards_held_once(client),
+                   commits_per_replica=commits,
+                   conflicts_per_replica=conflicts,
+                   api_requests_total=server.metric(
+                       'api_requests_total{server="apiserver"}'))
+        # the crash: the agent stops first, so nothing moves meanwhile
+        agent.send_signal(signal.SIGTERM)
+        if agent.wait(timeout=10) != 0:
+            raise AssertionError(f"the agent exited {agent.returncode}")
+        nodes, listed = client.list_nodes(), client.list_pods()
+        client.close()
+        t = time.perf_counter()
+        server.stop(signal.SIGKILL)
+        server.start()
+
+        def healthy():
+            try:
+                with urllib.request.urlopen(server.url + "/healthz",
+                                            timeout=5) as r:
+                    return r.status == 200
+            except OSError:
+                return False
+        _wait_for(healthy, 60, "the restarted server's /healthz")
+        recover_s = time.perf_counter() - t
+        client = HTTPAPIClient(server.url, wire="stream")
+        clients.append(client)
+        if client.list_nodes() != nodes or client.list_pods() != listed:
+            raise AssertionError("the recovered nodes or pods differ")
+        watch = _BindWatch()
+        client.add_watcher(watch)
+        t = time.perf_counter()
+        client.create_pod(_gpu_pod("after-restart", 1))
+        _wait_for(lambda: watch.bound(["after-restart"]), 60,
+                  "a pod created after the restart bound")
+        after_restart_ms = (watch.last - t) * 1e3
+        # a claim on the trained pod's card for another pod (one no
+        # replica will place): refused by the recovered arbiter
+        thief = _gpu_pod("thief", 1)
+        thief["spec"]["nodeSelector"] = {"kgtpu.io/smoke": "none"}
+        client.create_pod(thief)
+        status, doc = client.forward("POST", "/bindmany", {
+            "bindings": {"thief": NODE},
+            "annotations": {"thief": placed["metadata"]["annotations"]}})
+        if status != 409 or card[0] not in str(doc.get("per_pod", {}).get(
+                "thief")):
+            raise AssertionError(f"the stolen card's bind got {status} "
+                                 f"{doc}")
+        for r in reps:
+            if r.stop() != 0:
+                raise AssertionError(f"a replica exited {r.proc.returncode}"
+                                     f": {r.stderr()}")
+        flood = _flood(server.url, NODE, CP_FLOOD_THREADS, CP_FLOOD_S)
+        flood["apf_rejects_total"] = server.metric(
+            'apf_rejects_total{band="workload"}')
+        flood["apf_rejects_total_system"] = server.metric(
+            'apf_rejects_total{band="system"}')
+        if flood["apf_rejects_total_system"]:
+            raise AssertionError("the front door shed system traffic")
+        client.close()
+        if server.stop() != 0:
+            raise AssertionError(f"the apiserver exited "
+                                 f"{server.proc.returncode}: "
+                                 f"{server.stderr()}")
+        # the same burst, one replica, a fresh server
+        solo_server.start()
+        client = HTTPAPIClient(solo_server.url, wire="stream")
+        clients.append(client)
+        _register_hosts(client, hosts)
+        solo = _SchedulerBinary(root, base_env, tmp, solo_server.url,
+                                "--wire", "stream")
+        reps = [solo]
+        watch = _BindWatch()
+        client.add_watcher(watch)
+        one = _burst(client, watch, pods, 300)
+        one.update(cards_held=_cards_held_once(client),
+                   commits=solo.metric(
+                       "scheduler_binding_latency_microseconds_count"))
+        if one["commits"] != pods:
+            raise AssertionError(f"the replica committed {one['commits']}")
+    finally:
+        for r in reps:
+            r.stop()
+        for c in clients:
+            c.close()
+        if watchdog is not None:
+            watchdog.cancel()
+        if agent is not None:
+            if agent.poll() is None:
+                agent.kill()
+                agent.wait()
+            agent.stdout.close()
+            agent_err.close()
+        server.stop()
+        solo_server.stop()
+    row = {"phase": "control_plane", "nvidia_smi": smi_line(),
+           "note": "host times on the card's machine; every process is the "
+                   "port's (apiserver --wal-dir --apf, two --replicas 2 "
+                   "schedulers, the node agent)",
+           "hosts": hosts, "register_s": register_s,
+           "cp_pod_create_to_bound_ms": cp_bound_ms, "card": card[0],
+           "pod_s": pod_s,
+           "launches_fwd_dq_dkv": counted and counted["launches"],
+           "launches_by_instance": counted and counted["by_instance"],
+           "losses": out and out["losses_full"],
+           "replicas_2": two, "replicas_1": one,
+           "sigkill_to_healthz_s": recover_s, "recovered_equal": True,
+           "after_restart_create_to_bound_ms": after_restart_ms,
+           "stolen_card_status": status, "flood": flood,
+           "seconds": time.perf_counter() - t0, "ok": True}
+    emit(row)
+    return row
+
+
 def _counted_drain(cfg, params, prompts, fused) -> dict:
     """One greedy drain of ``prompts`` under the counter, in the section
     "fused" or "oracle": the streams, the server's decode steps (a chunk
@@ -4657,6 +5127,7 @@ def main() -> int:
     device = device_side_phase()
     scheduler_phase()
     sched_bin = scheduler_binary_phase()
+    cp = control_plane_phase()
     checkers = checkers_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
@@ -4704,6 +5175,7 @@ def main() -> int:
         "launches_lifecycle_run":
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][0],
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][0],
+        "launches_control_plane_run": cp["launches_fwd_dq_dkv"][0],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][0],
         "dispatches_checkers_step": checkers["train_kgt_flash_fwd"],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
@@ -4736,6 +5208,7 @@ def main() -> int:
         "launches_lifecycle_run":
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][1],
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][1],
+        "launches_control_plane_run": cp["launches_fwd_dq_dkv"][1],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][1],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
@@ -4766,6 +5239,7 @@ def main() -> int:
         "launches_lifecycle_run":
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][2],
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][2],
+        "launches_control_plane_run": cp["launches_fwd_dq_dkv"][2],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][2],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),

@@ -1,2 +1,3 @@
-"""The port's client of the JAX package's API server, on its JSON and
-stream wires."""
+"""The port's control plane: its API server (the store and arbiter, the
+write-ahead log, the front door) and the client, on the JSON and stream
+wires."""

@@ -1,0 +1,1048 @@
+"""The port's API server: a thread-safe in-memory store of the object
+surface this framework uses (nodes, pods, volumes and claims, PDBs, the
+four selector-owner kinds, events, tenant quotas and leases), with
+metadata patching, binding and change notification.
+
+The port's copy of ``kubegpu_tpu/cluster/apiserver.py`` (the reference's
+`kubeinterface.go:145-193`, the scheduler's bind at `scheduler.go:405-417`).
+It is also the optimistic-concurrency arbiter that lets N scheduler
+replicas commit through one store: a bind is refused with a `Conflict`
+naming the pod when it would re-bind a bound pod, claim a GPU card another
+bound pod holds (a card is ``(node, .../gpu/<UUID>)``, from
+``grammar.gpu_prefix_from_path``), or take a coordinator port promised to
+another gang. A tenant's ``hard_chips`` cap counts GPU cards
+(``apf.pod_chip_request``); the key keeps the JAX wire's name.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import threading
+import time
+
+from kubegpu_tpu_torch import obs
+from kubegpu_tpu_torch.cluster import apf
+from kubegpu_tpu_torch.cluster.lease import LeaseTable
+from kubegpu_tpu_torch.core import codec, grammar
+
+# Span identity for the arbiter's trace rows: whichever process hosts
+# this store (a dedicated apiserver binary or an in-process simulate),
+# its commit/refusal spans must be tellable apart from scheduler spans.
+_OBS_PROC = "apiserver"
+
+# The gang process contract's annotation key (scheduler/gang.py writes
+# it). Spelled out here rather than imported: the cluster layer must not
+# depend on the scheduler package — the arbiter only reads the wire shape.
+_GANG_PROCESS_ANNOTATION = "pod.alpha/GangProcess"
+
+
+class NotFound(KeyError):
+    """Object missing. Batched verbs (``bind_many``,
+    ``update_pod_annotations_many``) attach ``per_pod`` — {pod name ->
+    reason} — so a client can tell WHICH pods failed instead of
+    degrading the whole batch."""
+
+    def __init__(self, message: str = "", per_pod: dict | None = None):
+        super().__init__(message)
+        self.per_pod = dict(per_pod or {})
+
+    def __str__(self) -> str:
+        # KeyError's str() repr-quotes its message, which re-quotes on
+        # every reconstruct -> re-serialize pass — through the
+        # watch-cache proxy the error text must round-trip verbatim, so
+        # a hop is invisible in the body a client sees
+        return str(self.args[0]) if self.args else ""
+
+
+class Conflict(RuntimeError):
+    """Optimistic-concurrency refusal: the write would contradict
+    committed state (pod bound elsewhere, card already allocated to
+    another bound pod, coordinator port promised to another gang).
+    ``per_pod`` carries the per-pod reasons for batched verbs — the
+    binder uses it to forget+requeue exactly the losers and commit the
+    rest, and to distinguish this definitive server answer from a
+    transient transport failure (which retries in place)."""
+
+    def __init__(self, message: str = "", per_pod: dict | None = None):
+        super().__init__(message)
+        self.per_pod = dict(per_pod or {})
+
+
+class QuotaExceeded(RuntimeError):
+    """A tenant is over its card quota. Two raisers, one type: the
+    apiserver's create-time admission when a configured HARD cap
+    (``set_quota(tenant, hard_chips=...)``) would be exceeded — mapped
+    to HTTP 403 on both wires like real Kubernetes ResourceQuota — and
+    the scheduler's dominant-resource fair-share gate at pod-pop time
+    (``scheduler/quota.py``), where it is the typed unschedulable
+    reason a parked pod shows in ``/debug/pod/<name>``."""
+
+    def __init__(self, message: str = "", per_pod: dict | None = None):
+        super().__init__(message)
+        self.per_pod = dict(per_pod or {})
+
+
+def _pod_claims(annotations: dict | None) -> tuple:
+    """What a pod's annotations pin on its node: ``(card prefixes,
+    coordinator claim | None)``. Card prefixes (``.../gpu/<UUID>``) come
+    from the device allocation's ``allocatefrom`` cards-leaf paths
+    ((node, prefix) identifies a physical card, as the gang planner keys
+    it); the coordinator claim is ``(node, port, gang id)`` from the gang
+    process contract. Unparseable annotations claim nothing: the arbiter
+    must never turn a malformed pod into a refused bind."""
+    cards: set = set()
+    coord = None
+    ann = annotations or {}
+    raw = ann.get(codec.POD_ANNOTATION_KEY)
+    if raw:
+        try:
+            dev = json.loads(raw)
+        except (TypeError, ValueError):
+            dev = None
+        if isinstance(dev, dict):
+            for section in ("initcontainer", "runningcontainer"):
+                for cont in (dev.get(section) or {}).values():
+                    if not isinstance(cont, dict):
+                        continue
+                    for path in (cont.get("allocatefrom") or {}).values():
+                        prefix = grammar.gpu_prefix_from_path(str(path))
+                        if prefix is not None:
+                            cards.add(prefix)
+    raw = ann.get(_GANG_PROCESS_ANNOTATION)
+    if raw:
+        try:
+            gp = json.loads(raw)
+            coord = (str(gp["coordinator_node"]),
+                     int(gp["coordinator_port"]), int(gp["gang"]))
+        except (TypeError, ValueError, KeyError):
+            coord = None
+    return cards, coord
+
+
+def _merge(dst: dict, patch: dict) -> None:
+    """Strategic-merge-patch for the metadata shapes we carry: dicts merge
+    recursively, everything else replaces."""
+    for key, val in patch.items():
+        if isinstance(val, dict) and isinstance(dst.get(key), dict):
+            _merge(dst[key], val)
+        else:
+            dst[key] = copy.deepcopy(val)
+
+
+class InMemoryAPIServer:
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._nodes: dict = {}
+        self._pods: dict = {}
+        self._pdbs: dict = {}
+        self._pvcs: dict = {}
+        self._pvs: dict = {}
+        # selector owners for SelectorSpreadPriority
+        # (`selector_spreading.go`: services, RCs, RSs, StatefulSets)
+        self._owners: dict = {k: {} for k in
+                              ("service", "rc", "rs", "statefulset")}
+        # insertion-ordered (kind, name, reason, message) -> event; the
+        # key IS the dedup identity, so record_event is O(1) not a scan
+        self._events: dict = {}
+        self._watchers: list = []
+        # Secondary pod indexes, maintained under self._lock by every pod
+        # mutator (the same discipline as _notify_locked): lifecycle
+        # eviction, gang lookup, and preemption's victim scan read
+        # pods-by-node / bound / by-phase slices instead of sweeping
+        # every pod in the cluster.
+        self._pods_by_node: dict = {}   # node name -> {pod names}
+        self._pods_by_phase: dict = {}  # status.phase -> {pod names}
+        # Optimistic-concurrency claim indexes (multi-scheduler HA): what
+        # each BOUND pod's annotations pin, maintained by the same
+        # index/deindex discipline as the pod indexes above. bind_pod /
+        # bind_many arbitrate against these — a bind that would
+        # oversubscribe a card or re-bind a taken coordinator port
+        # returns Conflict with per-pod detail, which is what lets N
+        # scheduler replicas commit through one shared store safely.
+        self._card_claims: dict = {}   # (node, card prefix) -> pod name
+        self._coord_claims: dict = {}  # (node, port) -> [gang id, {pods}]
+        # Tenant quota config (tenant -> {"weight", "hard_chips"}) and
+        # the incremental created-cards ledger admission checks against:
+        # per-pod entries so bind-time re-indexing and WAL replay stay
+        # idempotent, maintained by the same index/deindex discipline.
+        self._quotas: dict = {}
+        self._tenant_cards: dict = {}      # tenant -> cards created
+        self._pod_tenant_cards: dict = {}  # pod name -> (tenant, cards)
+        # Leader-election / shard-ownership leases, served uniformly by
+        # every client surface (in-process here, HTTP via httpapi).
+        self._leases = LeaseTable()
+
+    # ---- leases ------------------------------------------------------------
+
+    def acquire_lease(self, name: str, holder: str, ttl_s: float) -> bool:
+        return self._leases.acquire(name, holder, ttl_s)
+
+    def lease_holder(self, name: str):
+        return self._leases.holder(name)
+
+    def release_lease(self, name: str, holder: str) -> bool:
+        return self._leases.release(name, holder)
+
+    MAX_EVENTS = 5000
+
+    # ---- tenant quotas -----------------------------------------------------
+
+    def set_quota(self, tenant: str, spec: dict) -> dict:
+        """Configure one tenant's quota: ``weight`` (fair-share weight
+        the scheduler-side DRF gate consumes) and/or ``hard_chips`` (a
+        create-time admission cap this server enforces itself)."""
+        out = {}
+        if "weight" in spec and spec["weight"] is not None:
+            out["weight"] = float(spec["weight"])
+        if "hard_chips" in spec and spec["hard_chips"] is not None:
+            out["hard_chips"] = int(spec["hard_chips"])
+        with self._lock:
+            self._quotas[tenant] = out
+            self._notify_locked("quota", "modified",
+                                {"metadata": {"name": tenant},
+                                 "spec": dict(out)})
+            return dict(out)
+
+    def delete_quota(self, tenant: str) -> None:
+        with self._lock:
+            if tenant not in self._quotas:
+                raise NotFound(f"quota {tenant}")
+            spec = self._quotas.pop(tenant)
+            self._notify_locked("quota", "deleted",
+                                {"metadata": {"name": tenant},
+                                 "spec": dict(spec)})
+
+    def list_quotas(self) -> dict:
+        """{tenant: quota spec + live ``chips_created`` usage} — the
+        admin/debug view of the tenant ledger."""
+        with self._lock:
+            tenants = set(self._quotas) | set(self._tenant_cards)
+            return {t: {**(self._quotas.get(t) or {}),
+                        "chips_created":
+                            round(self._tenant_cards.get(t, 0.0), 3)}
+                    for t in sorted(tenants)}
+
+    def _check_hard_quota_locked(self, pod: dict) -> None:
+        """Create-time admission: refuse a pod that would push its
+        tenant past a configured hard card cap (HTTP 403 on the wire,
+        like real ResourceQuota). No cap configured = no gate; WAL
+        replay bypasses this path entirely (restore_object)."""
+        tenant = apf.tenant_of_pod(pod)
+        if tenant is None:
+            return
+        cap = (self._quotas.get(tenant) or {}).get("hard_chips")
+        if cap is None:
+            return
+        want = apf.pod_chip_request(pod)
+        used = self._tenant_cards.get(tenant, 0.0)
+        if used + want > cap:
+            raise QuotaExceeded(
+                f"tenant {tenant!r} over hard card cap: "
+                f"{used:.0f} created + {want} requested > {cap}")
+
+    def _charge_tenant_locked(self, pod: dict) -> None:
+        name = pod["metadata"]["name"]
+        if name in self._pod_tenant_cards:
+            return
+        tenant = apf.tenant_of_pod(pod)
+        if tenant is None:
+            return
+        cards = float(apf.pod_chip_request(pod))
+        self._pod_tenant_cards[name] = (tenant, cards)
+        self._tenant_cards[tenant] = \
+            self._tenant_cards.get(tenant, 0.0) + cards
+
+    def _discharge_tenant_locked(self, pod: dict) -> None:
+        entry = self._pod_tenant_cards.pop(pod["metadata"]["name"], None)
+        if entry is None:
+            return
+        tenant, cards = entry
+        left = self._tenant_cards.get(tenant, 0.0) - cards
+        if left > 1e-9:
+            self._tenant_cards[tenant] = left
+        else:
+            self._tenant_cards.pop(tenant, None)
+
+    # ---- nodes -------------------------------------------------------------
+
+    def create_node(self, node: dict) -> dict:
+        with self._lock:
+            name = node["metadata"]["name"]
+            self._nodes[name] = copy.deepcopy(node)
+            self._notify_locked("node", "added", self._nodes[name])
+            return copy.deepcopy(self._nodes[name])
+
+    def get_node(self, name: str) -> dict:
+        with self._lock:
+            if name not in self._nodes:
+                raise NotFound(f"node {name}")
+            return copy.deepcopy(self._nodes[name])
+
+    def list_nodes(self) -> list:
+        with self._lock:
+            return [copy.deepcopy(n) for _, n in sorted(self._nodes.items())]
+
+    def patch_node_metadata(self, name: str, metadata_patch: dict) -> dict:
+        """Strategic-merge-patch of node metadata
+        (`kubeinterface.go:145-158`). A patch that changes nothing
+        delivers NO watch event: every node event is an invalidation
+        source for the scheduler's fit memo (and requeues unschedulable
+        pods), so an idempotent re-advertise must not masquerade as a
+        node change."""
+        with self._lock:
+            if name not in self._nodes:
+                raise NotFound(f"node {name}")
+            meta = self._nodes[name].setdefault("metadata", {})
+            before = copy.deepcopy(meta)
+            _merge(meta, metadata_patch)
+            if meta != before:
+                self._notify_locked("node", "modified", self._nodes[name])
+            return copy.deepcopy(self._nodes[name])
+
+    def delete_node(self, name: str) -> None:
+        with self._lock:
+            node = self._nodes.pop(name, None)
+            if node is None:
+                # raise like the HTTP transport's 404 and real Kubernetes:
+                # a caller distinguishing "I deleted it" from "it was
+                # already gone" (eviction, preemption) needs the signal
+                raise NotFound(f"node {name}")
+            self._notify_locked("node", "deleted", node)
+
+    # ---- pods --------------------------------------------------------------
+
+    def _index_pod_locked(self, pod: dict) -> None:
+        # Always called with self._lock held, right after a pod mutation:
+        # the index entry must be atomic with the object state it mirrors.
+        name = pod["metadata"]["name"]
+        node = (pod.get("spec") or {}).get("nodeName")
+        phase = (pod.get("status") or {}).get("phase")
+        self._charge_tenant_locked(pod)
+        if node:
+            self._pods_by_node.setdefault(node, set()).add(name)
+            cards, coord = _pod_claims(
+                (pod.get("metadata") or {}).get("annotations"))
+            for prefix in cards:
+                self._card_claims[(node, prefix)] = name
+            if coord is not None:
+                cnode, port, gang = coord
+                entry = self._coord_claims.setdefault((cnode, port),
+                                                      [gang, set()])
+                entry[1].add(name)
+        if phase:
+            self._pods_by_phase.setdefault(phase, set()).add(name)
+
+    def _deindex_pod_locked(self, pod: dict) -> None:
+        # Always called with self._lock held, BEFORE a mutation that may
+        # move the pod between index buckets (bind, delete).
+        name = pod["metadata"]["name"]
+        node = (pod.get("spec") or {}).get("nodeName")
+        phase = (pod.get("status") or {}).get("phase")
+        self._discharge_tenant_locked(pod)
+        if node:
+            bucket = self._pods_by_node.get(node)
+            if bucket is not None:
+                bucket.discard(name)
+                if not bucket:
+                    del self._pods_by_node[node]
+            cards, coord = _pod_claims(
+                (pod.get("metadata") or {}).get("annotations"))
+            for prefix in cards:
+                if self._card_claims.get((node, prefix)) == name:
+                    del self._card_claims[(node, prefix)]
+            if coord is not None:
+                cnode, port, _gang = coord
+                entry = self._coord_claims.get((cnode, port))
+                if entry is not None:
+                    entry[1].discard(name)
+                    if not entry[1]:
+                        del self._coord_claims[(cnode, port)]
+        if phase:
+            bucket = self._pods_by_phase.get(phase)
+            if bucket is not None:
+                bucket.discard(name)
+                if not bucket:
+                    del self._pods_by_phase[phase]
+
+    def _bind_conflicts_locked(self, bindings: dict,
+                               annotations: dict) -> dict:
+        # Always called with self._lock held. The optimistic-concurrency
+        # arbiter: per-pod reasons a proposed bind set must be refused —
+        # pod already bound elsewhere, a card already allocated to
+        # another BOUND pod (or claimed twice within this batch), or a
+        # coordinator port promised to a different gang. A pod re-bound
+        # to its own node is a no-op (retries converge) and is never a
+        # conflict with itself.
+        per_pod: dict = {}
+        batch_cards: dict = {}   # (node, prefix) -> pod name in this batch
+        batch_coords: dict = {}  # (node, port) -> gang id in this batch
+        for name in sorted(bindings):
+            node_name = bindings[name]
+            pod = self._pods.get(name)
+            if pod is None:
+                continue  # caller raises NotFound with its own detail
+            bound = (pod.get("spec") or {}).get("nodeName")
+            if bound and bound != node_name:
+                per_pod[name] = f"already bound to {bound}"
+                continue
+            ann = annotations.get(name)
+            if bound:
+                # Re-binding a bound pod converges ONLY when it carries
+                # the identical allocation (a lost-reply resend). A
+                # competing replica's DIFFERENT allocation for the same
+                # pod is a conflicting commit — accepting it would
+                # silently swap the pod's cards under every other
+                # replica's accounting.
+                cur = (pod.get("metadata") or {}).get("annotations") or {}
+                if ann is not None and any(
+                        (ann or {}).get(key) != cur.get(key)
+                        for key in (codec.POD_ANNOTATION_KEY,
+                                    _GANG_PROCESS_ANNOTATION)):
+                    per_pod[name] = ("already bound with a different "
+                                     "allocation")
+                continue  # identical resend: no-op, claims stand
+            if ann is None:
+                ann = (pod.get("metadata") or {}).get("annotations") or {}
+            cards, coord = _pod_claims(ann)
+            reasons = []
+            for prefix in sorted(cards):
+                owner = self._card_claims.get((node_name, prefix))
+                if owner is not None and owner != name:
+                    reasons.append(f"card {prefix} on {node_name} "
+                                   f"taken by {owner}")
+                    continue
+                rival = batch_cards.get((node_name, prefix))
+                if rival is not None and rival != name:
+                    reasons.append(f"card {prefix} on {node_name} "
+                                   f"claimed twice in batch (by {rival})")
+                    continue
+                batch_cards[(node_name, prefix)] = name
+            if coord is not None:
+                cnode, port, gang = coord
+                entry = self._coord_claims.get((cnode, port))
+                if entry is not None and entry[0] != gang:
+                    reasons.append(f"coordinator port {port} on {cnode} "
+                                   f"taken by gang {entry[0]}")
+                else:
+                    rival_gang = batch_coords.get((cnode, port))
+                    if rival_gang is not None and rival_gang != gang:
+                        reasons.append(f"coordinator port {port} on "
+                                       f"{cnode} claimed twice in batch")
+                    else:
+                        batch_coords[(cnode, port)] = gang
+            if reasons:
+                per_pod[name] = "; ".join(reasons)
+        return per_pod
+
+    def create_pod(self, pod: dict) -> dict:
+        with self._lock:
+            name = pod["metadata"]["name"]
+            if name in self._pods:
+                raise Conflict(f"pod {name} exists")
+            self._check_hard_quota_locked(pod)
+            stored = copy.deepcopy(pod)
+            stored.setdefault("spec", {})
+            stored.setdefault("status", {"phase": "Pending"})
+            self._pods[name] = stored
+            self._index_pod_locked(stored)
+            self._notify_locked("pod", "added", stored)
+            out = copy.deepcopy(stored)
+        # admission mints the pod's trace: the deterministic per-pod
+        # trace id starts its timeline here, before any scheduler sees it
+        obs.event("admitted", pod=name, proc=_OBS_PROC)
+        return out
+
+    def get_pod(self, name: str) -> dict:
+        with self._lock:
+            if name not in self._pods:
+                raise NotFound(f"pod {name}")
+            return copy.deepcopy(self._pods[name])
+
+    def list_pods(self, node_name: str | None = None,
+                  phase: str | None = None, bound: bool = False) -> list:
+        """List pods, optionally narrowed by the secondary indexes:
+        ``node_name`` (pods-by-node), ``phase`` (pods-by-phase), or
+        ``bound=True`` (any pod with ``spec.nodeName`` set — the union of
+        the node index). Each narrowed form copies only its slice, so the
+        eviction / victim-scan / gang-lookup consumers stop paying
+        O(all-pods) per call."""
+        with self._lock:
+            if node_name is not None:
+                names = self._pods_by_node.get(node_name, ())
+            elif bound:
+                names = [n for bucket in self._pods_by_node.values()
+                         for n in bucket]
+            elif phase is not None:
+                names = self._pods_by_phase.get(phase, ())
+            else:
+                names = self._pods
+            pods = [self._pods[n] for n in sorted(names) if n in self._pods]
+            if phase is not None:
+                pods = [p for p in pods
+                        if (p.get("status") or {}).get("phase") == phase]
+            return [copy.deepcopy(p) for p in pods]
+
+    def _allocation_guard_locked(self, name: str,
+                                 new_ann: dict) -> str | None:
+        # Always called with self._lock held. A BOUND pod's allocation
+        # annotations (device allocation + gang process contract) are
+        # immutable: they are the committed placement every scheduler
+        # replica's accounting derives from, so rewriting them (a losing
+        # replica's stale stamp) would silently swap the pod's cards
+        # under the whole control plane. Same-value rewrites (lost-reply
+        # resends) stay allowed; everything else on the pod too.
+        pod = self._pods[name]
+        if not (pod.get("spec") or {}).get("nodeName"):
+            return None
+        cur = (pod.get("metadata") or {}).get("annotations") or {}
+        for key in (codec.POD_ANNOTATION_KEY, _GANG_PROCESS_ANNOTATION):
+            if cur.get(key) != (new_ann or {}).get(key):
+                return (f"pod {name} is bound; its allocation "
+                        f"annotations are immutable")
+        return None
+
+    def update_pod_annotations(self, name: str, annotations: dict) -> dict:
+        """Replace a pod's annotations, nothing else — the guarantee
+        `UpdatePodMetadata` provides (`kubeinterface.go:175-193`). A
+        bound pod's claim indexes follow its annotations (deindex old,
+        index new) so the arbiter always sees committed state, and its
+        ALLOCATION annotations are immutable (see
+        `_allocation_guard_locked`)."""
+        with self._lock:
+            if name not in self._pods:
+                raise NotFound(f"pod {name}")
+            reason = self._allocation_guard_locked(name, annotations)
+            if reason:
+                raise Conflict(reason, per_pod={name: reason})
+            pod = self._pods[name]
+            self._deindex_pod_locked(pod)
+            meta = pod.setdefault("metadata", {})
+            meta["annotations"] = copy.deepcopy(annotations)
+            self._index_pod_locked(pod)
+            self._notify_locked("pod", "modified", pod)
+            return copy.deepcopy(pod)
+
+    def update_pod_annotations_many(self, annotations: dict) -> None:
+        """Batched `update_pod_annotations`: {pod name -> annotation dict}
+        applied in one request / one lock acquisition, validated up front
+        so a missing pod (NotFound) or an immutable-allocation violation
+        (Conflict) fails the batch before anything is written — with
+        per-pod detail, so the caller can drop exactly the bad pods and
+        re-send the rest instead of abandoning the whole batch. This is
+        the multi-key write the gang paths use so N members' stamps ride
+        one transport round trip instead of N."""
+        with self._lock:
+            missing = {name: "not found" for name in annotations
+                       if name not in self._pods}
+            if missing:
+                raise NotFound(f"pods not found: {sorted(missing)}",
+                               per_pod=missing)
+            refused = {}
+            for name, ann in annotations.items():
+                reason = self._allocation_guard_locked(name, ann)
+                if reason:
+                    refused[name] = reason
+            if refused:
+                raise Conflict(
+                    f"allocation annotations immutable for "
+                    f"{sorted(refused)}", per_pod=refused)
+            changed = []
+            for name, ann in annotations.items():
+                pod = self._pods[name]
+                self._deindex_pod_locked(pod)
+                meta = pod.setdefault("metadata", {})
+                meta["annotations"] = copy.deepcopy(ann)
+                self._index_pod_locked(pod)
+                changed.append(pod)
+            for pod in changed:
+                self._notify_locked("pod", "modified", pod)
+
+    def bind_pod(self, name: str, node_name: str) -> None:
+        """The bind subresource: sets spec.nodeName exactly once. The
+        conflict arbiter also refuses a bind whose annotation claims a
+        card another bound pod holds or a coordinator port promised to a
+        different gang — re-applying the same bind for the same node
+        stays a converging no-op. The decision is traced as an
+        ``arbiter_commit`` span continuing the caller's bind span (wire
+        header or in-process context)."""
+        wall, t0 = obs.wall_now(), time.perf_counter()
+        try:
+            with self._lock:
+                if name not in self._pods:
+                    raise NotFound(f"pod {name}")
+                pod = self._pods[name]
+                bound = pod.get("spec", {}).get("nodeName")
+                if bound and bound != node_name:
+                    raise Conflict(f"pod {name} already bound to {bound}")
+                if not bound:
+                    conflicts = self._bind_conflicts_locked(
+                        {name: node_name}, {})
+                    if conflicts:
+                        raise Conflict(f"pod {name}: {conflicts[name]}",
+                                       per_pod=conflicts)
+                self._deindex_pod_locked(pod)
+                pod.setdefault("spec", {})["nodeName"] = node_name
+                pod.setdefault("status", {})["phase"] = "Scheduled"
+                self._index_pod_locked(pod)
+                self._notify_locked("pod", "modified", pod)
+        except Conflict as err:
+            obs.record_span("arbiter_commit", wall,
+                            time.perf_counter() - t0, pod=name,
+                            proc=_OBS_PROC, outcome="conflict",
+                            reason=str(err))
+            raise
+        except NotFound:
+            obs.record_span("arbiter_commit", wall,
+                            time.perf_counter() - t0, pod=name,
+                            proc=_OBS_PROC, outcome="not_found")
+            raise
+        obs.record_span("arbiter_commit", wall, time.perf_counter() - t0,
+                        pod=name, proc=_OBS_PROC, node=node_name,
+                        outcome="committed")
+
+    def bind_many(self, bindings: dict, annotations: dict) -> None:
+        """Atomically annotate and bind a pod-set (gang commit): either
+        every pod binds or none does. ``bindings``: pod name -> node
+        name; ``annotations``: pod name -> annotation dict.
+
+        This is the conflict-commit arbiter for N optimistic scheduler
+        replicas over shared state (Omega-style): a bind that would
+        re-bind a pod, oversubscribe a card, or take another gang's
+        coordinator port refuses the WHOLE batch — gangs stay
+        all-or-nothing across competing replicas — and the Conflict /
+        NotFound carries per-pod reasons so the losing replica's binder
+        forgets + requeues exactly the refused pods, never retries them
+        blind. Every pod's verdict is traced as an ``arbiter_commit``
+        span continuing that pod's bind span (per-pod contexts carried
+        by the batch header / in-process batch context)."""
+        wall, t0 = obs.wall_now(), time.perf_counter()
+        try:
+            with self._lock:
+                missing = {name: "not found" for name in bindings
+                           if name not in self._pods}
+                if missing:
+                    raise NotFound(f"pods not found: {sorted(missing)}",
+                                   per_pod=missing)
+                conflicts = self._bind_conflicts_locked(bindings, annotations)
+                if conflicts:
+                    first = next(iter(sorted(conflicts)))
+                    raise Conflict(
+                        f"bind refused for {len(conflicts)} pod(s), e.g. "
+                        f"{first}: {conflicts[first]}", per_pod=conflicts)
+                changed = []
+                for name, node_name in bindings.items():
+                    pod = self._pods[name]
+                    self._deindex_pod_locked(pod)
+                    meta = pod.setdefault("metadata", {})
+                    if name in annotations:
+                        meta["annotations"] = copy.deepcopy(annotations[name])
+                    # a bindings-only entry (no annotations key) keeps the
+                    # pod's existing annotations: a resend must never wipe a
+                    # bound pod's allocation record and release its claims
+                    pod.setdefault("spec", {})["nodeName"] = node_name
+                    pod.setdefault("status", {})["phase"] = "Scheduled"
+                    self._index_pod_locked(pod)
+                    changed.append(pod)
+                for pod in changed:
+                    self._notify_locked("pod", "modified", pod)
+        except (Conflict, NotFound) as err:
+            dur = time.perf_counter() - t0
+            outcome = "conflict" if isinstance(err, Conflict) \
+                else "not_found"
+            for name in sorted(bindings):
+                # the WHOLE batch is refused (gang atomicity): innocents
+                # record the batch-mate's reason so the timeline says why
+                obs.record_span("arbiter_commit", wall, dur, pod=name,
+                                proc=_OBS_PROC, outcome=outcome,
+                                reason=err.per_pod.get(name)
+                                or "batch refused")
+            raise
+        dur = time.perf_counter() - t0
+        for name, node_name in bindings.items():
+            obs.record_span("arbiter_commit", wall, dur, pod=name,
+                            proc=_OBS_PROC, node=node_name,
+                            outcome="committed")
+
+    def delete_pod(self, name: str) -> None:
+        with self._lock:
+            pod = self._pods.pop(name, None)
+            if pod is None:
+                # raise like the HTTP transport's 404 and real Kubernetes
+                # (see delete_node) — this is what keeps the lifecycle
+                # controller's externally-deleted-pod guard alive
+                raise NotFound(f"pod {name}")
+            self._deindex_pod_locked(pod)
+            self._notify_locked("pod", "deleted", pod)
+
+    # ---- persistent volumes / claims ---------------------------------------
+    # The volume-binding surface the scheduler consumes
+    # (`volumebinder/volume_binder.go:1-74`,
+    # `predicates.go:1443-1465`): PVCs reference storage demands, PVs
+    # carry capacity + node affinity, and `bind_volume` commits a
+    # claim<->volume pairing atomically (both objects flip to Bound).
+    #
+    # PVC: {"metadata": {"name"}, "spec": {"resources": {"requests":
+    #   {"storage": "10Gi"}}, "storageClassName", "volumeName"?}}
+    # PV:  {"metadata": {"name"}, "spec": {"capacity": {"storage": ...},
+    #   "storageClassName", "nodeAffinity": {"required":
+    #   {"nodeSelectorTerms": [...]}}, "claimRef"?}}
+
+    def create_pvc(self, pvc: dict) -> dict:
+        with self._lock:
+            name = pvc["metadata"]["name"]
+            if name in self._pvcs:
+                raise Conflict(f"pvc {name} exists")
+            stored = copy.deepcopy(pvc)
+            stored.setdefault("status", {"phase": "Pending"})
+            self._pvcs[name] = stored
+            self._notify_locked("pvc", "added", stored)
+            return copy.deepcopy(stored)
+
+    def get_pvc(self, name: str) -> dict:
+        with self._lock:
+            if name not in self._pvcs:
+                raise NotFound(f"pvc {name}")
+            return copy.deepcopy(self._pvcs[name])
+
+    def list_pvcs(self) -> list:
+        with self._lock:
+            return [copy.deepcopy(p) for _, p in sorted(self._pvcs.items())]
+
+    def delete_pvc(self, name: str) -> None:
+        with self._lock:
+            pvc = self._pvcs.pop(name, None)
+            if pvc is not None:
+                self._notify_locked("pvc", "deleted", pvc)
+
+    def create_pv(self, pv: dict) -> dict:
+        with self._lock:
+            name = pv["metadata"]["name"]
+            if name in self._pvs:
+                raise Conflict(f"pv {name} exists")
+            stored = copy.deepcopy(pv)
+            stored.setdefault("status", {"phase": "Available"})
+            self._pvs[name] = stored
+            self._notify_locked("pv", "added", stored)
+            return copy.deepcopy(stored)
+
+    def get_pv(self, name: str) -> dict:
+        with self._lock:
+            if name not in self._pvs:
+                raise NotFound(f"pv {name}")
+            return copy.deepcopy(self._pvs[name])
+
+    def list_pvs(self) -> list:
+        with self._lock:
+            return [copy.deepcopy(p) for _, p in sorted(self._pvs.items())]
+
+    def delete_pv(self, name: str) -> None:
+        with self._lock:
+            pv = self._pvs.pop(name, None)
+            if pv is not None:
+                self._notify_locked("pv", "deleted", pv)
+
+    def patch_pv_spec(self, name: str, spec_patch: dict) -> dict:
+        """Strategic-merge patch of a PV's spec — the real binder's first
+        write (`kubeclient.bind_volume` PATCHes ``claimRef``). Conflicts
+        if the patch re-claims a PV already claimed elsewhere."""
+        with self._lock:
+            if name not in self._pvs:
+                raise NotFound(f"pv {name}")
+            pv = self._pvs[name]
+            ref = (spec_patch or {}).get("claimRef")
+            cur = (pv.get("spec") or {}).get("claimRef")
+            if ref and cur and cur.get("name") != ref.get("name"):
+                raise Conflict(f"pv {name} already claimed by "
+                               f"{cur.get('name')}")
+            _merge(pv.setdefault("spec", {}), spec_patch or {})
+            if pv["spec"].get("claimRef"):
+                pv.setdefault("status", {})["phase"] = "Bound"
+            self._notify_locked("pv", "modified", pv)
+            return copy.deepcopy(pv)
+
+    def patch_pvc_spec(self, name: str, spec_patch: dict) -> dict:
+        """Strategic-merge patch of a PVC's spec (``volumeName`` — the
+        binder's second write)."""
+        with self._lock:
+            if name not in self._pvcs:
+                raise NotFound(f"pvc {name}")
+            pvc = self._pvcs[name]
+            vol = (spec_patch or {}).get("volumeName")
+            cur = (pvc.get("spec") or {}).get("volumeName")
+            if vol and cur and cur != vol:
+                raise Conflict(f"pvc {name} already bound to {cur}")
+            _merge(pvc.setdefault("spec", {}), spec_patch or {})
+            if pvc["spec"].get("volumeName"):
+                pvc.setdefault("status", {})["phase"] = "Bound"
+            self._notify_locked("pvc", "modified", pvc)
+            return copy.deepcopy(pvc)
+
+    def bind_volume(self, pv_name: str, claim_name: str) -> None:
+        """Atomically pair a PV with a PVC: PV gains ``claimRef`` and PVC
+        gains ``volumeName``; both flip to Bound. Conflict if either side
+        is already paired elsewhere. One copy of the conflict semantics:
+        delegates to the two spec-patch methods (the RLock is reentrant),
+        with the PVC side pre-checked so a conflicting claim cannot
+        half-claim the PV."""
+        with self._lock:
+            if pv_name not in self._pvs:
+                raise NotFound(f"pv {pv_name}")
+            if claim_name not in self._pvcs:
+                raise NotFound(f"pvc {claim_name}")
+            bound = (self._pvcs[claim_name].get("spec") or {}) \
+                .get("volumeName")
+            if bound and bound != pv_name:
+                raise Conflict(f"pvc {claim_name} already bound to {bound}")
+            self.patch_pv_spec(pv_name, {"claimRef": {"name": claim_name}})
+            self.patch_pvc_spec(claim_name, {"volumeName": pv_name})
+
+    # ---- pod disruption budgets -------------------------------------------
+    # Minimal PDB surface the preemption path consumes
+    # (`generic_scheduler.go:254,674-699` reads PDBs to minimize violations):
+    # {"metadata": {"name"}, "spec": {"selector": {"matchLabels": {...}},
+    #  "minAvailable": N}}.
+
+    def create_pdb(self, pdb: dict) -> dict:
+        with self._lock:
+            name = pdb["metadata"]["name"]
+            if name in self._pdbs:
+                raise Conflict(f"pdb {name} exists")
+            self._pdbs[name] = copy.deepcopy(pdb)
+            self._notify_locked("pdb", "added", self._pdbs[name])
+            return copy.deepcopy(self._pdbs[name])
+
+    def list_pdbs(self) -> list:
+        with self._lock:
+            return [copy.deepcopy(p) for _, p in sorted(self._pdbs.items())]
+
+    def delete_pdb(self, name: str) -> None:
+        with self._lock:
+            pdb = self._pdbs.pop(name, None)
+            if pdb is not None:
+                self._notify_locked("pdb", "deleted", pdb)
+
+    # ---- selector owners (Services / RCs / RSs / StatefulSets) -------------
+    # The reference's SelectorSpreadPriority spreads by the label
+    # selectors of the objects that OWN the pod (`selector_spreading.go`,
+    # getSelectors) — these four kinds are its listers.
+
+    def _create_owner(self, kind: str, obj: dict) -> dict:
+        with self._lock:
+            name = obj["metadata"]["name"]
+            store = self._owners[kind]
+            if name in store:
+                raise Conflict(f"{kind} {name} exists")
+            store[name] = copy.deepcopy(obj)
+            self._notify_locked(kind, "added", store[name])
+            return copy.deepcopy(store[name])
+
+    def _list_owners(self, kind: str) -> list:
+        with self._lock:
+            return [copy.deepcopy(o)
+                    for _, o in sorted(self._owners[kind].items())]
+
+    def _delete_owner(self, kind: str, name: str) -> None:
+        with self._lock:
+            obj = self._owners[kind].pop(name, None)
+            if obj is not None:
+                self._notify_locked(kind, "deleted", obj)
+
+    def create_service(self, svc: dict) -> dict:
+        return self._create_owner("service", svc)
+
+    def list_services(self) -> list:
+        return self._list_owners("service")
+
+    def delete_service(self, name: str) -> None:
+        self._delete_owner("service", name)
+
+    def create_rc(self, rc: dict) -> dict:
+        return self._create_owner("rc", rc)
+
+    def list_rcs(self) -> list:
+        return self._list_owners("rc")
+
+    def delete_rc(self, name: str) -> None:
+        self._delete_owner("rc", name)
+
+    def create_rs(self, rs: dict) -> dict:
+        return self._create_owner("rs", rs)
+
+    def list_rss(self) -> list:
+        return self._list_owners("rs")
+
+    def delete_rs(self, name: str) -> None:
+        self._delete_owner("rs", name)
+
+    def create_statefulset(self, ss: dict) -> dict:
+        return self._create_owner("statefulset", ss)
+
+    def list_statefulsets(self) -> list:
+        return self._list_owners("statefulset")
+
+    def delete_statefulset(self, name: str) -> None:
+        self._delete_owner("statefulset", name)
+
+    # ---- events ------------------------------------------------------------
+    # The reference records k8s Events on scheduling outcomes
+    # (`scheduler.go:198,242,272`): FailedScheduling / Preempted /
+    # Scheduled, deduplicated by (involved, reason, message) with a count.
+
+    def record_event(self, involved_kind: str, involved_name: str,
+                     event_type: str, reason: str, message: str) -> dict:
+        key = (involved_kind, involved_name, reason, message)
+        with self._lock:
+            ev = self._events.get(key)
+            if ev is not None:
+                ev["count"] += 1
+                self._notify_locked("event", "modified", ev)
+                return copy.deepcopy(ev)
+            ev = {"involvedObject": {"kind": involved_kind,
+                                     "name": involved_name},
+                  "type": event_type, "reason": reason, "message": message,
+                  "count": 1}
+            self._events[key] = ev
+            while len(self._events) > self.MAX_EVENTS:
+                self._events.pop(next(iter(self._events)))
+            self._notify_locked("event", "added", ev)
+            return copy.deepcopy(ev)
+
+    def record_events(self, events: list) -> None:
+        """Batched ``record_event``: a list of ``{kind, name, type,
+        reason, message}`` dicts recorded in one request / one lock pass
+        (the RLock is reentrant) — the binder pool's per-batch Scheduled
+        stamps ride one round trip instead of one per pod."""
+        with self._lock:
+            for e in events:
+                self.record_event(e.get("kind", "Pod"), e["name"],
+                                  e.get("type", "Normal"), e["reason"],
+                                  e.get("message", ""))
+
+    def list_events(self, involved_name: str | None = None) -> list:
+        with self._lock:
+            out = list(self._events.values())
+            if involved_name is not None:
+                out = [e for e in out
+                       if e["involvedObject"]["name"] == involved_name]
+            return [copy.deepcopy(e) for e in out]
+
+    # ---- durability (cluster/wal.py) ---------------------------------------
+
+    _STORES = ("nodes", "pods", "pdbs", "pvcs", "pvs", "quotas")
+
+    def dump_state(self) -> dict:
+        """JSON-serializable full object state for WAL snapshots.
+        Reentrant under the server lock: the event log calls this from
+        inside a watch notification (the mutator's RLock is held), which
+        is exactly what makes the snapshot consistent with its sequence
+        number."""
+        with self._lock:
+            out: dict = {store: copy.deepcopy(getattr(self, f"_{store}"))
+                         for store in self._STORES}
+            out["owners"] = copy.deepcopy(self._owners)
+            out["events"] = [copy.deepcopy(ev)
+                             for ev in self._events.values()]
+            return out
+
+    def snapshot_with(self, seq_fn):
+        """``(dump_state(), seq_fn())`` atomically: under the mutation
+        lock nothing can notify, so the event-log cursor ``seq_fn``
+        reads cannot move between the two — the WAL snapshot's state and
+        sequence number always agree."""
+        with self._lock:
+            return self.dump_state(), seq_fn()
+
+    def restore_state(self, state: dict) -> None:
+        """Load a snapshot (WAL recovery): replaces all object state and
+        rebuilds every secondary index and claim table. Notifies nobody —
+        watchers resume through the event log's sequence numbers, not a
+        replayed storm of synthetic events."""
+        with self._lock:
+            for store in self._STORES:
+                setattr(self, f"_{store}",
+                        copy.deepcopy(state.get(store) or {}))
+            owners = state.get("owners") or {}
+            self._owners = {k: copy.deepcopy(owners.get(k) or {})
+                            for k in ("service", "rc", "rs", "statefulset")}
+            self._events = {}
+            for ev in state.get("events") or []:
+                inv = ev.get("involvedObject") or {}
+                key = (inv.get("kind"), inv.get("name"),
+                       ev.get("reason"), ev.get("message"))
+                self._events[key] = copy.deepcopy(ev)
+            self._rebuild_indexes_locked()
+
+    def restore_object(self, kind: str, event: str, obj: dict) -> None:
+        """Apply ONE replayed watch record to state, without notifying —
+        the WAL recovery state machine. Watch events carry whole
+        objects, so added/modified store and deleted removes."""
+        with self._lock:
+            if kind == "event":
+                inv = obj.get("involvedObject") or {}
+                key = (inv.get("kind"), inv.get("name"),
+                       obj.get("reason"), obj.get("message"))
+                if event == "deleted":
+                    self._events.pop(key, None)
+                else:
+                    self._events[key] = copy.deepcopy(obj)
+                return
+            name = (obj.get("metadata") or {}).get("name")
+            if not name:
+                return
+            if kind == "pod":
+                existing = self._pods.get(name)
+                if existing is not None:
+                    self._deindex_pod_locked(existing)
+                if event == "deleted":
+                    self._pods.pop(name, None)
+                else:
+                    stored = copy.deepcopy(obj)
+                    self._pods[name] = stored
+                    self._index_pod_locked(stored)
+                return
+            if kind == "quota":
+                if event == "deleted":
+                    self._quotas.pop(name, None)
+                else:
+                    self._quotas[name] = copy.deepcopy(
+                        obj.get("spec") or {})
+                return
+            store = {"node": self._nodes, "pdb": self._pdbs,
+                     "pvc": self._pvcs, "pv": self._pvs}.get(kind)
+            if store is None:
+                store = self._owners.get(kind)
+            if store is None:
+                return  # unknown kind in the log: skip, never fatal
+            if event == "deleted":
+                store.pop(name, None)
+            else:
+                store[name] = copy.deepcopy(obj)
+
+    def _rebuild_indexes_locked(self) -> None:
+        # Always called with self._lock held, after a wholesale state
+        # replacement: the secondary indexes and claim tables are pure
+        # derivations of the pod store.
+        self._pods_by_node = {}
+        self._pods_by_phase = {}
+        self._card_claims = {}
+        self._coord_claims = {}
+        self._tenant_cards = {}
+        self._pod_tenant_cards = {}
+        for pod in self._pods.values():
+            self._index_pod_locked(pod)
+
+    # ---- watch -------------------------------------------------------------
+
+    def add_watcher(self, fn) -> None:
+        """fn(kind, event, obj) called under no lock guarantee ordering by
+        arrival; used by the scheduler's informer loop."""
+        with self._lock:
+            self._watchers.append(fn)
+
+    def _notify_locked(self, kind: str, event: str, obj: dict) -> None:
+        # Always called with self._lock held: the lock is what gives every
+        # watcher the same total event order the watch protocol promises.
+        obj_copy = copy.deepcopy(obj)
+        for fn in list(self._watchers):
+            fn(kind, event, obj_copy)

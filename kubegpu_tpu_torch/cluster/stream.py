@@ -1,6 +1,8 @@
-"""The framed stream wire of the control plane, client side.
+"""The framed stream wire of the control plane.
 
-The port's copy of the client half of ``kubegpu_tpu/cluster/stream.py``.
+The port's copy of ``kubegpu_tpu/cluster/stream.py``: the frame codec, the
+server's locked writers (``send_frame``, ``send_raw``: responses and
+pushes interleave on one socket) and the client's `StreamConn`.
 The JSON wire pays an HTTP header parse and a JSON encode and decode on
 every round trip. After an HTTP ``Upgrade: kgtpu-stream`` handshake the
 stream wire carries the same requests as length-prefixed, CRC-checked
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import socket
 import struct
+import threading
 import time
 import urllib.parse
 import zlib
@@ -87,9 +90,10 @@ def encode_frame(ftype: int, rid: int, payload: bytes) -> bytes:
                         zlib.crc32(payload)) + payload
 
 
-def read_frame(rfile: Any) -> Tuple[int, int, bytes]:
+def read_frame(rfile: Any, wire: str = WIRE_STREAM) -> Tuple[int, int, bytes]:
     """Read one frame off a buffered reader; raises :class:`StreamClosed`
-    on clean EOF, :class:`FrameError` on anything torn or hostile."""
+    on clean EOF, :class:`FrameError` on anything torn or hostile. Its
+    bytes count under ``transport_bytes_total{wire}``."""
     header = rfile.read(_HEADER.size)
     if not header:
         raise StreamClosed("stream closed")
@@ -105,19 +109,24 @@ def read_frame(rfile: Any) -> Tuple[int, int, bytes]:
         raise FrameError("truncated frame payload")
     if zlib.crc32(payload) != crc:
         raise FrameError("frame CRC mismatch")
-    metrics.TRANSPORT_BYTES.labels(WIRE_STREAM, "rx").inc(
-        _HEADER.size + length)
+    metrics.TRANSPORT_BYTES.labels(wire, "rx").inc(_HEADER.size + length)
     return ftype, rid, payload
 
 
-def send_frame(sock: socket.socket, ftype: int, rid: int,
-               payload: bytes) -> None:
-    """Write one frame. Each socket has one writer here (a connection per
-    requesting thread, or one watch thread that writes only its ``SUB``),
-    so no lock orders the writes."""
-    data = encode_frame(ftype, rid, payload)
-    sock.sendall(data)
-    metrics.TRANSPORT_BYTES.labels(WIRE_STREAM, "tx").inc(len(data))
+def send_frame(sock: socket.socket, wlock: threading.Lock, ftype: int,
+               rid: int, payload: bytes, wire: str = WIRE_STREAM) -> None:
+    """Write one frame, whole, under ``wlock``: on the server a response
+    and a watch push share one socket."""
+    send_raw(sock, wlock, encode_frame(ftype, rid, payload), wire=wire)
+
+
+def send_raw(sock: socket.socket, wlock: threading.Lock, data: bytes,
+             wire: str = WIRE_STREAM) -> None:
+    """Write pre-encoded frame bytes under ``wlock``: the event log encodes
+    a push once and hands the same bytes to every subscriber."""
+    with wlock:
+        sock.sendall(data)
+    metrics.TRANSPORT_BYTES.labels(wire, "tx").inc(len(data))
 
 
 def _timed(hist: Any, fn: Callable[..., Any], *args: Any) -> Any:
@@ -147,6 +156,9 @@ class StreamConn:
 
     def __init__(self, sock: socket.socket) -> None:
         self._sock = sock
+        # one writer a connection (its requesting thread, or the watch
+        # thread's single SUB): the lock is uncontended
+        self._wlock = threading.Lock()
         self._rfile = sock.makefile("rb")
         self._rid = 0
         self.closed = False
@@ -187,7 +199,7 @@ class StreamConn:
                          method, path, body, None)
         try:
             self._sock.settimeout(timeout)
-            send_frame(self._sock, REQ, rid, payload)
+            send_frame(self._sock, self._wlock, REQ, rid, payload)
             while True:
                 ftype, got_rid, data = read_frame(self._rfile)
                 if ftype == PING:
@@ -216,7 +228,7 @@ class StreamConn:
              "batch": batch_s})
         try:
             self._sock.settimeout(timeout)
-            send_frame(self._sock, SUB, rid, payload)
+            send_frame(self._sock, self._wlock, SUB, rid, payload)
             while True:
                 ftype, got_rid, data = read_frame(self._rfile)
                 if ftype == PING:

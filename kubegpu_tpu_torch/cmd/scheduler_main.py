@@ -13,7 +13,7 @@ flag not given on the command line, and its ``policy``, ``policyFile`` or
 ``extenders`` and the policy's (``scheduler/extender.py``) are consulted
 after the engine's own filter and score, and may own the binding.
 
-Two shapes:
+Three shapes:
 
 solo (the default)
     One engine schedules every pod.
@@ -22,8 +22,16 @@ solo (the default)
     Active/standby: replicas contend for one lease; only its holder
     schedules, and a replica that loses the lease stands by again.
 
+``--replicas N --shard I`` (N above 1)
+    Active/active: N replicas split the pods by a hash of the pod's name
+    (a gang's by its gang id, ``cluster/lease.shard_of``), each holding
+    its shard's lease through a `ShardCoordinator` and taking over the
+    work of a shard whose lease lapses. Replicas commit through the API
+    server's arbiter, which refuses a GPU card claimed twice
+    (``kgtpu-gpu-apiserver``); the loser forgets and requeues its pod.
+
 ``--node-grace-s G`` (above 0) runs the node lifecycle controller
-(``scheduler/lifecycle.py``) beside either shape, singleton-elected on its
+(``scheduler/lifecycle.py``) beside any shape, singleton-elected on its
 own lease (``LIFECYCLE_LEASE``): a node whose heartbeat stands still for
 ``--node-stale-s`` (default G / 3) is Stale, for G Lost, and its pods are
 evicted and requeued. ``--node-stale-s`` alone starts no controller.
@@ -34,11 +42,7 @@ reports degraded is checkpoint-signalled, evicted and requeued.
 (``scheduler/quota.py``) in front of every scheduling cycle, weighted by
 the config's ``tenantWeights`` ({tenant: weight}).
 
-SIGTERM and SIGINT stop it cleanly (exit 0). ``--replicas`` above 1
-refuses to start, naming the ROADMAP item that brings it (Queue 1, item
-10.7): sharded replicas rely on the API server's arbiter to refuse a card
-claimed twice, and the only server there is, the JAX package's, keys TPU
-chips and not GPU cards.
+SIGTERM and SIGINT stop it cleanly (exit 0).
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ import threading
 from kubegpu_tpu_torch import obs
 from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
 from kubegpu_tpu_torch.cluster.lease import (LIFECYCLE_LEASE, REPAIR_LEASE,
-                                             Elector)
+                                             Elector, ShardCoordinator)
 from kubegpu_tpu_torch.cmd import common
 from kubegpu_tpu_torch.scheduler import factory
 from kubegpu_tpu_torch.scheduler.core import Scheduler
@@ -71,17 +75,6 @@ WATCH_KINDS = ("node", "pod", "pv", "pvc", "quota")
 CONFIG_KEYS = ("api", "wire", "parallelism", "lease_ttl", "node_grace_s",
                "node_stale_s", "bind_workers", "watch_batch_ms", "replicas",
                "shard", "healthz_port", "flight_dir", "tenantWeights")
-
-
-def refuse_later_items(args) -> None:
-    """Raise `NotImplementedError` for a flag whose support the port does
-    not have yet, naming its ROADMAP item: ``--replicas`` above 1."""
-    if (args.replicas or 1) > 1:
-        raise NotImplementedError(
-            "--replicas > 1: sharded replicas need an API server whose "
-            "arbiter refuses a GPU card claimed twice (the JAX server's "
-            "keys TPU chips only); the port's API server is ROADMAP Queue "
-            "1, item 10.7")
 
 
 def build_scheduler(client, args, config: dict | None = None,
@@ -177,11 +170,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--leader-elect", action="store_true",
                    help="active/standby: only the lease's holder schedules")
     p.add_argument("--replicas", type=int, default=1,
-                   help="active/active replicas sharding the queue: not in "
-                        "the port yet (ROADMAP Queue 1, item 10.7); a value "
-                        "> 1 refuses to start")
+                   help="active/active replicas sharding the queue (with "
+                        "--shard); they commit through the API server's "
+                        "arbiter")
     p.add_argument("--shard", type=int, default=0,
-                   help="this replica's shard (item 10.7, as above)")
+                   help="this replica's shard, 0 to --replicas - 1")
     p.add_argument("--lease-ttl", type=float, default=15.0,
                    help="seconds a lease lives unrenewed; renewed every "
                         "third of it")
@@ -238,14 +231,15 @@ def main(argv=None) -> int:
     # any of them stall a cycle for milliseconds
     sys.setswitchinterval(0.0005)
     args, config = parse_args(argv)
-    refuse_later_items(args)
+    sharded = (args.replicas or 1) > 1
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     # started before any lock of the client or engine exists, so the lock
     # probe wraps them all
     stop_obs = common.start_observability(args)
-    obs.RECORDER.proc = "scheduler"
+    obs.RECORDER.proc = f"sched-{args.shard % args.replicas}" if sharded \
+        else "scheduler"
     if args.flight_dir:
         obs.FLIGHT.configure(args.flight_dir)
     client = HTTPAPIClient(args.api, watch_batch_s=args.watch_batch_ms / 1e3,
@@ -255,7 +249,9 @@ def main(argv=None) -> int:
     lifecycle = start_lifecycle_elector(client, args, holder)
     repair = start_repair_elector(client, args, holder)
     try:
-        if not args.leader_elect:
+        if sharded:
+            run_sharded(client, args, config, holder, stop)
+        elif not args.leader_elect:
             sched = build_scheduler(client, args, config)
             sched.start()
             print(f"scheduler running against {args.api}", flush=True)
@@ -282,6 +278,28 @@ def main(argv=None) -> int:
             health.shutdown()
             health.server_close()
     return 0
+
+
+def run_sharded(client, args, config: dict, holder: str,
+                stop: threading.Event) -> None:
+    """Active/active: the coordinator first (the engine's pop filter reads
+    its ownership), then the engine, whose queue the coordinator wakes on
+    an ownership change so a taken-over shard's pods are tried at once."""
+    shard = args.shard % args.replicas
+    coord = ShardCoordinator(client, shard, args.replicas, holder,
+                             ttl_s=args.lease_ttl)
+    sched = build_scheduler(client, args, config, shard_owned=coord.owns,
+                            name=f"sched-{shard}")
+    coord.on_change = sched.queue.move_all_to_active
+    coord.start()
+    sched.start()
+    print(f"scheduler replica {shard}/{args.replicas} ({holder}) running "
+          f"against {args.api}", flush=True)
+    stop.wait()
+    # releases the shard's lease: a peer takes the work without waiting
+    # out the TTL
+    coord.stop()
+    sched.stop()
 
 
 def run_leader_elected(client, args, config: dict, holder: str,

@@ -6,9 +6,10 @@ The exponential-bucket ``Histogram``, the ``Counter``, the settable
 first token, inter-token latency, queue depth, slot utilization), the
 control-plane wire's bytes and frame codec times, the scheduling engine's
 counters and histograms (its default path's masked pass and batch cycle
-among them), the node lifecycle controller's, and those of the scheduler
-binary's client, leases and observability, all under the JAX package's
-names. Every metric
+among them), the node lifecycle controller's, those of the scheduler
+binary's client, leases and observability, and the API server's (requests,
+write-ahead log, front door), all under the JAX package's names. Every
+metric
 is listed once in ``all_metrics()``, which the Prometheus exposition (the
 binaries' ``/metrics``), ``reset_all()`` and the metrics time-series
 (``obs/timeseries.py``, through each metric's ``snapshot()``) iterate.
@@ -298,15 +299,25 @@ REPAIR_LATENCY_MS = Histogram("repair_latency_ms", start_us=0.25)
 # (cluster/httpapi.py, cluster/lease.py, obs/): the size of the last
 # delivered watch batch, events the server folded away before delivery,
 # the stream wire's push lag (server stamp to client delivery), leadership
-# and shard transitions, flight-recorder dumps and profiler ticks. The
-# JAX package's api_requests_total counts the requests an API server
-# dispatched; the port serves none yet (ROADMAP Queue 1, item 10.7).
+# and shard transitions, flight-recorder dumps and profiler ticks.
 WATCH_BATCH_SIZE = Gauge("watch_batch_size")
 WATCH_COALESCED = Counter("watch_coalesced_total")
 WATCH_PUSH_LAG_MS = Histogram("watch_push_lag_ms", start_us=0.01)
 LEASE_TRANSITIONS = Counter("lease_transitions_total")
 FLIGHT_DUMPS = Counter("flight_dumps_total")
 PROFILE_SAMPLES = Counter("profile_samples_total")
+
+# The API server (cluster/apiserver.py, httpapi.py, wal.py, apf.py): the
+# requests each transport role dispatched ({server}: "apiserver"), the
+# write-ahead log's time per append (fsync included when on) and the size
+# of its last snapshot, the queue wait of requests the front door seated,
+# and the requests it shed with a 429 or a REJECT frame, per band (the
+# system band is exempt, so a system child is a front-door fault).
+API_REQUESTS = LabeledCounter("api_requests_total", ("server",))
+WAL_FSYNC_MS = Histogram("wal_fsync_ms", start_us=0.01)
+WAL_SNAPSHOT_BYTES = Gauge("wal_snapshot_bytes")
+APF_QUEUE_WAIT_MS = Histogram("apf_queue_wait_ms", start_us=0.01)
+APF_REJECTS = LabeledCounter("apf_rejects_total", ("band",))
 
 _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         SERVE_SLOT_UTILIZATION, TRANSPORT_BYTES, FRAME_ENCODE_MS,
@@ -320,7 +331,8 @@ _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         SCHED_BATCH_CLASSES, NODE_READY, NODE_LOST, EVICTIONS,
         QUOTA_PARKED, REPAIRS, REPAIR_LATENCY_MS, WATCH_BATCH_SIZE,
         WATCH_COALESCED, WATCH_PUSH_LAG_MS, LEASE_TRANSITIONS, FLIGHT_DUMPS,
-        PROFILE_SAMPLES)
+        PROFILE_SAMPLES, API_REQUESTS, WAL_FSYNC_MS, WAL_SNAPSHOT_BYTES,
+        APF_QUEUE_WAIT_MS, APF_REJECTS)
 
 
 def all_metrics() -> list:

@@ -218,7 +218,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "obs.timeseries", "obs.validate", "cmd.scheduler_main",
                  "scheduler.lifecycle", "scheduler.vectorized",
                  "scheduler.batch", "cluster.apf", "scheduler.quota",
-                 "scheduler.extender", "scheduler.repair"):
+                 "scheduler.extender", "scheduler.repair",
+                 "cluster.apiserver", "cluster.wal", "cmd.apiserver_main"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

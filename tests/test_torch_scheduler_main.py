@@ -10,10 +10,10 @@ conflict streak, runs the node lifecycle controller (a node whose
 heartbeat stops loses its pod, which the binary binds elsewhere), gates
 tenants by their configured weights (``--tenant-quota``), repairs a pod
 off a failed card (``--repair``, elected as the JAX binary elects its
-controller), calls the config's and the policy's extenders, and refuses
-``--replicas`` above 1 (a later ROADMAP item). Two engines
-behind their shard coordinators, in process, split the work of two
-shards with every pod bound once."""
+controller), and calls the config's and the policy's extenders. The JAX
+server's arbiter lets two pods claim one GPU card (ROADMAP Queue 3); two
+``--replicas 2 --shard I`` binaries over the port's ``kgtpu-gpu-apiserver``
+bind every pod once with no card claimed twice, on both wires."""
 
 import contextlib
 import json
@@ -35,11 +35,14 @@ from kubegpu_tpu.cluster.apiserver import Conflict as JaxConflict  # noqa: E402
 from kubegpu_tpu.cluster.apiserver import InMemoryAPIServer  # noqa: E402
 from kubegpu_tpu.cluster.httpapi import serve_api  # noqa: E402
 from kubegpu_tpu.core import codec as jax_codec  # noqa: E402
+from kubegpu_tpu_torch.cluster import apiserver as port_api  # noqa: E402
+from kubegpu_tpu_torch.cluster import httpapi as port_http  # noqa: E402
 from kubegpu_tpu_torch.cluster import lease  # noqa: E402
 from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient  # noqa: E402
 from kubegpu_tpu_torch.cmd import scheduler_main  # noqa: E402
 from kubegpu_tpu_torch.core import codec, grammar  # noqa: E402
 from kubegpu_tpu_torch.node import fake  # noqa: E402
+from tests import torch_api as ta  # noqa: E402
 from tests import torch_sched as ts  # noqa: E402
 from tests.test_torch_gpu_e2e import SCHEDULER_PLUGINS, GPUHost  # noqa: E402
 
@@ -68,7 +71,7 @@ class Binary:
     the JAX one), waited for until it says it runs; its later stdout lines
     collect in ``lines``."""
 
-    READY = ("scheduler running", "scheduler candidate")
+    READY = ("scheduler running", "scheduler candidate", "scheduler replica")
 
     def __init__(self, url, tmp_path, *args,
                  module="kubegpu_tpu_torch.cmd.scheduler_main"):
@@ -423,102 +426,84 @@ def test_the_jax_arbiter_lets_two_pods_claim_one_gpu_card():
     assert set(err.value.per_pod) == {"c"}
 
 
-def _replica(url: str, shard: int, ttl: float) -> dict:
-    """One engine behind its `ShardCoordinator`, wired as the JAX binary's
-    ``--replicas 2 --shard I`` wires them, its commits recorded."""
-    client = HTTPAPIClient(url, watch_kinds=scheduler_main.WATCH_KINDS,
-                           wire="stream")
-    coord = lease.ShardCoordinator(client, shard, 2, f"replica-{shard}",
-                                   ttl_s=ttl)
-    args, _ = scheduler_main.parse_args([])
-    sched = scheduler_main.build_scheduler(client, args,
-                                           shard_owned=coord.owns,
-                                           name=f"sched-{shard}")
-    coord.on_change = sched.queue.move_all_to_active
-    committed: list = []
-    bind_many, bind_pod = client.bind_many, client.bind_pod
-
-    def record_many(bindings, annotations):
-        out = bind_many(bindings, annotations)
-        committed.extend(bindings)
-        return out
-
-    def record_one(name, node_name):
-        out = bind_pod(name, node_name)
-        committed.append(name)
-        return out
-
-    client.bind_many, client.bind_pod = record_many, record_one
-    coord.start()
-    sched.start()
-    return {"client": client, "coord": coord, "sched": sched,
-            "committed": committed}
+def _card_claims(client) -> list:
+    """``(node, card UUID)`` of every card a bound pod holds."""
+    cards = []
+    for pod in client.list_pods(bound=True):
+        info = codec.kube_pod_to_pod_info(pod, False)
+        node = pod["spec"]["nodeName"]
+        for c in info.running_containers.values():
+            cards += [(node, grammar.gpu_id_from_path(p))
+                      for p in c.allocate_from.values()
+                      if grammar.gpu_id_from_path(p)]
+    return cards
 
 
-def test_sharded_replicas_bind_every_pod_once():
-    """The engine's sharding, in process: the binary refuses ``--replicas``
-    above 1 until an API server keys GPU cards (ROADMAP Queue 1, item
-    10.7), so `_GPUArbiter` stands in front of the JAX server here."""
+def test_sharded_replicas_bind_every_pod_once(tmp_path):
+    """Two ``kgtpu-gpu-scheduler --replicas 2 --shard I`` over a
+    ``kgtpu-gpu-apiserver`` with eight fake HGX hosts, on each wire: a
+    4-card gang of two and 40 one-card pods all bind, each once and on one
+    node, no card is held by two pods (the port's arbiter refuses a card
+    claimed twice), and both replicas commit some of the pods, the gang
+    whole."""
     gid = ts.free_gang_id()
-    api = InMemoryAPIServer()
-    door = _GPUArbiter(api)
-    with served(*(fake.hgx_h100_inventory() for _ in range(8)), api=api,
-                apf=door) as (api, url):
-        binds = {}
-        lock = threading.Lock()
-
-        def watch(kind, event, obj):
-            node = (obj.get("spec") or {}).get("nodeName")
-            if kind == "pod" and node:
-                with lock:
-                    binds.setdefault(obj["metadata"]["name"], set()).add(node)
-
-        api.add_watcher(watch)
+    for wire in WIRES:
+        server = ta.APIServerBinary(REPO, "--wire", wire)
+        client = HTTPAPIClient(server.url, wire=wire)
         reps = []
         try:
-            reps = [_replica(url, s, ttl=1.0) for s in range(2)]
+            binds = {}
+            lock = threading.Lock()
+
+            def watch(kind, event, obj):
+                node = (obj.get("spec") or {}).get("nodeName")
+                if kind == "pod" and node:
+                    with lock:
+                        binds.setdefault(obj["metadata"]["name"],
+                                         set()).add(node)
+
+            client.add_watcher(watch)
+            for i in range(8):
+                client.create_node(ta.gpu_node(f"host{i}", i))
+            reps = [Binary(server.url, tmp_path, "--replicas", "2",
+                           "--shard", str(s), "--lease-ttl", "1",
+                           "--wire", wire) for s in range(2)]
+            assert [r.said(f"scheduler replica {s}/2") for s, r in
+                    enumerate(reps)] == [True, True]
             # until a replica has seen the other's lease it also takes the
-            # other's vacant shard; the pods come once each owns only its
-            # own
-            _wait(lambda: [r["coord"].owned_shards() for r in reps] ==
-                  [{0}, {1}], what="each replica owning its own shard")
+            # other's vacant shard: the pods come once both are held and a
+            # coordinator tick (a third of the TTL) has passed
+            _wait(lambda: all(client.lease_holder(
+                f"{lease.SHARD_LEASE_PREFIX}-{s}") for s in range(2)),
+                what="both shard leases held")
+            time.sleep(1.0)
             # the gang first: once the singles have spread over the hosts
             # no two of them may have four cards free
             for pod in _gang(gid, 2, 4, "g"):
-                api.create_pod(pod)
+                client.create_pod(pod)
             names = [f"r{i}" for i in range(40)]
             for name in names:
-                api.create_pod(ts.pod(name, 1))
+                client.create_pod(ts.pod(name, 1))
             names += ["g-0", "g-1"]
-            # a replica records its commit when the bind's reply is back,
-            # a moment after the bind reaches the server
-            _wait(lambda: all(_bound(api, n) for n in names) and
-                  set(names) <= set(reps[0]["committed"]) |
-                  set(reps[1]["committed"]), timeout=30,
-                  what="every pod bound and its commit recorded")
-            assert all(len(binds[n]) == 1 for n in names)
-            cards = []
-            for n in names:
-                info = codec.kube_pod_to_pod_info(api.get_pod(n), False)
-                node = _bound(api, n)
-                for c in info.running_containers.values():
-                    cards += [(node, grammar.gpu_id_from_path(p))
-                              for p in c.allocate_from.values()
-                              if grammar.gpu_id_from_path(p)]
+            _wait(lambda: all(p["spec"].get("nodeName") for p in
+                              client.list_pods()) and
+                  len(client.list_pods(bound=True)) == 42, timeout=60,
+                  what="every pod bound")
+            cards = _card_claims(client)
             assert len(cards) == 40 + 8 == len(set(cards))
-            # each replica committed exactly its own shard's pods, and the
-            # gang went whole to the shard of its gang id
-            for n in names:
-                key = f"gang:{gid}" if n.startswith("g-") else n
-                owner = lease.shard_of(key, 2)
-                assert n in reps[owner]["committed"], n
-                assert n not in reps[1 - owner]["committed"], n
-            assert all(r["committed"] for r in reps)
+            _wait(lambda: len(binds) == 42, what="the binds watched")
+            assert all(len(binds[n]) == 1 for n in names)
+            # each plain pod committed once, by one replica or the other
+            commits = [r.metric("scheduler_binding_latency_microseconds_count")
+                       for r in reps]
+            assert sum(commits) == 40 and all(commits), commits
+            gang_owner = reps[lease.shard_of(f"gang:{gid}", 2)]
+            assert gang_owner.get("/debug/pod/g-0")["state"] == "bound"
         finally:
             for r in reps:
-                r["coord"].stop()
-                r["sched"].stop()
-                r["client"].close()
+                assert r.stop() == 0, r.stderr()
+            client.close()
+            assert server.stop() == 0
 
 
 def test_the_profiler_and_metrics_history_run_in_the_binary(tmp_path):
@@ -595,21 +580,34 @@ def test_a_conflict_streak_writes_one_flight_dump(tmp_path):
             assert binary.stop() == 0, binary.stderr()
 
 
-@pytest.mark.parametrize("args,config,item", [
-    (("--replicas", "2", "--shard", "1"), None, "10.7"),
-    ((), {"replicas": 3}, "10.7")])
-def test_flags_of_later_items_refuse_to_start(tmp_path, args, config, item):
+@pytest.mark.parametrize("args,config,shard", [
+    (("--replicas", "2", "--shard", "1"), None, "1/2"),
+    ((), {"replicas": 3}, "0/3")],
+    ids=["args0-None-10.7", "args1-config1-10.7"])
+def test_flags_of_later_items_refuse_to_start(tmp_path, args, config, shard):
+    """``--replicas`` above 1, once refused until the port had an API
+    server whose arbiter keys GPU cards (ROADMAP item 10.7), now starts:
+    on the command line and from the config, the binary runs against the
+    port's server, takes its shard's lease and prints its replica line;
+    SIGTERM releases the lease."""
     if config is not None:
-        path = tmp_path / "config.json"
-        path.write_text(json.dumps(config))
-        args = (*args, "--config", str(path))
-    r = subprocess.run(
-        [sys.executable, "-m", "kubegpu_tpu_torch.cmd.scheduler_main",
-         "--api", "http://127.0.0.1:1", *args],
-        cwd=REPO, capture_output=True, text=True, timeout=60)
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr
-    assert f"ROADMAP Queue 1, item {item}" in r.stderr
+        args = (*args, *_config(tmp_path, config))
+    server, url = port_http.serve_api(port_api.InMemoryAPIServer())
+    client = HTTPAPIClient(url)
+    name = f"{lease.SHARD_LEASE_PREFIX}-{shard.split('/')[0]}"
+    try:
+        binary = Binary(url, tmp_path, "--lease-ttl", "3", *args)
+        try:
+            assert binary.said(f"scheduler replica {shard} (")
+            holder = _wait(lambda: client.lease_holder(name),
+                           what="the shard's lease")
+            assert holder.endswith(f"-{binary.proc.pid}")
+        finally:
+            assert binary.stop() == 0, binary.stderr()
+        assert client.lease_holder(name) is None
+    finally:
+        client.close()
+        server.shutdown()
 
 
 def _config(tmp_path, config: dict) -> tuple:
