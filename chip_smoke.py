@@ -241,6 +241,20 @@ T = 2048, no remat), random weights from a seed:
    naming it); one tenant's create flood shed with 429s while node
    PATCHes pass (their p50/p99, idle and under the flood); and the same
    burst with one replica on a fresh server;
+   proxy_simulate: the watch-cache proxy tier with the card behind it,
+   every process the port's: ``kgtpu-gpu-apiserver --wal-dir D`` and two
+   ``kgtpu-gpu-proxy --apf`` replicas (p0, p1); 256 fake HGX hosts
+   registered through p0, the node agent on this card against p1, one
+   ``kgtpu-gpu-scheduler`` against p0; a 1-card pod created through p1,
+   bound as p1's watch shows, trains 3 steps through the agent (18 sm90
+   launches of each, ``launches_proxy_run``); 512 stream watchers, 256 on
+   each proxy, see each of 200 new pods bound in seq order with no relist
+   while the API server holds no more connections than without them (their
+   delivery p50/p99 from the create, each proxy's upstream lag, upstream
+   bytes against the bytes the watchers received); then
+   ``kgtpu-gpu-simulate --json`` runs: the default mix on 4 hosts with 2
+   replicas, node-loss, chip-kill, the HA scenario and the tenant flood
+   behind 2 proxies, each document checked and printed;
 23. checkers: under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
@@ -4946,6 +4960,474 @@ def control_plane_phase(backend: str = "nvml", train: bool = True,
     return row
 
 
+PX_HOSTS = 256
+PX_WATCHERS = 512                # downstream watchers, half on each proxy
+PX_PODS = 200
+# each `kgtpu-gpu-simulate --json` run of the phase: (name, arguments)
+PX_SCENARIOS = (("default", ("--hosts", "4", "--schedulers", "2")),
+                ("node-loss", ("--chaos", "node-loss")),
+                ("chip-kill", ("--chaos", "chip-kill", "--seed", "0")),
+                ("ha", ("--chaos-ha",)),
+                ("tenant-flood", ("--chaos-tenant-flood", "--proxies", "2")))
+# A fleet of downstream watchers in one process: ``python -c WATCHERS URL N
+# PREFIX COUNT TIMEOUT``. Each subscribes on the stream wire at the proxy's
+# head (pods only) and reads until it has seen each of pods PREFIX000..
+# bound; the process prints "ready" once all are subscribed, then one JSON
+# line: per pod the last watcher's wall-clock receipt of its first event
+# and of its bind, the watchers that saw every pod bound, the order or
+# relist faults, the stream bytes the watchers received and the fleet's
+# CPU seconds. Each watcher reads and CRC-checks its own frames; a payload
+# is decoded once a fleet (watchers at one cursor get the same bytes), so
+# the fleet's decoding does not stand in for the proxy's delivery.
+WATCHERS = """\
+import json, sys, threading, time, urllib.request
+from kubegpu_tpu_torch import metrics
+from kubegpu_tpu_torch.cluster import stream
+from kubegpu_tpu_torch.core import codec
+url, n, prefix, count, timeout = (sys.argv[1], int(sys.argv[2]),
+                                  sys.argv[3], int(sys.argv[4]),
+                                  float(sys.argv[5]))
+with urllib.request.urlopen(url + "/watch?since=%d&timeout=0" % (1 << 62),
+                            timeout=30) as r:
+    head = json.loads(r.read())["seq"]
+names = {"%s%03d" % (prefix, i) for i in range(count)}
+conns = [stream.StreamConn.connect(url, 30.0) for _ in range(n)]
+for c in conns:
+    c.subscribe(head, ("pod",), 0.0, timeout=30.0)
+lock = threading.Lock()
+first, bound, faults, done, decoded = {}, {}, [], [0], {}
+
+def read_push(conn, timeout):
+    conn._sock.settimeout(timeout)
+    ftype, _rid, payload = stream.read_frame(conn._rfile)
+    if ftype == stream.PING:
+        return None
+    if ftype != stream.PUSH:
+        raise stream.FrameError("frame type %d on a watch" % ftype)
+    out = decoded.get(payload)
+    if out is None:
+        out = decoded[payload] = codec.decode_watch_batch(payload)
+    return out
+
+def watch(conn):
+    last, seqs, seen, got = head, {}, set(), set()
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < count and time.monotonic() < deadline:
+            out = read_push(conn, max(0.1, deadline - time.monotonic()))
+            if out is None:
+                continue
+            now = time.time()
+            bad = []
+            if out.get("relist"):
+                bad.append("relist")
+            if out["seq"] < last:
+                bad.append("batch seq %d after %d" % (out["seq"], last))
+            last = out["seq"]
+            for seq, kind, event, obj in out["events"]:
+                name = obj["metadata"]["name"]
+                if name not in names:
+                    continue
+                if seq <= seqs.get(name, head):
+                    bad.append("%s seq %d after %d"
+                               % (name, seq, seqs.get(name, head)))
+                seqs[name] = seq
+                with lock:
+                    if name not in seen:
+                        seen.add(name)
+                        first[name] = max(first.get(name, 0.0), now)
+                    if (obj.get("spec") or {}).get("nodeName") and \\
+                            name not in got:
+                        got.add(name)
+                        bound[name] = max(bound.get(name, 0.0), now)
+            if bad:
+                with lock:
+                    faults.extend(bad)
+    except Exception as e:
+        with lock:
+            faults.append("%s: %s" % (type(e).__name__, e))
+    with lock:
+        done[0] += len(got) == count
+
+threads = [threading.Thread(target=watch, args=(c,), daemon=True)
+           for c in conns]
+print("ready", head, flush=True)
+cpu0 = time.process_time()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"first": first, "bound": bound, "complete": done[0],
+                  "faults": faults[:5], "n_faults": len(faults),
+                  "cpu_s": time.process_time() - cpu0,
+                  "rx_bytes": sum(c.value for (w, d), c in
+                                  metrics.TRANSPORT_BYTES.children()
+                                  if w == stream.WIRE_STREAM and d == "rx")}),
+      flush=True)
+"""
+
+
+class _ProxyProc:
+    """``python -m kubegpu_tpu_torch.cmd.proxy_main --upstream URL --apf
+    --name NAME`` on a free loopback port, waited for until it says it
+    listens (killed, and the phase failed with its stderr, when it has not
+    within 60 s)."""
+
+    def __init__(self, root: str, env: dict, tmp: str, upstream: str,
+                 name: str):
+        import threading
+
+        self.name = name
+        self.err_path = os.path.join(tmp, f"proxy-{name}.err")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kubegpu_tpu_torch.cmd.proxy_main",
+             "--upstream", upstream, "--port", str(_free_port()), "--name",
+             name, "--apf"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=self._err,
+            text=True)
+        watchdog = threading.Timer(60, self.proc.kill)
+        watchdog.start()
+        line = self.proc.stdout.readline()
+        watchdog.cancel()
+        if not line.startswith(f"proxy {name} listening at "):
+            self.stop()
+            with open(self.err_path) as f:
+                raise AssertionError(f"the proxy said {line!r}: "
+                                     f"{f.read()[-3000:]}")
+        self.url = line.split()[4]
+
+    def metrics(self) -> str:
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + "/metrics", timeout=30) as r:
+            return r.read().decode()
+
+    def stop(self) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=30)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+            self.proc.stdout.close()
+            self._err.close()
+
+
+def _metric_value(text: str, line_start: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(line_start + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def _buckets(text: str, name: str) -> list:
+    """``[(upper bound, cumulative count)]`` of a histogram in Prometheus
+    text."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith(name + '_bucket{le="'):
+            le = line.split('"')[1]
+            out.append((float("inf") if le == "+Inf" else float(le),
+                        float(line.split()[-1])))
+    return out
+
+
+def _bucket_pctl(before: list, after: list, q: float) -> float:
+    """The upper bound of the bucket that holds quantile ``q`` of the
+    observations between two scrapes of one histogram."""
+    counts = [(le, a - b) for (le, a), (_, b) in zip(after, before)]
+    total = counts[-1][1] if counts else 0
+    if not total:
+        return 0.0
+    for le, n in counts:
+        if n >= q * total:
+            return le
+    return counts[-1][0]
+
+
+def _established(port: int) -> int:
+    """TCP connections in ESTABLISHED state whose local port is ``port``
+    (the server side of a loopback server's connections)."""
+    n = 0
+    for path in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(path) as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            cols = row.split()
+            if cols[3] == "01" and int(cols[1].rsplit(":", 1)[1], 16) == port:
+                n += 1
+    return n
+
+
+def _cpu_s(pid: int) -> float:
+    """User and system CPU seconds of process ``pid`` so far."""
+    with open(f"/proc/{pid}/stat") as f:
+        cols = f.read().rsplit(")", 1)[1].split()
+    return (int(cols[11]) + int(cols[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _fanout(root: str, env: dict, proxies: list, client, apiserver_port: int,
+            watchers: int, pods: int) -> dict:
+    """``watchers`` stream watchers, split over ``proxies`` (one process
+    of watchers a proxy), then ``pods`` pods created through ``client``:
+    every watcher sees every pod bound, in seq order, with no relist; the
+    API server holds the same connections with the watchers as without;
+    the last watcher's delivery p50/p99 from the create; each proxy's
+    upstream lag over the burst; upstream bytes against the bytes the
+    watchers received."""
+    import threading
+
+    per = watchers // len(proxies)
+    before_conns = _established(apiserver_port)
+    before = [_buckets(p.metrics(), "proxy_upstream_lag_ms") for p in proxies]
+    fleets = [subprocess.Popen(
+        [sys.executable, "-c", WATCHERS, p.url, str(per), "fo", str(pods),
+         "240"], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for p in proxies]
+    try:
+        for fleet in fleets:
+            watchdog = threading.Timer(120, fleet.kill)
+            watchdog.start()
+            line = fleet.stdout.readline()
+            watchdog.cancel()
+            if not line.startswith("ready"):
+                raise AssertionError(f"a watcher fleet said {line!r}: "
+                                     f"{fleet.stderr.read()[-3000:]}")
+        with_conns = _established(apiserver_port)
+        if with_conns != before_conns:
+            raise AssertionError(f"the API server held {before_conns} "
+                                 f"connections without the watchers and "
+                                 f"{with_conns} with them")
+        up_before = [_metric_value(p.metrics(), 'transport_bytes_total{wire='
+                                   '"proxy",dir="rx"}') for p in proxies]
+        cpu_before = [_cpu_s(p.proc.pid) for p in proxies]
+        created = {}
+        for i in range(pods):
+            name = f"fo{i:03d}"
+            created[name] = time.time()
+            client.create_pod(_gpu_pod(name, 1))
+        # the gauge is read at each applied upstream batch (the burst's
+        # binds among them): it counts the fleet and each proxy's own
+        # clients' watches while the fleets still hold their connections
+        downstream = [_wait_for(
+            lambda p=p: (lambda n: n >= per and n)(_metric_value(
+                p.metrics(), f'proxy_downstream_watchers{{proxy="{p.name}"}}')),
+            60, f"{p.name}'s downstream watchers") for p in proxies]
+        results = []
+        for fleet in fleets:
+            out, err = fleet.communicate(timeout=300)
+            if fleet.returncode != 0:
+                raise AssertionError(f"a watcher fleet exited "
+                                     f"{fleet.returncode}: {err[-3000:]}")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for fleet in fleets:
+            if fleet.poll() is None:
+                fleet.kill()
+                fleet.wait()
+    texts = [p.metrics() for p in proxies]
+    cpu = [_cpu_s(p.proc.pid) - c for p, c in zip(proxies, cpu_before)]
+    for r in results:
+        if r["n_faults"] or r["complete"] != per:
+            raise AssertionError(f"{r['complete']} of {per} watchers saw "
+                                 f"every pod bound; faults {r['faults']}")
+    first = {n: max(r["first"][n] for r in results) - created[n]
+             for n in created}
+    bound = {n: max(r["bound"][n] for r in results) - created[n]
+             for n in created}
+    up_rx = sum(_metric_value(t, 'transport_bytes_total{wire="proxy",'
+                              'dir="rx"}') for t in texts) - sum(up_before)
+    down_rx = sum(r["rx_bytes"] for r in results)
+    return {"watchers": per * len(proxies), "pods": pods,
+            "downstream_watchers": downstream,
+            "apiserver_connections": {"without_watchers": before_conns,
+                                      "with_watchers": with_conns,
+                                      "after_pods": _established(
+                                          apiserver_port)},
+            "delivery_first_event_ms": {
+                "p50": _pctl(list(first.values()), 0.5) * 1e3,
+                "p99": _pctl(list(first.values()), 0.99) * 1e3},
+            "delivery_bound_ms": {
+                "p50": _pctl(list(bound.values()), 0.5) * 1e3,
+                "p99": _pctl(list(bound.values()), 0.99) * 1e3},
+            "proxy_upstream_lag_ms": [
+                {"proxy": p.name,
+                 "p50_le": _bucket_pctl(b, _buckets(t, "proxy_upstream_lag"
+                                                    "_ms"), 0.5),
+                 "p99_le": _bucket_pctl(b, _buckets(t, "proxy_upstream_lag"
+                                                    "_ms"), 0.99)}
+                for p, b, t in zip(proxies, before, texts)],
+            "upstream_proxy_rx_bytes": up_rx,
+            "downstream_watchers_rx_bytes": down_rx,
+            "fanout_bytes_ratio": down_rx / up_rx if up_rx else None,
+            "cpu_s": {"proxies": cpu,
+                      "watcher_fleets": [r["cpu_s"] for r in results]}}
+
+
+def _scenario(root: str, env: dict, name: str, args: tuple) -> dict:
+    """One ``kgtpu-gpu-simulate ARGS --json`` run: its document, checked,
+    with its seconds."""
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "kubegpu_tpu_torch.cmd.simulate", *args,
+         "--json"], cwd=root, env=env, capture_output=True, text=True,
+        timeout=240)
+    if out.returncode != 0:
+        raise AssertionError(f"simulate {name} exited {out.returncode}: "
+                             f"{out.stderr[-3000:]}")
+    doc = json.loads(out.stdout)
+    if name == "default":
+        pending = [r["pod"] for r in doc["placements"]
+                   if r["node"] == "<pending>"]
+        if pending or doc["ha"]["schedulers"] != 2:
+            raise AssertionError(f"simulate default left {pending}")
+    elif name == "chip-kill":
+        if doc["repairs"] < 1 or doc["relists"] or \
+                doc["injected"][0][0] != "chip-kill":
+            raise AssertionError(f"simulate chip-kill: {doc}")
+    elif name == "ha":
+        if doc["placed"] != 14 or doc["watch_relists"] or \
+                sorted(doc["stolen_shards"]) != [0, 1]:
+            raise AssertionError(f"simulate ha: {doc}")
+    elif name == "tenant-flood":
+        if set(doc["proxies"]["downstream_watchers"]) != {"proxy0",
+                                                          "proxy1"} or \
+                doc["evictions"] or doc["watch_relists"]:
+            raise AssertionError(f"simulate tenant-flood: {doc}")
+    elif doc["recovery_ms"] <= 0:
+        raise AssertionError(f"simulate {name}: {doc}")
+    return {"seconds": time.perf_counter() - t, "doc": doc}
+
+
+def proxy_simulate_phase(backend: str = "nvml", train: bool = True,
+                         hosts: int = PX_HOSTS, watchers: int = PX_WATCHERS,
+                         pods: int = PX_PODS) -> dict:
+    """The proxy tier with the card behind it, every process the port's: a
+    ``kgtpu-gpu-apiserver --wal-dir D`` on the stream wire and two
+    ``kgtpu-gpu-proxy --apf`` replicas, p0 and p1; ``hosts`` fake HGX
+    hosts registered through p0 (forwarded writes), the node agent on this
+    card (``backend``) against p1 and one ``kgtpu-gpu-scheduler`` against
+    p0. A 1-card pod created through p1 is placed by a nodeSelector and,
+    with ``train``, trains DEVICE_STEPS steps through the agent (18 sm90
+    launches of each of K1-K3, ``launches_proxy_run``). The agent's hook
+    reads the pod from p1's mirror, which a proxy updates before its window
+    announces the batch: the phase waits for the bind on p1's own watch
+    before it launches, so the read finds the allocation. Then the fan-out
+    (`_fanout`): ``watchers`` watchers, half on each proxy, and ``pods``
+    pods. Last, each `PX_SCENARIOS` run of ``kgtpu-gpu-simulate``. Raises
+    on any failed check."""
+    import tempfile
+    import types
+
+    from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
+    from kubegpu_tpu_torch.core import codec, grammar
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base_env = {k: v for k, v in os.environ.items() if k not in (
+        "CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER",
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-proxy-")
+    server = _APIServerProc(root, base_env, tmp, "--wal-dir",
+                            os.path.join(tmp, "wal"))
+    clients: list = []
+    proxies: list = []
+    sched = agent = watchdog = agent_err = None
+    try:
+        server.start()
+        proxies = [_ProxyProc(root, base_env, tmp, server.url, f"p{i}")
+                   for i in range(2)]
+        p0 = HTTPAPIClient(proxies[0].url, wire="stream")
+        p1 = HTTPAPIClient(proxies[1].url, wire="stream")
+        clients += [p0, p1]
+        register_s = _register_hosts(p0, hosts)
+        agent, cri, _, agent_err, watchdog = _start_agent(
+            root, base_env, types.SimpleNamespace(url=proxies[1].url), tmp,
+            backend)
+        _wait_for(lambda: codec.NODE_ANNOTATION_KEY in (
+            p1.get_node(NODE)["metadata"].get("annotations") or {}),
+            60, "the agent's advertise, through p1")
+        p1.patch_node_metadata(NODE, {"labels": CP_LABEL})
+        sched = _SchedulerBinary(root, base_env, tmp, proxies[0].url,
+                                 "--wire", "stream")
+        watch = _BindWatch()
+        p1.add_watcher(watch)
+        pod = _gpu_pod("px-pod", 1)
+        pod["spec"]["nodeSelector"] = dict(CP_LABEL)
+        t = time.perf_counter()
+        p1.create_pod(pod)
+        _wait_for(lambda: watch.bound(["px-pod"]), 60,
+                  "px-pod bound, on p1's watch")
+        bound_ms = (watch.last - t) * 1e3
+        placed = p1.get_pod("px-pod")   # p1's mirror, as the hook reads it
+        alloc = codec.kube_pod_to_pod_info(
+            placed, invalidate_existing=False).running_containers[
+            "main"].allocate_from
+        card = [grammar.gpu_id_from_path(p) for p in alloc.values()
+                if grammar.gpu_id_from_path(p)]
+        if placed["spec"]["nodeName"] != NODE or len(card) != 1:
+            raise AssertionError(f"px-pod on {placed['spec']['nodeName']} "
+                                 f"with {alloc}")
+        pod_s = out = counted = None
+        if train:
+            pod_s, out, counted = _run_training_pod(
+                cri, "px-pod", {"devices": [], "envs": []})
+        fanout = _fanout(root, base_env, proxies, p0,
+                         server.port, watchers, pods)
+        fanout["cards_held"] = _cards_held_once(p0)
+        for c in clients:
+            c.close()
+        if sched.stop() != 0:
+            raise AssertionError(f"the scheduler exited "
+                                 f"{sched.proc.returncode}: {sched.stderr()}")
+        sched = None
+        for p in proxies:
+            if p.stop() != 0:
+                raise AssertionError(f"proxy {p.name} exited "
+                                     f"{p.proc.returncode}")
+        proxies = []
+    finally:
+        if sched is not None:
+            sched.stop()
+        for c in clients:
+            c.close()
+        if watchdog is not None:
+            watchdog.cancel()
+        if agent is not None:
+            if agent.poll() is None:
+                agent.kill()
+                agent.wait()
+            agent.stdout.close()
+            agent_err.close()
+        for p in proxies:
+            p.stop()
+        server.stop()
+    scenarios = {name: _scenario(root, base_env, name, args)
+                 for name, args in PX_SCENARIOS}
+    row = {"phase": "proxy_simulate", "nvidia_smi": smi_line(),
+           "note": "host times on the card's machine; every process is the "
+                   "port's (apiserver --wal-dir, two proxies --apf, the "
+                   "scheduler against p0, the node agent against p1)",
+           "hosts": hosts, "register_through_p0_s": register_s,
+           "px_pod_create_to_bound_ms": bound_ms, "card": card[0],
+           "pod_s": pod_s,
+           "launches_fwd_dq_dkv": counted and counted["launches"],
+           "launches_by_instance": counted and counted["by_instance"],
+           "losses": out and out["losses_full"], "fanout": fanout,
+           "simulate": scenarios, "seconds": time.perf_counter() - t0,
+           "ok": True}
+    emit(row)
+    return row
+
+
 def _counted_drain(cfg, params, prompts, fused) -> dict:
     """One greedy drain of ``prompts`` under the counter, in the section
     "fused" or "oracle": the streams, the server's decode steps (a chunk
@@ -5128,6 +5610,7 @@ def main() -> int:
     scheduler_phase()
     sched_bin = scheduler_binary_phase()
     cp = control_plane_phase()
+    px = proxy_simulate_phase()
     checkers = checkers_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
@@ -5176,6 +5659,7 @@ def main() -> int:
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][0],
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][0],
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][0],
+        "launches_proxy_run": px["launches_fwd_dq_dkv"][0],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][0],
         "dispatches_checkers_step": checkers["train_kgt_flash_fwd"],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
@@ -5209,6 +5693,7 @@ def main() -> int:
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][1],
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][1],
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][1],
+        "launches_proxy_run": px["launches_fwd_dq_dkv"][1],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][1],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
@@ -5240,6 +5725,7 @@ def main() -> int:
             sched_bin["lifecycle"]["launches_fwd_dq_dkv"][2],
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][2],
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][2],
+        "launches_proxy_run": px["launches_fwd_dq_dkv"][2],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][2],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),

@@ -276,10 +276,17 @@ class _EventLog:
     ``floor`` is the highest sequence number no longer replayable
     (snapshot compaction or the in-memory trim); a client presenting an
     older ``since`` is answered with a full-relist signal instead of a
-    silent gap."""
+    silent gap.
+
+    With ``attach=False`` the log records nothing of its own: it is a
+    watch-cache proxy's downstream window (``cluster/proxy.py``), fed the
+    upstream's events with their upstream sequence numbers through
+    `reset`, `ingest` and `backfill`. The sequence space stays the API
+    server's, so a client moves between a proxy and the server and
+    resumes seq-exact."""
 
     def __init__(self, api: InMemoryAPIServer, limit: int = 10000,
-                 wal=None):
+                 wal=None, attach: bool = True):
         self._lock = threading.Condition()
         self._events: list = []
         self._seq = 0
@@ -310,7 +317,8 @@ class _EventLog:
             self._events = list(tail)[-limit:]
             if len(tail) > limit:
                 self._floor = self._events[0][0] - 1
-        api.add_watcher(self._record)
+        if attach:
+            api.add_watcher(self._record)
 
     # Recent events carried INSIDE each snapshot: they are already
     # reflected in the snapshotted state (never re-applied on recovery)
@@ -323,6 +331,10 @@ class _EventLog:
         with self._lock:
             return self._seq
 
+    def floor(self) -> int:
+        with self._lock:
+            return self._floor
+
     def tail(self, k: int) -> list:
         with self._lock:
             return list(self._events[-k:]) if k > 0 else []
@@ -330,6 +342,56 @@ class _EventLog:
     def stream_subscriber_count(self) -> int:
         with self._lock:
             return len(self._subs)
+
+    # ---- a proxy's ingest (attach=False) ----------------------------------
+
+    def reset(self, head_seq: int, epoch: str) -> None:
+        """Adopt an upstream position: drop the window and go on from the
+        upstream head under its epoch (at a proxy's sync, and whenever the
+        upstream relists it). Every downstream cursor below the head then
+        gets the relist the upstream gave, and a new epoch reaches the
+        clients through the proxy as it would directly."""
+        with self._lock:
+            self._events = []
+            self._seq = head_seq
+            self._floor = head_seq
+            self.epoch = epoch
+            self._lock.notify_all()
+
+    def ingest(self, events: list, head_seq: int) -> None:
+        """Record one upstream watch batch with its upstream sequence
+        numbers. A coalesced batch can interleave seqs across objects, so
+        it is sorted before it is appended (the log stays bisectable; an
+        object's own seqs only grow). The trim moves the floor as
+        recording does."""
+        with self._lock:
+            batch = sorted((tuple(ev) for ev in events
+                            if ev[0] > self._seq),
+                           key=lambda ev: ev[0])
+            self._events.extend(batch)
+            if head_seq > self._seq:
+                self._seq = head_seq
+            if len(self._events) > self.limit:
+                drop = len(self._events) - self.limit
+                self._floor = self._events[drop - 1][0]
+                self._events = self._events[drop:]
+            self._lock.notify_all()
+
+    def backfill(self, events: list, new_floor: int) -> None:
+        """Extend the window downward to ``new_floor``: a downstream cursor
+        lay below the floor and the deeper upstream window replayed the
+        gap. Only events below the first held seq are prepended; a
+        coalesced event whose seq lies inside the window is dropped with
+        nothing lost, since the in-window event holds that object
+        whole."""
+        with self._lock:
+            first = self._events[0][0] if self._events else self._seq + 1
+            prefix = sorted((tuple(ev) for ev in events
+                             if new_floor < ev[0] < first),
+                            key=lambda ev: ev[0])
+            self._events = prefix + self._events
+            self._floor = min(self._floor, new_floor)
+            self._lock.notify_all()
 
     def _record(self, kind, event, obj):
         # self._wal is set once in __init__ and never reassigned — it is
@@ -1137,7 +1199,9 @@ class HTTPAPIClient:
     ``watch_batch_s`` is the server's linger per watch window (fuller,
     more coalesced batches for a later first event); ``watch_kinds``
     narrows the watch to those object kinds on the server (None: every
-    kind)."""
+    kind). ``transport_label`` names the wire this client's bytes count
+    under in ``transport_bytes_total{wire}`` (a proxy's upstream client
+    passes ``stream.WIRE_PROXY``; None: the wire in effect)."""
 
     IDEMPOTENT_METHODS = frozenset({"GET", "PUT", "PATCH", "DELETE"})
     RETRY_ATTEMPTS = 3
@@ -1146,11 +1210,13 @@ class HTTPAPIClient:
 
     def __init__(self, base_url: str, timeout: float = 30.0,
                  wire: str = stream.WIRE_JSON, watch_batch_s: float = 0.0,
-                 watch_kinds: tuple | None = None):
+                 watch_kinds: tuple | None = None,
+                 transport_label: str | None = None):
         if wire not in (stream.WIRE_JSON, stream.WIRE_STREAM):
             raise ValueError(f"unknown wire {wire!r}")
         self.base_url = base_url.rstrip("/")
         self.timeout = timeout
+        self.transport_label = transport_label
         # the wire in effect: "stream" may negotiate down to "json" on the
         # first round trip against a server without the upgrade
         self.wire = wire
@@ -1203,10 +1269,10 @@ class HTTPAPIClient:
             resp = conn.getresponse()
             payload = resp.read()
             # bodies only: the JSON wire's HTTP headers are not counted
-            metrics.TRANSPORT_BYTES.labels(stream.WIRE_JSON, "tx").inc(
+            label = self.transport_label or stream.WIRE_JSON
+            metrics.TRANSPORT_BYTES.labels(label, "tx").inc(
                 len(data) if data else 0)
-            metrics.TRANSPORT_BYTES.labels(stream.WIRE_JSON, "rx").inc(
-                len(payload))
+            metrics.TRANSPORT_BYTES.labels(label, "rx").inc(len(payload))
             return resp.status, payload
         except Exception:
             self._local.conn = None
@@ -1224,7 +1290,8 @@ class HTTPAPIClient:
         if conn is None or conn.closed:
             if self._stop.is_set():
                 raise ConnectionError("client is closed")
-            conn = stream.StreamConn.connect(self.base_url, timeout)
+            conn = stream.StreamConn.connect(self.base_url, timeout,
+                                             label=self.transport_label)
             self._local.stream = conn
             with self._conn_lock:
                 if self._stop.is_set():
@@ -1617,7 +1684,8 @@ class HTTPAPIClient:
         carries over."""
         conn = None
         try:
-            conn = stream.StreamConn.connect(self.base_url, 10.0)
+            conn = stream.StreamConn.connect(
+                self.base_url, 10.0, label=self.transport_label)
             with self._conn_lock:
                 if self._stop.is_set():
                     # close() already swept the set; the finally closes it

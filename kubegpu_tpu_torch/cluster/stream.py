@@ -41,7 +41,7 @@ import threading
 import time
 import urllib.parse
 import zlib
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 from kubegpu_tpu_torch import metrics
 from kubegpu_tpu_torch.core import codec
@@ -66,6 +66,9 @@ UPGRADE_PATH = "/stream"
 UPGRADE_TOKEN = "kgtpu-stream"
 WIRE_STREAM = "stream"
 WIRE_JSON = "json"
+# the watch-cache proxy's upstream leg (cluster/proxy.py): its bytes count
+# apart from the client legs'
+WIRE_PROXY = "proxy"
 
 
 class FrameError(ConnectionError):
@@ -154,8 +157,12 @@ class StreamConn:
     Any framing fault closes the socket and surfaces as a
     ``ConnectionError``."""
 
-    def __init__(self, sock: socket.socket) -> None:
+    def __init__(self, sock: socket.socket,
+                 label: Optional[str] = None) -> None:
         self._sock = sock
+        # the wire its frames count under: WIRE_PROXY for a proxy's
+        # upstream leg, else WIRE_STREAM
+        self._label = label or WIRE_STREAM
         # one writer a connection (its requesting thread, or the watch
         # thread's single SUB): the lock is uncontended
         self._wlock = threading.Lock()
@@ -164,7 +171,8 @@ class StreamConn:
         self.closed = False
 
     @classmethod
-    def connect(cls, base_url: str, timeout: float) -> "StreamConn":
+    def connect(cls, base_url: str, timeout: float,
+                label: Optional[str] = None) -> "StreamConn":
         """Dial and upgrade. Raises :class:`StreamUnsupported` when the
         server speaks only JSON over HTTP, and ``OSError`` or
         ``ConnectionError`` on a transport fault."""
@@ -186,7 +194,7 @@ class StreamConn:
         except BaseException:
             sock.close()
             raise
-        return cls(sock)
+        return cls(sock, label)
 
     def request(self, method: str, path: str, body: object,
                 timeout: float) -> Tuple[int, object]:
@@ -199,9 +207,10 @@ class StreamConn:
                          method, path, body, None)
         try:
             self._sock.settimeout(timeout)
-            send_frame(self._sock, self._wlock, REQ, rid, payload)
+            send_frame(self._sock, self._wlock, REQ, rid, payload,
+                       self._label)
             while True:
-                ftype, got_rid, data = read_frame(self._rfile)
+                ftype, got_rid, data = read_frame(self._rfile, self._label)
                 if ftype == PING:
                     continue
                 # a REJECT for this request is flow control, not a fault:
@@ -228,9 +237,10 @@ class StreamConn:
              "batch": batch_s})
         try:
             self._sock.settimeout(timeout)
-            send_frame(self._sock, self._wlock, SUB, rid, payload)
+            send_frame(self._sock, self._wlock, SUB, rid, payload,
+                       self._label)
             while True:
-                ftype, got_rid, data = read_frame(self._rfile)
+                ftype, got_rid, data = read_frame(self._rfile, self._label)
                 if ftype == PING:
                     continue
                 if ftype != RESP or got_rid != rid:
@@ -249,7 +259,7 @@ class StreamConn:
         and propagates."""
         try:
             self._sock.settimeout(timeout)
-            ftype, _rid, data = read_frame(self._rfile)
+            ftype, _rid, data = read_frame(self._rfile, self._label)
             if ftype == PING:
                 return None
             if ftype != PUSH:

@@ -73,6 +73,7 @@ class WriteAheadLog:
         self._fh: Optional[BinaryIO] = None
         self._closed = False
         self._since_snapshot = 0
+        self.recovered_records = 0   # records the last recover() replayed
         self.dropped_tail_bytes = 0
 
     @property
@@ -260,6 +261,7 @@ class WriteAheadLog:
                 log.warning("wal replay: could not restore %s %s record "
                             "seq %d", kind, event, seq, exc_info=True)
             last_seq = max(last_seq, seq)
+        self.recovered_records = len(records)
         if records or state is not None:
             log.info("wal recovery: snapshot seq %d (+%d tail) + %d "
                      "replayed record(s) -> seq %d", snap_seq, len(tail),

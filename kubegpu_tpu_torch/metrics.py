@@ -319,6 +319,16 @@ WAL_SNAPSHOT_BYTES = Gauge("wal_snapshot_bytes")
 APF_QUEUE_WAIT_MS = Histogram("apf_queue_wait_ms", start_us=0.01)
 APF_REJECTS = LabeledCounter("apf_rejects_total", ("band",))
 
+# The watch-cache proxy tier (cluster/proxy.py): each replica's live
+# downstream stream subscribers ({proxy}: its name), and the upstream hop's
+# lag, from the API server's batch stamp to the proxy's ingest (apart from
+# watch_push_lag_ms, so the downstream fan-out stays comparable between
+# direct and proxied paths). Its upstream bytes count under
+# transport_bytes_total{wire="proxy"}, its requests under
+# api_requests_total{server="proxy"}.
+PROXY_DOWNSTREAM_WATCHERS = LabeledGauge("proxy_downstream_watchers", "proxy")
+PROXY_UPSTREAM_LAG_MS = Histogram("proxy_upstream_lag_ms", start_us=0.01)
+
 _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         SERVE_SLOT_UTILIZATION, TRANSPORT_BYTES, FRAME_ENCODE_MS,
         FRAME_DECODE_MS, E2E_SCHEDULING_LATENCY, ALGORITHM_LATENCY,
@@ -332,7 +342,8 @@ _ALL = (SERVE_TTFT_MS, SERVE_ITL_MS, SERVE_QUEUE_DEPTH,
         QUOTA_PARKED, REPAIRS, REPAIR_LATENCY_MS, WATCH_BATCH_SIZE,
         WATCH_COALESCED, WATCH_PUSH_LAG_MS, LEASE_TRANSITIONS, FLIGHT_DUMPS,
         PROFILE_SAMPLES, API_REQUESTS, WAL_FSYNC_MS, WAL_SNAPSHOT_BYTES,
-        APF_QUEUE_WAIT_MS, APF_REJECTS)
+        APF_QUEUE_WAIT_MS, APF_REJECTS, PROXY_DOWNSTREAM_WATCHERS,
+        PROXY_UPSTREAM_LAG_MS)
 
 
 def all_metrics() -> list:

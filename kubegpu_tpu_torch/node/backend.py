@@ -57,6 +57,8 @@ class GPUInventory:
 # state ("degraded", "failed", ...) withholds the card from the advertised
 # allocatable inventory.
 CHIP_HEALTHY = "healthy"
+CHIP_DEGRADED = "degraded"
+CHIP_FAILED = "failed"
 
 
 class GPUBackend:

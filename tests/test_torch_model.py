@@ -219,7 +219,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "scheduler.lifecycle", "scheduler.vectorized",
                  "scheduler.batch", "cluster.apf", "scheduler.quota",
                  "scheduler.extender", "scheduler.repair",
-                 "cluster.apiserver", "cluster.wal", "cmd.apiserver_main"):
+                 "cluster.apiserver", "cluster.wal", "cmd.apiserver_main",
+                 "cluster.proxy", "cluster.chaos", "cmd.proxy_main",
+                 "cmd.simulate"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -440,8 +440,8 @@ def _frames_seen(monkeypatch):
     seen = []
     real = stream.read_frame
 
-    def read_frame(rfile):
-        got = real(rfile)
+    def read_frame(rfile, *wire):
+        got = real(rfile, *wire)
         seen.append(got[0])
         return got
 
@@ -501,9 +501,9 @@ def test_stream_client_negotiates_down_once_against_a_json_only_server(
     dials = []
     real = stream.StreamConn.connect.__func__
 
-    def connect(cls, *args):
+    def connect(cls, *args, **kwargs):
         dials.append(args)
-        return real(cls, *args)
+        return real(cls, *args, **kwargs)
 
     monkeypatch.setattr(stream.StreamConn, "connect", classmethod(connect))
     metrics.TRANSPORT_BYTES.reset()

@@ -277,9 +277,9 @@ def test_a_stream_client_negotiates_down_once_and_keeps_watching(
     dials = []
     real = stream.StreamConn.connect.__func__
 
-    def connect(cls, *args):
+    def connect(cls, *args, **kwargs):
         dials.append(args)
-        return real(cls, *args)
+        return real(cls, *args, **kwargs)
 
     monkeypatch.setattr(stream.StreamConn, "connect", classmethod(connect))
     client = HTTPAPIClient(url, wire="stream")
