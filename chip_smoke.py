@@ -255,6 +255,18 @@ T = 2048, no remat), random weights from a seed:
    ``kgtpu-gpu-simulate --json`` runs: the default mix on 4 hosts with 2
    replicas, node-loss, chip-kill, the HA scenario and the tenant flood
    behind 2 proxies, each document checked and printed;
+   explorer: every race twin of ``analysis/races.py`` under the
+   interleaving explorer on this host, the card scenarios keyed by this
+   card's UUID (a fake HGX card beside it on a one-card machine): each
+   mutant rediscovered within its budget, each clean scenario passing
+   every schedule, a ``twin`` line each (schedules, failing index,
+   schedules/s); then ``kgtpu-gpu-apiserver``, 8 fake HGX hosts, the node
+   agent on this card and two ``kgtpu-gpu-scheduler --replicas 2
+   --lease-ttl 1`` on each wire in turn: a 1-card pod on the card trains
+   3 steps through the agent (18 sm90 launches of each,
+   ``launches_explorer_run``), then the sharded test's mix (a gang of two
+   4-card members and 40 one-card pods) bound 10 times in a row, each pod
+   once, no card twice, both replicas committing;
 23. checkers: under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
@@ -2316,15 +2328,15 @@ class _StubAPI:
         return json.loads(json.dumps(self.nodes[name]))
 
 
-def _free_gang_id() -> int:
-    """A gang id whose coordinator port (``scheduler/gang.py``) is free on
-    this machine: the engine's contract names it, and the pod's process
-    group binds it."""
+def _free_gang_id(start: int = 733) -> int:
+    """A gang id from ``start`` on whose coordinator port
+    (``scheduler/gang.py``) is free on this machine: the engine's contract
+    names it, and the pod's process group binds it."""
     import socket
 
     from kubegpu_tpu_torch.scheduler.gang import gang_coordinator_port
 
-    for gid in range(733, 933):
+    for gid in range(start, start + 200):
         with socket.socket() as s:
             try:
                 s.bind(("127.0.0.1", gang_coordinator_port(gid)))
@@ -5428,6 +5440,207 @@ def proxy_simulate_phase(backend: str = "nvml", train: bool = True,
     return row
 
 
+# the explorer phase's sharded-replica leg: the mix of
+# tests/test_torch_scheduler_main.py::test_sharded_replicas_bind_every_pod_once
+# (eight fake HGX hosts; a gang of two 4-card members, then 40 one-card
+# pods; `--lease-ttl 1`), bound EXPLORER_ROUNDS times in a row, half the
+# rounds on each wire, each within the test's 60 s
+EXPLORER_HOSTS, EXPLORER_SINGLES, EXPLORER_GANG = 8, 40, (2, 4)
+EXPLORER_ROUNDS, EXPLORER_WAIT_S, EXPLORER_TTL_S = 10, 60.0, 1.0
+
+
+def _shard_round(client, watch, reps, tag: str, gid: int) -> dict:
+    """One round of the sharded-replica mix through ``client``: the gang
+    first, then the one-card pods, each bound once on one node, no card
+    held twice, the plain pods committed by both replicas between them,
+    the gang by the replica owning its shard; then every pod deleted. Its
+    seconds from the first create to the last bind."""
+    from kubegpu_tpu_torch.cluster.lease import shard_of
+
+    members, cards = EXPLORER_GANG
+    gang = [f"{tag}-g-{i}" for i in range(members)]
+    singles = [f"{tag}-r{i}" for i in range(EXPLORER_SINGLES)]
+    names = gang + singles
+    before = _replica_metrics(reps)["commits"]
+    t = time.perf_counter()
+    for name in gang:
+        client.create_pod(_gpu_pod(name, cards, gang=gid, size=members))
+    for name in singles:
+        client.create_pod(_gpu_pod(name, 1))
+    _wait_for(lambda: watch.bound(names) == len(names), EXPLORER_WAIT_S,
+              f"every pod of round {tag} bound")
+    wall = watch.last - t
+    with watch.lock:
+        twice = [n for n in names if len(watch.nodes[n]) != 1]
+    if twice:
+        raise AssertionError(f"round {tag}: bound to two nodes: {twice}")
+    held = _cards_held_once(client)
+    commits = [a - b for a, b in zip(_replica_metrics(reps)["commits"],
+                                     before)]
+    if sum(commits) != EXPLORER_SINGLES or not all(commits):
+        raise AssertionError(f"round {tag}: the replicas committed "
+                             f"{commits} of {EXPLORER_SINGLES}")
+    owner = reps[shard_of(f"gang:{gid}", 2)]
+    state = json.loads(owner.get(f"/debug/pod/{gang[0]}"))["state"]
+    if state != "bound":
+        raise AssertionError(f"round {tag}: the gang's owner says {state}")
+    for name in names:
+        client.delete_pod(name)
+    _wait_for(lambda: not any(p["metadata"]["name"] in names
+                              for p in client.list_pods()), 30,
+              f"round {tag}'s pods deleted")
+    return {"round": tag, "gang": gid, "all_bound_s": wall,
+            "commits_per_replica": commits, "cards_held": held}
+
+
+def explorer_phase(backend: str = "nvml", train: bool = True) -> dict:
+    """The interleaving explorer on the card machine's host, then the
+    sharded-replica repair end to end.
+
+    Every twin of ``analysis/races.py``'s catalog: each mutant (a fixed
+    race put back) rediscovered within its budget, each clean scenario
+    passing every schedule. The card scenarios key the node's cards as
+    NVML (``backend``) gives them; on a one-card machine a fake HGX card
+    stands beside the real one, which is the contended card. Each prints a
+    ``twin`` line: schedules, the failing index, schedules/s.
+
+    Then the repaired commit race under the real processes: a
+    ``kgtpu-gpu-apiserver`` (both wires), EXPLORER_HOSTS fake HGX hosts,
+    the node agent on this card, and two ``kgtpu-gpu-scheduler --replicas
+    2`` on each wire in turn. A 1-card pod placed on the card's node (a
+    nodeSelector) trains DEVICE_STEPS steps through the agent, as in
+    ``control_plane`` (with ``train``; 18 sm90 launches of each of K1-K3,
+    ``launches_explorer_run``), and keeps the card. Then the mix of the
+    CPU test, EXPLORER_ROUNDS rounds (`_shard_round`). Raises on any
+    failure."""
+    import tempfile
+    import types
+
+    from kubegpu_tpu_torch.analysis import races
+    from kubegpu_tpu_torch.cluster.httpapi import HTTPAPIClient
+    from kubegpu_tpu_torch.cluster.lease import SHARD_LEASE_PREFIX
+    from kubegpu_tpu_torch.cmd.common import build_backend
+    from kubegpu_tpu_torch.core import codec, grammar
+
+    t0 = time.perf_counter()
+    own = races.card_paths(build_backend(backend))
+    if not own:
+        raise AssertionError(f"the {backend} backend advertises no card")
+    cards = (own + [p for p in races.hgx_cards(7) if p not in own])[:2]
+    twins = []
+    for twin in races.catalog(cards):
+        row = races.run_twin(twin)
+        twins.append(row)
+        emit({"phase": "explorer", "twin": row})
+    explore_s = time.perf_counter() - t0
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    base_env = {k: v for k, v in os.environ.items() if k not in (
+        "CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER",
+        "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-explorer-")
+    server = _APIServerProc(root, base_env, tmp)
+    client = None
+    reps: list = []
+    agent = watchdog = agent_err = None
+    rounds: list = []
+    pod_s = out = counted = None
+    try:
+        server.start()
+        client = HTTPAPIClient(server.url, wire="stream")
+        _register_hosts(client, EXPLORER_HOSTS)
+        agent, cri, _, agent_err, watchdog = _start_agent(
+            root, base_env, types.SimpleNamespace(url=server.url), tmp,
+            backend)
+        _wait_for(lambda: codec.NODE_ANNOTATION_KEY in (
+            client.get_node(NODE)["metadata"].get("annotations") or {}),
+            60, "the agent's advertise")
+        client.patch_node_metadata(NODE, {"labels": CP_LABEL})
+        watch = _BindWatch()
+        client.add_watcher(watch)
+        gid = 733
+        for wire in ("stream", "json"):
+            reps = [_SchedulerBinary(root, base_env, tmp, server.url,
+                                     "--replicas", "2", "--shard", str(s),
+                                     "--lease-ttl", str(EXPLORER_TTL_S),
+                                     "--wire", wire) for s in range(2)]
+            # each replica takes the other's vacant shard until it sees
+            # its lease: the pods come once both are held and a tick passed
+            _wait_for(lambda: all(client.lease_holder(
+                f"{SHARD_LEASE_PREFIX}-{s}") for s in range(2)), 30,
+                "both shard leases held")
+            time.sleep(EXPLORER_TTL_S)
+            if wire == "stream":
+                pod = _gpu_pod("explorer-pod", 1)
+                pod["spec"]["nodeSelector"] = dict(CP_LABEL)
+                client.create_pod(pod)
+                _wait_for(lambda: watch.bound(["explorer-pod"]), 60,
+                          "the card's pod bound")
+                placed = client.get_pod("explorer-pod")
+                alloc = codec.kube_pod_to_pod_info(
+                    placed, invalidate_existing=False).running_containers[
+                    "main"].allocate_from
+                card = [grammar.gpu_id_from_path(p) for p in alloc.values()
+                        if grammar.gpu_id_from_path(p)]
+                if placed["spec"]["nodeName"] != NODE or len(card) != 1:
+                    raise AssertionError(
+                        f"the card's pod on {placed['spec']['nodeName']} "
+                        f"with {alloc}")
+                if train:
+                    pod_s, out, counted = _run_training_pod(
+                        cri, "explorer-pod", {"devices": [], "envs": []})
+            for k in range(EXPLORER_ROUNDS // 2):
+                gid = _free_gang_id(gid + 1)
+                row = _shard_round(client, watch, reps,
+                                   f"{wire[0]}{k}", gid)
+                row["wire"] = wire
+                rounds.append(row)
+            for r in reps:
+                if r.stop() != 0:
+                    raise AssertionError(f"a replica exited "
+                                         f"{r.proc.returncode}: "
+                                         f"{r.stderr()}")
+            reps = []
+        _cards_held_once(client)
+    finally:
+        for r in reps:
+            r.stop()
+        if client is not None:
+            client.close()
+        if watchdog is not None:
+            watchdog.cancel()
+        if agent is not None:
+            if agent.poll() is None:
+                agent.terminate()
+                try:
+                    agent.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    agent.kill()
+                    agent.wait()
+            agent.stdout.close()
+            agent_err.close()
+        server.stop()
+    row = {"phase": "explorer", "nvidia_smi": smi_line(),
+           "note": "host times on the card's machine; the twins run in "
+                   "this process, the rounds' processes are the port's "
+                   "(apiserver, two --replicas 2 schedulers a wire, the "
+                   "node agent)",
+           "cards": [grammar.gpu_id_from_path(c) for c in cards],
+           "twins": len(twins),
+           "mutants_found": sum(1 for t in twins
+                                if t["failing_index"] is not None),
+           "explore_s": explore_s, "pod_s": pod_s,
+           "launches_fwd_dq_dkv": counted and counted["launches"],
+           "launches_by_instance": counted and counted["by_instance"],
+           "losses": out and out["losses_full"],
+           "rounds": len(rounds),
+           "round_all_bound_s": [r["all_bound_s"] for r in rounds],
+           "round_commits": [r["commits_per_replica"] for r in rounds],
+           "seconds": time.perf_counter() - t0, "ok": True}
+    emit(row)
+    return row
+
+
 def _counted_drain(cfg, params, prompts, fused) -> dict:
     """One greedy drain of ``prompts`` under the counter, in the section
     "fused" or "oracle": the streams, the server's decode steps (a chunk
@@ -5611,6 +5824,7 @@ def main() -> int:
     sched_bin = scheduler_binary_phase()
     cp = control_plane_phase()
     px = proxy_simulate_phase()
+    explorer = explorer_phase()
     checkers = checkers_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
@@ -5660,6 +5874,7 @@ def main() -> int:
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][0],
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][0],
         "launches_proxy_run": px["launches_fwd_dq_dkv"][0],
+        "launches_explorer_run": explorer["launches_fwd_dq_dkv"][0],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][0],
         "dispatches_checkers_step": checkers["train_kgt_flash_fwd"],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
@@ -5694,6 +5909,7 @@ def main() -> int:
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][1],
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][1],
         "launches_proxy_run": px["launches_fwd_dq_dkv"][1],
+        "launches_explorer_run": explorer["launches_fwd_dq_dkv"][1],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][1],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
@@ -5726,6 +5942,7 @@ def main() -> int:
         "launches_repair_run": sched_bin["repair"]["launches_fwd_dq_dkv"][2],
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][2],
         "launches_proxy_run": px["launches_fwd_dq_dkv"][2],
+        "launches_explorer_run": explorer["launches_fwd_dq_dkv"][2],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][2],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),

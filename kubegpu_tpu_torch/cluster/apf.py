@@ -32,6 +32,7 @@ from contextlib import contextmanager
 from typing import Dict, Iterator, List, Tuple
 
 from kubegpu_tpu_torch import metrics
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.core import codec, grammar
 
 # Tenant identity on pod objects: a label (primary) or annotation
@@ -281,6 +282,7 @@ class APFDispatcher:
         b = self._bands[band]
         cfg = b.cfg
         with b.lock:
+            probe("apf.admit")
             if b.in_use < cfg.seats and b.queued == 0:
                 b.in_use += 1
                 return 0.0
@@ -293,6 +295,7 @@ class APFDispatcher:
             waiter = _Waiter()
             b.queues[qi].append(waiter)
             b.queued += 1
+            probe("apf.enqueue")
             t0 = time.monotonic()
             deadline = t0 + cfg.queue_wait_s
             while not waiter.admitted:
@@ -310,6 +313,7 @@ class APFDispatcher:
             raise AssertionError("unreachable")  # _reject_locked raises
 
     def _reject_locked(self, b: _Band, flow: str, why: str) -> None:
+        probe("apf.reject")
         metrics.APF_REJECTS.labels(b.name).inc()
         raise TooManyRequests(
             f"{b.name} band over capacity for flow {flow!r} ({why}: "
@@ -322,6 +326,7 @@ class APFDispatcher:
         (the abusive flow's hand) cannot monopolize freed seats."""
         b = self._bands[band]
         with b.lock:
+            probe("apf.release")
             for k in range(len(b.queues)):
                 qi = (b.rr + k) % len(b.queues)
                 if b.queues[qi]:

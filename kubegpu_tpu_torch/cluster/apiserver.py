@@ -22,6 +22,7 @@ import threading
 import time
 
 from kubegpu_tpu_torch import obs
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.cluster import apf
 from kubegpu_tpu_torch.cluster.lease import LeaseTable
 from kubegpu_tpu_torch.core import codec, grammar
@@ -509,6 +510,7 @@ class InMemoryAPIServer:
         index new) so the arbiter always sees committed state, and its
         ALLOCATION annotations are immutable (see
         `_allocation_guard_locked`)."""
+        probe("apiserver.update_pod_annotations")
         with self._lock:
             if name not in self._pods:
                 raise NotFound(f"pod {name}")
@@ -532,6 +534,7 @@ class InMemoryAPIServer:
         re-send the rest instead of abandoning the whole batch. This is
         the multi-key write the gang paths use so N members' stamps ride
         one transport round trip instead of N."""
+        probe("apiserver.update_pod_annotations_many")
         with self._lock:
             missing = {name: "not found" for name in annotations
                        if name not in self._pods}
@@ -566,6 +569,7 @@ class InMemoryAPIServer:
         stays a converging no-op. The decision is traced as an
         ``arbiter_commit`` span continuing the caller's bind span (wire
         header or in-process context)."""
+        probe("apiserver.bind_pod")
         wall, t0 = obs.wall_now(), time.perf_counter()
         try:
             with self._lock:
@@ -616,6 +620,7 @@ class InMemoryAPIServer:
         blind. Every pod's verdict is traced as an ``arbiter_commit``
         span continuing that pod's bind span (per-pod contexts carried
         by the batch header / in-process batch context)."""
+        probe("apiserver.bind_many")
         wall, t0 = obs.wall_now(), time.perf_counter()
         try:
             with self._lock:
@@ -665,6 +670,7 @@ class InMemoryAPIServer:
                             outcome="committed")
 
     def delete_pod(self, name: str) -> None:
+        probe("apiserver.delete_pod")
         with self._lock:
             pod = self._pods.pop(name, None)
             if pod is None:

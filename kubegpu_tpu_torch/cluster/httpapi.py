@@ -83,6 +83,7 @@ from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from kubegpu_tpu_torch import metrics, obs
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.cluster import stream
 from kubegpu_tpu_torch.cluster.apf import APFDispatcher, TooManyRequests
 from kubegpu_tpu_torch.cluster.apiserver import (Conflict,
@@ -175,6 +176,7 @@ class _StreamSubscriber:
         flight. The server caps the socket's send timeout, so a wedged
         consumer costs the pump one bounded send before it is severed —
         it can never stall the fan-out indefinitely."""
+        probe("stream.offer")
         if self._thread is None:
             # direct mode (unit tests): the caller IS the delivery
             # thread
@@ -494,6 +496,7 @@ class _EventLog:
         ``on_dead`` fires once when the subscriber is severed (overflow
         or send fault) — the transport closes the connection there so
         the client reconnects immediately."""
+        probe("stream.subscribe")
         sub = _StreamSubscriber(send, since, kinds, batch_s,
                                 threaded=threaded, on_dead=on_dead)
         with self._lock:
@@ -508,6 +511,7 @@ class _EventLog:
         return sub
 
     def remove_stream_subscriber(self, sub: _StreamSubscriber) -> None:
+        probe("stream.unsubscribe")
         with self._lock:
             if sub in self._subs:
                 self._subs.remove(sub)
@@ -547,6 +551,7 @@ class _EventLog:
         is gone. A wait that expires idle pings every subscriber
         instead (liveness + dead-socket detection). Returns the number
         of frames offered."""
+        probe("stream.pump")
         deadline = time.monotonic() + wait_s
         with self._lock:
             while True:
@@ -1334,6 +1339,14 @@ class HTTPAPIClient:
     def _backoff(self, attempt: int) -> float:
         return min(self.RETRY_CAP_S, self.RETRY_BASE_S * 2 ** attempt)
 
+    def _count_retry(self) -> None:
+        """Count one transport retry, guarded: every thread with a
+        keep-alive connection funnels through this counter, and an
+        unguarded ``+=`` from N concurrent retriers loses updates."""
+        probe("httpapi.count_retry")
+        with self._conn_lock:
+            self.retry_count += 1
+
     def _req(self, method: str, path: str, body=None, timeout=None):
         """One API round trip under the retry policy of the module
         docstring; returns the decoded document."""
@@ -1348,8 +1361,7 @@ class HTTPAPIClient:
                 # are OSErrors
                 if attempt + 1 >= attempts:
                     raise
-                with self._conn_lock:
-                    self.retry_count += 1
+                self._count_retry()
                 # jitter, so a fleet of clients does not resend in step
                 self._stop.wait(self._backoff(attempt)
                                 * (0.5 + random.random() / 2.0))
@@ -1409,8 +1421,7 @@ class HTTPAPIClient:
             except (http.client.HTTPException, OSError):
                 if attempt + 1 >= attempts:
                     raise
-                with self._conn_lock:
-                    self.retry_count += 1
+                self._count_retry()
                 self._stop.wait(self._backoff(attempt)
                                 * (0.5 + random.random() / 2.0))
 

@@ -40,6 +40,7 @@ import zlib
 from typing import Callable, FrozenSet, Optional
 
 from kubegpu_tpu_torch import metrics, obs
+from kubegpu_tpu_torch.analysis.explore import probe
 
 log = logging.getLogger(__name__)
 
@@ -74,6 +75,7 @@ class LeaseTable:
         """Grant/renew: the current holder always renews; anyone takes a
         vacant or expired lease (steal-on-expiry); an unexpired lease
         held by someone else is refused."""
+        probe("lease.acquire")
         with self._lock:
             now = time.monotonic()
             current = self._leases.get(name)
@@ -94,6 +96,7 @@ class LeaseTable:
         """Drop the lease iff ``holder`` still holds it — a clean
         shutdown hands the shard over immediately instead of making the
         successor wait out the TTL."""
+        probe("lease.release")
         with self._lock:
             current = self._leases.get(name)
             if current is None or current[0] != holder:
@@ -179,6 +182,7 @@ class Elector:
         the owner thread while ``tick()`` may still be finishing a
         renewal on the elector thread, and an unguarded ``+=`` between
         them loses updates."""
+        probe("lease.count_transition")
         metrics.LEASE_TRANSITIONS.inc()
         with self._lock:
             self.transitions += 1

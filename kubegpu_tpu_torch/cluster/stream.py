@@ -44,6 +44,7 @@ import zlib
 from typing import Any, Callable, Optional, Tuple
 
 from kubegpu_tpu_torch import metrics
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.core import codec
 
 _HEADER = struct.Struct("<BIII")  # type, request id, length, CRC32
@@ -97,6 +98,7 @@ def read_frame(rfile: Any, wire: str = WIRE_STREAM) -> Tuple[int, int, bytes]:
     """Read one frame off a buffered reader; raises :class:`StreamClosed`
     on clean EOF, :class:`FrameError` on anything torn or hostile. Its
     bytes count under ``transport_bytes_total{wire}``."""
+    probe("stream.read_frame")
     header = rfile.read(_HEADER.size)
     if not header:
         raise StreamClosed("stream closed")
@@ -127,6 +129,7 @@ def send_raw(sock: socket.socket, wlock: threading.Lock, data: bytes,
              wire: str = WIRE_STREAM) -> None:
     """Write pre-encoded frame bytes under ``wlock``: the event log encodes
     a push once and hands the same bytes to every subscriber."""
+    probe("stream.send_frame")
     with wlock:
         sock.sendall(data)
     metrics.TRANSPORT_BYTES.labels(wire, "tx").inc(len(data))

@@ -43,6 +43,7 @@ import zlib
 from typing import Any, BinaryIO, List, Optional, Tuple
 
 from kubegpu_tpu_torch import metrics
+from kubegpu_tpu_torch.analysis.explore import probe
 
 log = logging.getLogger(__name__)
 
@@ -116,6 +117,7 @@ class WriteAheadLog:
         plus fsync when enabled). Called by the event log BEFORE the
         event is served to any watcher — write-ahead, so anything a
         client saw is replayable."""
+        probe("wal.append")
         data = self._encode(seq, kind, event, obj)
         t0 = time.perf_counter()
         with self._lock:

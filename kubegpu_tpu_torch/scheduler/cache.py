@@ -21,6 +21,7 @@ from typing import Any
 import numpy as np
 
 from kubegpu_tpu_torch import metrics
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.core import codec, grammar
 from kubegpu_tpu_torch.core.types import NodeInfo, PodInfo
 from kubegpu_tpu_torch.scheduler import interpod
@@ -748,6 +749,7 @@ class SchedulerCache:
         truth, and registering an assume here would make the eventual
         Conflict's forget release a charge this assume never made —
         subtracting our planned cards from under the winner's."""
+        probe("cache.assume_pod")
         with self._lock:
             name = kube_pod["metadata"]["name"]
             if name in self._charged and name not in self._assumed:
@@ -834,12 +836,14 @@ class SchedulerCache:
 
     def confirm_pod(self, pod_name: str) -> None:
         """Bind succeeded: the pod is no longer merely assumed."""
+        probe("cache.confirm_pod")
         with self._lock:
             self._assumed.pop(pod_name, None)
 
     def forget_pod(self, kube_pod: dict) -> None:
         """Bind failed: release the assumed resources
         (`scheduler.go:394-431`)."""
+        probe("cache.forget_pod")
         with self._lock:
             name = kube_pod["metadata"]["name"]
             entry = self._assumed.pop(name, None)
@@ -860,6 +864,7 @@ class SchedulerCache:
         optimistic charge and account the server's truth — otherwise
         this cache both leaks our phantom cards and treats the winner's
         cards as free forever."""
+        probe("cache.add_pod")
         with self._lock:
             name = kube_pod["metadata"]["name"]
             entry = self._assumed.get(name)
@@ -883,6 +888,7 @@ class SchedulerCache:
                 self.nodes[node_name].pod_names.add(name)
 
     def remove_pod(self, kube_pod: dict, node_name: str) -> None:
+        probe("cache.remove_pod")
         with self._lock:
             name = kube_pod["metadata"]["name"]
             self._assumed.pop(name, None)
@@ -903,6 +909,7 @@ class SchedulerCache:
     def expire_assumed(self, now: float | None = None) -> list:
         """Drop assumed pods whose bind never confirmed (TTL 30s,
         `cache.go:40-81`). Returns expired pod names."""
+        probe("cache.expire_assumed")
         with self._lock:
             now = now if now is not None else time.monotonic()
             expired = [n for n, (_, dl, _) in self._assumed.items() if dl <= now]

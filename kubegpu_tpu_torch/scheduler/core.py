@@ -42,6 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable
 
 from kubegpu_tpu_torch import metrics, obs
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.cluster.httpapi import Conflict, NotFound, QuotaExceeded
 from kubegpu_tpu_torch.core import codec, grammar
 from kubegpu_tpu_torch.scheduler import (batch, factory, interpod,
@@ -2172,6 +2173,7 @@ class Scheduler:
             # reason), so its binds never ride the worker pool
             self._bind(kube_pod, host, t0, parent=parent)
             return
+        probe("core.submit_bind")
         with self._spool_lock:
             self._bind_spool.append((kube_pod, host, t0,
                                      time.perf_counter(), parent))
@@ -2188,6 +2190,7 @@ class Scheduler:
         """Crash handler for the spool drainer: clear the draining flag
         (items already popped were requeued by the drainer's own
         handling) and re-arm if work remains."""
+        probe("core.spool_crashed")
         with self._spool_lock:
             self._spool_draining = bool(self._bind_spool)
             rearm = self._spool_draining
@@ -2210,6 +2213,7 @@ class Scheduler:
         state. A conflict STREAK means the replans keep losing (stale
         view, pathological contention): degrade to the exponential
         backoff so the pod cannot hot-loop against the arbiter."""
+        probe("core.conflict_requeue")
         name = kube_pod["metadata"]["name"]
         self.volume_binder.forget(name)
         self.cache.forget_pod(kube_pod)
@@ -2978,45 +2982,76 @@ class Scheduler:
 
     def _bind_write(self, name: str, kube_pod: dict, host: str,
                     attempts: int = 1) -> None:
-        """The transport half of one bind: annotation write, then the
-        binding. Retried up to ``attempts`` times on transient failures —
-        safe because both writes converge on resend (the annotation
-        replace is idempotent; the bind subresource re-applied for the
-        SAME node is a no-op, so a duplicated or lost-reply bind cannot
-        double-apply). Conflict (bound elsewhere) and NotFound (deleted
-        mid-flight) are the server speaking and are never retried."""
+        """The transport half of one bind: annotation and binding in one
+        atomic ``bind_many``, or, for a bind-verb extender, the annotation
+        write and then the extender's binding. Retried up to ``attempts``
+        times on transient failures — safe because the writes converge on
+        resend (the annotation replace is idempotent; the bind re-applied
+        for the SAME node is a no-op, so a duplicated or lost-reply bind
+        cannot double-apply). Conflict (bound elsewhere) and NotFound
+        (deleted mid-flight) are the server speaking and are never
+        retried.
+
+        Under sharded replicas a competing replica may take the card
+        first. Were the refused attempt's allocation left stamped on the
+        pending pod, every replan on that host would read it back as the
+        pod's own pinned allocation and fail on the taken card: hence one
+        write, and for the extender's two writes a stamp withdrawn when
+        the bind fails (`_withdraw_stamp`)."""
         # an extender declaring a bind verb owns the binding
         # (`extender.go:44,90`); an ignorable binder that errors falls
         # back to the API binding, a non-ignorable one fails the bind
         # like any API error
         binder = next((e for e in self.generic.extenders
                        if getattr(e, "bind_verb", None)), None)
+        annotations = kube_pod["metadata"].get("annotations") or {}
         attempts = max(1, attempts)
+        stamped = False
         for attempt in range(attempts):
             try:
-                self.api.update_pod_annotations(
-                    name, kube_pod["metadata"].get("annotations") or {})
                 if binder is None:
+                    self.api.bind_many({name: host}, {name: annotations})
+                    return
+                self.api.update_pod_annotations(name, annotations)
+                stamped = True
+                try:
+                    binder.bind(name, host)
+                except Exception:
+                    if not binder.ignorable:
+                        raise
                     self.api.bind_pod(name, host)
-                else:
-                    try:
-                        binder.bind(name, host)
-                    except Exception:
-                        if not binder.ignorable:
-                            raise
-                        self.api.bind_pod(name, host)
                 return
             except Conflict:
                 # taken card / taken port / bound elsewhere: a competing
                 # replica won this commit — forget + requeue, never retry
                 metrics.SCHED_CONFLICTS.inc()
+                if stamped:
+                    self._withdraw_stamp(name, kube_pod)
                 raise
             except NotFound:
                 raise
             except Exception:
                 if attempt + 1 >= attempts:
+                    if stamped:
+                        self._withdraw_stamp(name, kube_pod)
                     raise
                 self._stop.wait(0.02 * (attempt + 1))
+
+    def _withdraw_stamp(self, name: str, kube_pod: dict) -> None:
+        """Rewrite a pod whose bind failed after its allocation was
+        stamped with that allocation invalidated (node pin and
+        ``allocate_from`` dropped, requests kept, as a requeued pod is
+        written), so the replan starts from intent. Best effort: a pod
+        bound meanwhile refuses the rewrite, and that is fine."""
+        meta = copy.deepcopy(kube_pod["metadata"])
+        info = codec.kube_pod_to_pod_info(kube_pod, invalidate_existing=True)
+        codec.pod_info_to_annotation(meta, info)
+        try:
+            self.api.update_pod_annotations(name, meta.get("annotations")
+                                            or {})
+        except Exception:
+            log.warning("could not withdraw the allocation stamped on %s "
+                        "after its bind failed", name, exc_info=True)
 
     def run_until_idle(self, max_passes: int = 10000) -> int:
         """Drain the queue synchronously (tests, benchmarks). Returns the

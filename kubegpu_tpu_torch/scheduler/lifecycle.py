@@ -38,6 +38,7 @@ import threading
 import time
 
 from kubegpu_tpu_torch import metrics, obs
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.cluster.httpapi import Conflict
 from kubegpu_tpu_torch.core import codec
 from kubegpu_tpu_torch.scheduler.core import Scheduler
@@ -483,6 +484,7 @@ class NodeLifecycle:
         the JAX package's interleaving explorer pins. Failed
         creates are parked again; a create that succeeded under a racing
         tick's claim stays gone (setdefault, never overwrite)."""
+        probe("lifecycle.flush_requeues")
         with self._pending_lock:
             claimed = dict(self._pending_requeue)
             self._pending_requeue.clear()

@@ -15,6 +15,7 @@ import threading
 import time
 
 from kubegpu_tpu_torch import metrics, obs
+from kubegpu_tpu_torch.analysis.explore import probe
 
 INITIAL_BACKOFF_S = 1.0
 MAX_BACKOFF_S = 60.0
@@ -47,6 +48,7 @@ class SchedulingQueue:
             len(self._pods) + len(self._unschedulable))
 
     def push(self, kube_pod: dict) -> None:
+        probe("queue.push")
         with self._lock:
             name = kube_pod["metadata"]["name"]
             if name not in self._enqueued:
@@ -67,6 +69,7 @@ class SchedulingQueue:
         and ONE depth publish — the per-pod ``push`` loop a 256-pod
         quota release used to run woke the scheduling thread 256 times
         and republished the gauge 256 times for one logical event."""
+        probe("queue.push_many")
         if not kube_pods:
             return
         with self._lock:
@@ -85,6 +88,7 @@ class SchedulingQueue:
 
     def pop(self, timeout: float | None = None) -> dict | None:
         """Highest-priority pending pod, blocking up to ``timeout``."""
+        probe("queue.pop")
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
             while True:
@@ -112,6 +116,7 @@ class SchedulingQueue:
         queue is EMPTY; once anything is ready the whole ready run is
         taken without waiting for more. Per-pod queue-wait accounting is
         identical to ``pop``; the depth gauge republishes once."""
+        probe("queue.pop_many")
         deadline = None if timeout is None else time.monotonic() + timeout
         out: list = []
         with self._lock:
@@ -148,6 +153,7 @@ class SchedulingQueue:
     def add_unschedulable(self, kube_pod: dict) -> None:
         """Park a pod that found no node, with exponential backoff
         (`backoff_utils.go`)."""
+        probe("queue.add_unschedulable")
         with self._lock:
             name = kube_pod["metadata"]["name"]
             backoff = min(self._backoff.get(name, INITIAL_BACKOFF_S / 2) * 2,
@@ -202,6 +208,7 @@ class SchedulingQueue:
             self._lock.notify_all()
 
     def forget(self, pod_name: str) -> None:
+        probe("queue.forget")
         with self._lock:
             self._pods.pop(pod_name, None)
             self._unschedulable.pop(pod_name, None)

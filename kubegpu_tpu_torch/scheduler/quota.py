@@ -46,6 +46,7 @@ import time
 from typing import Callable, Dict, List, Tuple
 
 from kubegpu_tpu_torch import metrics
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.cluster.apf import (pod_chip_request, pod_cpu_request,
                                            tenant_of_pod)
 from kubegpu_tpu_torch.cluster.httpapi import QuotaExceeded
@@ -293,6 +294,7 @@ class DRFQuotaGate:
                        if t is not None), None)
         if tenant is None:
             return
+        probe("quota.admit")
         now = time.monotonic()
         with self._lock:
             self._stamp_demand_locked(tenant, now)
@@ -353,6 +355,7 @@ class DRFQuotaGate:
         judges what a re-pop would actually re-admit (probing one
         member's demand would re-queue, reassemble, and re-refuse the
         gang on every card release)."""
+        probe("quota.park")
         name = kube_pod["metadata"]["name"]
         tenant = tenant_of_pod(kube_pod) or ""
         demand = {r: 0.0 for r in _RESOURCES}
@@ -530,6 +533,8 @@ class DRFQuotaGate:
                     hypo = after
             for pod in to_push:
                 self._unpark_locked(pod["metadata"]["name"])
+        for pod in to_push:
+            probe("quota.release")
         requeue_many = self.requeue_many
         if requeue_many is not None:
             requeue_many(to_push)

@@ -66,6 +66,7 @@ import threading
 import time
 
 from kubegpu_tpu_torch import metrics, obs
+from kubegpu_tpu_torch.analysis.explore import probe
 from kubegpu_tpu_torch.cluster.httpapi import Conflict
 from kubegpu_tpu_torch.core import codec, grammar
 from kubegpu_tpu_torch.node.backend import CHIP_HEALTHY
@@ -334,6 +335,7 @@ class RepairController:
             log.warning("repair tick: cluster view failed", exc_info=True)
             return {"repaired": [], "parked": self.parked(),
                     "evicted": self._flush_pending_requeues()}
+        probe("repair.plan")
         units = self._find_units(bound, degraded)
         # forget state for healed/vanished units so a later recurrence
         # starts with a fresh budget
@@ -432,6 +434,7 @@ class RepairController:
                          key=lambda p: p["metadata"]["name"])
         gang = key[1] if key[0] == "gang" else None
         self._signal_checkpoint(members, gang, unit["reason"])
+        probe("repair.evict")
         done = True
         for pod in members:
             name = pod["metadata"]["name"]
@@ -451,6 +454,7 @@ class RepairController:
         not stall the repair). The directory follows
         ``workload/checkpoint.py``'s convention so the replacement
         restores what the victim saved."""
+        probe("repair.checkpoint")
         for pod in members:
             name = pod["metadata"]["name"]
             ann = dict((pod.get("metadata") or {}).get("annotations") or {})
@@ -507,6 +511,7 @@ class RepairController:
         # create is the repair path's exactly-once seam: a rival bind
         # may take the released cards here, and the replacement must
         # re-enter as PENDING so a scheduler places it anew.
+        probe("repair.requeue")
         status, _ = self._retry_write(lambda: self.api.create_pod(fresh))
         if status in ("ok", "conflict"):
             return "evicted"
@@ -521,6 +526,7 @@ class RepairController:
         batch is CLAIMED under the pending lock — the stop() drain and a
         wedged tick must never create+count the same replacement twice
         (same rule as NodeLifecycle)."""
+        probe("repair.flush_requeues")
         with self._pending_lock:
             claimed = dict(self._pending_requeue)
             self._pending_requeue.clear()

@@ -147,3 +147,19 @@ def test_a_429_reaches_the_client_as_too_many_requests(wire):
     finally:
         client.close()
         server.shutdown()
+
+
+# ---- the explorer: reject during drain at the queue seams ------------------
+
+def test_explorer_reject_during_drain_never_leaks_a_seat():
+    """The twin of the JAX suite's scenario over the port's dispatcher
+    (`races.apf_reject_during_drain`): one seat, one queue, a holder
+    releasing races a waiter's queue-wait deadline; no schedule leaks a
+    seat or a waiter, and the waiter sees exactly one outcome."""
+    from kubegpu_tpu_torch.analysis import races, schedules as sch
+
+    res = sch.explore(races.apf_reject_during_drain, max_schedules=400,
+                      seed=0)
+    assert res.ok, res.failure.render()
+    # the seams (apf.admit, apf.enqueue, apf.release) are decision points
+    assert res.schedules > 1

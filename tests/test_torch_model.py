@@ -221,7 +221,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "scheduler.extender", "scheduler.repair",
                  "cluster.apiserver", "cluster.wal", "cmd.apiserver_main",
                  "cluster.proxy", "cluster.chaos", "cmd.proxy_main",
-                 "cmd.simulate"):
+                 "cmd.simulate", "analysis.explore", "analysis.schedules"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
