@@ -267,7 +267,21 @@ T = 2048, no remat), random weights from a seed:
    ``launches_explorer_run``), then the sharded test's mix (a gang of two
    4-card members and 40 one-card pods) bound 10 times in a row, each pod
    once, no card twice, both replicas committing;
-23. checkers: under the dispatch/sync/build counter
+   kube: the port's real-Kubernetes client (``cluster/kubeclient.py``)
+   against its mock Kubernetes API server (``cluster/mock_kube.py``,
+   bearer auth, a JSON kubeconfig through ``KubeConfig.load``): the port's
+   advertiser patches the card's node from NVML and 16 fake HGX hosts, the
+   port's engine binds a 1-card pod on the card through the Binding
+   subresource, the runtime hook gives it ``CUDA_VISIBLE_DEVICES`` and the
+   port's supervisor trains it 3 steps (18 sm90 launches of each,
+   ``launches_kube_run``); a burst of 200 pods of 1-8 cards onto the fake
+   hosts (each deleted once bound: its seconds, create-to-bound p50/p99,
+   the engine's requests per bind); a fresh engine replaying the watch
+   charges no card twice; a card taken behind the engine's back refuses
+   its bind, the stamp is withdrawn and the pod binds to another card;
+23. checkers: ``python -m kubegpu_tpu_torch.analysis --stats`` over the
+   port's tree (0 findings, the rules that ran, their seconds); then,
+   under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
    equal streams, the fused syncs one a chunk plus one an admission and
@@ -5641,6 +5655,352 @@ def explorer_phase(backend: str = "nvml", train: bool = True) -> dict:
     return row
 
 
+# The kube phase: the port's real-Kubernetes client against its mock
+# Kubernetes API server, KUBE_HOSTS fake HGX hosts (8 cards each) beside
+# the card's node, and a burst of KUBE_BURST pods of KUBE_SIZES cards (a
+# pod completes, and is deleted, as soon as the phase sees it bound, so
+# 128 cards carry the burst's 750).
+KUBE_HOSTS, KUBE_BURST, KUBE_SIZES = 16, 200, (1, 2, 4, 8)
+KUBE_WAIT_S, KUBE_TOKEN = 60.0, "smoke-token"
+KUBE_LABEL = {"kgtpu.io/smoke": "kube"}
+
+
+def _counting_kube_client():
+    """``KubeAPIClient`` with a count of the requests it makes (its
+    ``_req``: every list, patch, bind and delete; the informers' four
+    long-lived watch streams are not among them). The bind pool and the
+    informers' relists call ``_req`` from several threads, so the count is
+    taken under a lock."""
+    import threading
+
+    from kubegpu_tpu_torch.cluster.kubeclient import KubeAPIClient
+
+    class Counting(KubeAPIClient):
+        requests = 0
+        _count_lock = threading.Lock()
+
+        def _req(self, *args, **kwargs):
+            with self._count_lock:
+                self.requests += 1
+            return super()._req(*args, **kwargs)
+
+    return Counting
+
+
+def kube_phase(backend: str = "nvml", train: bool = True) -> dict:
+    """The port on a Kubernetes API: ``cluster/kubeclient.py`` against
+    ``cluster/mock_kube.py`` (the port's `InMemoryAPIServer` behind the
+    real wire grammar, bearer auth on), every component configured from a
+    JSON kubeconfig through ``KubeConfig.load(path)``.
+
+    The card's pod: ``DeviceAdvertiser`` over ``KubeAPIClient`` patches the
+    card's node from ``backend`` (NVML) and KUBE_HOSTS fake HGX hosts;
+    ``Scheduler`` with ``GPUScheduler`` over its own client binds a 1-card
+    pod pinned to the card's node (a nodeSelector) through the Binding
+    subresource; ``GPURuntimeHook`` over the client gives it
+    ``CUDA_VISIBLE_DEVICES`` for that card and the port's
+    ``WorkloadSupervisor`` runs it: DEVICE_STEPS training steps (with
+    ``train``; 18 sm90 launches of each of K1-K3, ``launches_kube_run``).
+    The burst: KUBE_BURST pods of KUBE_SIZES cards, cycling, created at
+    once onto the fake hosts and each deleted once seen bound; the seconds
+    until all were bound, create-to-bound p50/p99 and the scheduler's
+    requests per bind. The restart leg: a pod of 4 cards on a labelled
+    fake host, the scheduler replaced by a fresh one whose informers
+    replay the watch, then a second 4-card pod must bind there, each card
+    held once. The refused-bind leg: a card taken behind the scheduler's
+    back (a rival bound through the server between its assume and its
+    bind) refuses the bind; the pod keeps no stamp and binds to another
+    card. Raises on any failure."""
+    import tempfile
+    import threading
+
+    from kubegpu_tpu_torch.cluster.kubeclient import KubeConfig
+    from kubegpu_tpu_torch.cluster.mock_kube import serve_mock_kube
+    from kubegpu_tpu_torch.cmd.common import build_backend
+    from kubegpu_tpu_torch.core import codec, grammar
+    from kubegpu_tpu_torch.node import fake
+    from kubegpu_tpu_torch.node.advertiser import DeviceAdvertiser
+    from kubegpu_tpu_torch.node.manager import (DevicesManager,
+                                                GPUDeviceManager)
+    from kubegpu_tpu_torch.runtime.hook import GPURuntimeHook
+    from kubegpu_tpu_torch.runtime.launcher import WorkloadSupervisor
+    from kubegpu_tpu_torch.scheduler.core import Scheduler
+    from kubegpu_tpu_torch.scheduler.registry import build_device_scheduler
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-kube-")
+    server, url, api = serve_mock_kube(token=KUBE_TOKEN)
+    kubeconfig = os.path.join(tmp, "kubeconfig")
+    with open(kubeconfig, "w") as f:
+        json.dump({"current-context": "smoke",
+                   "contexts": [{"name": "smoke", "context": {
+                       "cluster": "mock", "user": "smoke"}}],
+                   "clusters": [{"name": "mock",
+                                 "cluster": {"server": url}}],
+                   "users": [{"name": "smoke",
+                              "user": {"token": KUBE_TOKEN}}]}, f)
+    config = KubeConfig.load(kubeconfig)
+    counting = _counting_kube_client()
+    client = counting(config)
+    scheds: list = []
+    sup = None
+    pod_s = out = counted = None
+
+    def scheduler():
+        sched = Scheduler(counting(config), build_device_scheduler())
+        sched.start()
+        scheds.append(sched)
+        return sched
+
+    def stop(sched):
+        sched.stop()
+        sched.api.close()
+        scheds.remove(sched)
+
+    def bound(name):
+        return (client.get_pod(name).get("spec") or {}).get("nodeName")
+
+    def uuids(pod):
+        return sorted(grammar.gpu_id_from_path(p) for p in _cards_of(pod))
+
+    try:
+        # the card's node and the fake hosts, each advertised by the port's
+        # advertiser over the client
+        t = time.perf_counter()
+        gpus = {}
+        hosts = [(NODE, build_backend(backend))] + [
+            (f"kube-hgx{i}", fake.FakeGPUBackend(fake.hgx_h100_inventory(i)))
+            for i in range(KUBE_HOSTS)]
+        for name, be in hosts:
+            client.create_node({"metadata": {"name": name}, "status": {
+                "allocatable": {"cpu": "64", "pods": 110}}})
+            gpus[name] = GPUDeviceManager(be)
+            mgr = DevicesManager()
+            mgr.add_device(gpus[name])
+            mgr.start()
+            DeviceAdvertiser(client, mgr, name).advertise_once()
+        advertise_s = time.perf_counter() - t
+        client.patch_node_metadata(NODE, {"labels": dict(KUBE_LABEL)})
+        sched = scheduler()
+
+        # the card's pod
+        pod = _gpu_pod("kube-pod", 1)
+        pod["spec"]["nodeSelector"] = dict(KUBE_LABEL)
+        client.create_pod(pod)
+        _wait_for(lambda: bound("kube-pod"), KUBE_WAIT_S, "the card's pod")
+        placed = client.get_pod("kube-pod")
+        card = uuids(placed)
+        own = {g.uuid for g in gpus[NODE].backend.enumerate().gpus}
+        if placed["spec"]["nodeName"] != NODE or len(card) != 1 or \
+                card[0] not in own:
+            raise AssertionError(f"the card's pod on "
+                                 f"{placed['spec']['nodeName']} with {card}")
+        cfg = GPURuntimeHook(client, gpus[NODE]).create_container(
+            "kube-pod", "main", {"devices": [], "envs": []})
+        env = {e["key"]: e["value"] for e in cfg["envs"]}
+        if env.get("CUDA_VISIBLE_DEVICES") != card[0]:
+            raise AssertionError(f"the hook's env {env} for card {card}")
+        if train:
+            import math
+
+            sup = WorkloadSupervisor(api=client, log_dir=tmp)
+            # the pod's command imports the port from this checkout
+            cfg["envs"].append({"key": "PYTHONPATH", "value": os.path.dirname(
+                os.path.abspath(__file__))})
+            t = time.perf_counter()
+            cont = sup.launch("kube-pod", "main", cfg, [
+                sys.executable, "-c", POD_RUNNER, "--steps",
+                str(DEVICE_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+                str(TRAIN_SEQ), "--vocab", str(TRAIN_MODEL["vocab"]),
+                "--d-model", str(TRAIN_MODEL["d_model"]),
+                "--d-ff", str(TRAIN_MODEL["d_ff"]),
+                "--n-layers", str(TRAIN_MODEL["n_layers"]),
+                "--n-heads", str(TRAIN_MODEL["n_heads"])])
+            status = sup.wait(cont.cid, timeout=300)
+            pod_s = time.perf_counter() - t
+            logs = sup.logs(cont.cid)
+            if status["exit_code"] != 0:
+                raise AssertionError(f"the pod exited {status['exit_code']}"
+                                     f": {logs[-3000:]}")
+            out, counted = _pod_result(logs)
+            want = TRAIN_MODEL["n_layers"] * DEVICE_STEPS
+            if len(out["losses_full"]) != DEVICE_STEPS or not all(
+                    map(math.isfinite, out["losses_full"])) or \
+                    counted["launches"] != [want] * 3 or any(
+                        by.get("sm90") != want
+                        for by in counted["by_instance"]):
+                raise AssertionError(f"the pod's run {out} {counted}")
+
+        # the burst: every pod deleted as soon as it is seen bound
+        names = [f"kb{i}" for i in range(KUBE_BURST)]
+        created: dict = {}
+        seen: dict = {}
+        lock = threading.Lock()
+        done = threading.Event()
+
+        def on_bind(kind, event, obj):
+            name = obj["metadata"]["name"]
+            if kind != "pod" or event == "deleted" or \
+                    name not in created or \
+                    not (obj.get("spec") or {}).get("nodeName"):
+                return
+            with lock:
+                if name in seen:
+                    return
+                seen[name] = time.perf_counter()
+                if len(seen) == KUBE_BURST:
+                    done.set()
+            # the job completes: its cards go back to the burst
+            threading.Thread(target=client.delete_pod, args=(name,),
+                             daemon=True).start()
+
+        watch = counting(config)
+        watch.add_watcher(on_bind)
+        try:
+            requests0 = sched.api.requests
+            t = time.perf_counter()
+            for i, name in enumerate(names):
+                created[name] = time.perf_counter()
+                client.create_pod(_gpu_pod(name, KUBE_SIZES[i % 4]))
+            if not done.wait(KUBE_WAIT_S * 2):
+                raise AssertionError(f"{len(seen)} of {KUBE_BURST} burst "
+                                     f"pods bound")
+            burst_s = max(seen.values()) - t
+            burst_requests = sched.api.requests - requests0
+            lat = [(seen[n] - created[n]) * 1e3 for n in names]
+        finally:
+            watch.close()
+        _wait_for(lambda: not [p for p in client.list_pods()
+                               if p["metadata"]["name"] in created],
+                  KUBE_WAIT_S, "the burst's pods deleted")
+        _cards_held_once(client)
+
+        # the restart leg: a fresh scheduler replays the watch
+        host = "kube-hgx0"
+        restart_label = {"kgtpu.io/smoke": "restart"}
+        client.patch_node_metadata(host, {"labels": restart_label})
+        for name in ("kube-ra", "kube-rb"):
+            p = _gpu_pod(name, 4)
+            p["spec"]["nodeSelector"] = dict(restart_label)
+            if name == "kube-rb":
+                t = time.perf_counter()
+                stop(sched)
+                sched = scheduler()
+                restart_s = time.perf_counter() - t
+            client.create_pod(p)
+            _wait_for(lambda: bound(name), KUBE_WAIT_S,
+                      f"{name} bound after the restart")
+        restart_cards = uuids(client.get_pod("kube-ra")) + \
+            uuids(client.get_pod("kube-rb"))
+        if len(set(restart_cards)) != 8 or bound("kube-rb") != host:
+            raise AssertionError(f"the restart leg's cards {restart_cards}")
+        _cards_held_once(client)
+
+        # the refused-bind leg: a card taken behind the scheduler's back
+        host = "kube-hgx1"
+        refuse_label = {"kgtpu.io/smoke": "refuse"}
+        client.patch_node_metadata(host, {"labels": refuse_label})
+        real = sched.api.bind_many
+        taken: list = []
+
+        def racing_bind_many(bindings, annotations):
+            if not taken and "kube-refused" in bindings:
+                stamp = json.loads(json.dumps(annotations["kube-refused"]))
+                rival = _gpu_pod("kube-rival", 1)
+                rival["metadata"]["annotations"] = stamp
+                api.create_pod(rival)
+                api.bind_many({"kube-rival": bindings["kube-refused"]},
+                              {"kube-rival": stamp})
+                taken.extend(uuids(api.get_pod("kube-rival")))
+            return real(bindings, annotations)
+
+        sched.api.bind_many = racing_bind_many
+        # every state of the pod, in order: (node, its cards)
+        states: list = []
+        states_watch = counting(config)
+        states_watch.add_watcher(lambda kind, event, obj: states.append(
+            ((obj.get("spec") or {}).get("nodeName"), uuids(obj)))
+            if kind == "pod" and obj["metadata"]["name"] == "kube-refused"
+            else None)
+        try:
+            p = _gpu_pod("kube-refused", 1)
+            p["spec"]["nodeSelector"] = dict(refuse_label)
+            client.create_pod(p)
+            _wait_for(lambda: bound("kube-refused"), KUBE_WAIT_S,
+                      "the refused pod bound on a later cycle")
+            _wait_for(lambda: states and states[-1][0], KUBE_WAIT_S,
+                      "the refused pod's bind event")
+        finally:
+            states_watch.close()
+        final = uuids(client.get_pod("kube-refused"))
+        # the refused stamp (the rival's card, unbound), then its
+        # withdrawal (unbound, no card) before any later stamp
+        at = next((i for i, (node, c) in enumerate(states)
+                   if node is None and c == taken), None)
+        withdrawn = at is not None and len(states) > at + 1 and \
+            states[at + 1] == (None, [])
+        if not taken or not withdrawn or len(final) != 1 or \
+                final == taken:
+            raise AssertionError(f"the refused pod's states {states}, the "
+                                 f"rival {taken}")
+        _cards_held_once(client)
+    finally:
+        if sup is not None:
+            sup.shutdown()
+        for sched in list(scheds):
+            stop(sched)
+        client.close()
+        server.shutdown()
+    row = {"phase": "kube", "nvidia_smi": smi_line(),
+           "note": "host times on the card's machine; the mock Kubernetes "
+                   "API server, the scheduler, the advertisers, the hook "
+                   "and the supervisor run in this process",
+           "hosts": KUBE_HOSTS + 1, "advertise_s": advertise_s,
+           "card": card[0], "pod_s": pod_s,
+           "launches_fwd_dq_dkv": counted and counted["launches"],
+           "launches_by_instance": counted and counted["by_instance"],
+           "losses": out and out["losses_full"],
+           "burst": {"pods": KUBE_BURST, "sizes": list(KUBE_SIZES),
+                     "all_bound_s": burst_s,
+                     "create_to_bound_p50_ms": _pctl(lat, 0.5),
+                     "create_to_bound_p99_ms": _pctl(lat, 0.99),
+                     "requests_per_bind": burst_requests / KUBE_BURST},
+           "restart": {"restart_s": restart_s, "cards": len(restart_cards),
+                       "held_once": True},
+           "refused_bind": {"taken": taken, "withdrawn": withdrawn,
+                            "states": len(states), "bound_card": final},
+           "seconds": time.perf_counter() - t0, "ok": True}
+    emit(row)
+    return row
+
+
+def _static_rules() -> dict:
+    """``python -m kubegpu_tpu_torch.analysis --stats`` over the port's
+    tree on this machine's Python: its findings (0 for a clean tree), the
+    rules that ran and the analysis's own seconds (its ``--stats``)."""
+    import re
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubegpu_tpu_torch.analysis", "--stats",
+         "kubegpu_tpu_torch"], cwd=root, capture_output=True, text=True,
+        timeout=300)
+    wall = time.perf_counter() - t
+    stats = re.search(r"analysis stats: (\d+) file\(s\), parse (\d+) ms, "
+                      r"total (\d+) ms", proc.stderr)
+    rules = re.findall(r"^  (\S+) +[\d.]+ ms$", proc.stderr, re.M)
+    found = re.search(r"^(\d+) finding\(s\)", proc.stdout, re.M)
+    findings = int(found.group(1)) if found else (
+        0 if "clean: no findings" in proc.stdout else None)
+    if proc.returncode != 0 or findings != 0 or stats is None:
+        raise AssertionError(f"the static rules exited {proc.returncode}: "
+                             f"{proc.stdout[-3000:]} {proc.stderr[-2000:]}")
+    return {"findings": findings, "rules": len(rules), "rule_names": rules,
+            "files": int(stats.group(1)),
+            "analysis_s": int(stats.group(3)) / 1e3, "process_s": wall}
+
+
 def _counted_drain(cfg, params, prompts, fused) -> dict:
     """One greedy drain of ``prompts`` under the counter, in the section
     "fused" or "oracle": the streams, the server's decode steps (a chunk
@@ -5676,7 +6036,9 @@ def _counted_drain(cfg, params, prompts, fused) -> dict:
 
 
 def checkers_phase(dev) -> dict:
-    """The dispatch/sync/build counter on the card. Serving: a float32
+    """The port's static rules over its own tree on this machine
+    (`_static_rules`: 0 findings), then the dispatch/sync/build counter on
+    the card. Serving: a float32
     greedy drain of the serve phase's traffic at full width, fused and
     through the per-token oracle, after a warm-up drain: equal streams,
     one sync a chunk plus one an admission on the fused path and its
@@ -5699,6 +6061,7 @@ def checkers_phase(dev) -> dict:
                                                   make_train_step)
 
     t0 = time.perf_counter()
+    rules = _static_rules()
     cfg = dataclasses.replace(TransformerConfig(**MODEL), dtype="float32")
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     prompts = _serve_prompts(cfg)
@@ -5731,7 +6094,8 @@ def checkers_phase(dev) -> dict:
     torch.cuda.empty_cache()
     budget = 1.5 / fused["chunk"]
     n = tcfg.n_layers
-    row = {"phase": "checkers", "slots": SERVE_SLOTS,
+    row = {"phase": "checkers", "static_rules": rules,
+           "slots": SERVE_SLOTS,
            "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
            "dtype": "float32", "tokens": fused["tokens"],
            "fused_equals_oracle": fused["outs"] == oracle["outs"]}
@@ -5825,6 +6189,7 @@ def main() -> int:
     cp = control_plane_phase()
     px = proxy_simulate_phase()
     explorer = explorer_phase()
+    kube = kube_phase()
     checkers = checkers_phase(dev)
     # each path's own launches, counted from zero: K1's "launches" is the
     # forward path's (slice 1), K2's and K3's the training run's; the LoRA
@@ -5875,6 +6240,7 @@ def main() -> int:
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][0],
         "launches_proxy_run": px["launches_fwd_dq_dkv"][0],
         "launches_explorer_run": explorer["launches_fwd_dq_dkv"][0],
+        "launches_kube_run": kube["launches_fwd_dq_dkv"][0],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][0],
         "dispatches_checkers_step": checkers["train_kgt_flash_fwd"],
         "max_abs_err": k1["max_abs_err_o"], "ms": k1["ms"],
@@ -5910,6 +6276,7 @@ def main() -> int:
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][1],
         "launches_proxy_run": px["launches_fwd_dq_dkv"][1],
         "launches_explorer_run": explorer["launches_fwd_dq_dkv"][1],
+        "launches_kube_run": kube["launches_fwd_dq_dkv"][1],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][1],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": kb["max_abs_err_dq_dk_dv"][0],
@@ -5943,6 +6310,7 @@ def main() -> int:
         "launches_control_plane_run": cp["launches_fwd_dq_dkv"][2],
         "launches_proxy_run": px["launches_fwd_dq_dkv"][2],
         "launches_explorer_run": explorer["launches_fwd_dq_dkv"][2],
+        "launches_kube_run": kube["launches_fwd_dq_dkv"][2],
         "launches_checkers_step": checkers["launches_fwd_dq_dkv"][2],
         "dispatches_checkers_step": checkers["train_kgt_flash_bwd"],
         "max_abs_err": max(kb["max_abs_err_dq_dk_dv"][1:]),

@@ -1,23 +1,34 @@
-"""Analysis engine: file walking, findings and the rule registry.
+"""Analysis engine: file walking, suppressions, and the rule registry.
 
-The port's copy of the part of ``kubegpu_tpu/analysis/engine.py`` that
-its host-sync rule needs. Rules are whole-project passes: the engine
-parses every ``.py`` under the requested roots once and hands the list of
-:class:`SourceFile` objects to each rule, whose findings land on a
-``path:line``.
+Rules are whole-project passes (some, like codec-pairing, are inherently
+cross-file), so the engine parses every ``.py`` under the requested roots
+once and hands the full list of :class:`SourceFile` objects to each rule.
+Findings land on a repo-relative ``path:line`` and are filtered against
+``# analysis: disable=...`` comments before they reach the caller.
+
+The port's copy of ``kubegpu_tpu/analysis/engine.py``.
 """
 
 from __future__ import annotations
 
 import ast
 import dataclasses
+import io
 import os
+import re
+import time
+import tokenize
 from typing import Iterable, Sequence
+
+# `# analysis: disable=<rule>[,<rule>...]  -- free-text justification`
+# (placeholders bracketed so this very comment cannot match the regex)
+SUPPRESS_RE = re.compile(
+    r"#\s*analysis:\s*disable(?P<scope>-file)?="
+    r"(?P<rules>[A-Za-z0-9_-]+(?:\s*,\s*[A-Za-z0-9_-]+)*)")
 
 
 class AnalysisError(Exception):
-    """A file could not be analysed (unreadable or unparseable), or a rule
-    name is unknown."""
+    """A file could not be analyzed (unreadable or unparseable)."""
 
 
 def dotted_name(node: ast.AST) -> str | None:
@@ -32,9 +43,44 @@ def dotted_name(node: ast.AST) -> str | None:
     return None
 
 
+def bound_comments(src: "SourceFile", regex: "re.Pattern[str]") -> list:
+    """``(comment_line, def_line, match)`` for every comment matching
+    ``regex``: trailing on a ``def`` line, or on a comment line above
+    it with any run of comment/decorator/blank lines between (stacked
+    declarations — ``# hot-path: pure`` over ``# twin-of:`` over the
+    ``def`` — all keep their binding). A comment that reaches no
+    ``def`` is returned with ``def_line None`` so callers can flag the
+    orphan instead of silently dropping a decayed declaration. One
+    implementation, shared by every def-bound comment convention, so
+    the conventions cannot drift apart."""
+    lines = src.text.splitlines()
+    out: list = []
+    for i, text in enumerate(lines, start=1):
+        m = regex.search(text)
+        if m is None:
+            continue
+        if text.strip().startswith(("def ", "async def ")):
+            out.append((i, i, m))
+            continue
+        j = i + 1
+        bound = None
+        while j <= len(lines) and j <= i + 16:
+            nxt = lines[j - 1].strip()
+            if nxt.startswith(("def ", "async def ")):
+                bound = j
+                break
+            if nxt.startswith("#") or nxt.startswith("@") or not nxt:
+                j += 1
+                continue
+            break
+        out.append((i, bound, m))
+    return out
+
+
 def walk_functions(tree: ast.AST) -> list:
-    """``(qualname, node)`` for every function in a module, methods as
-    ``Class.method`` and nested functions as ``outer.inner``."""
+    """``(qualname, node)`` for every function/method in a module, with
+    ``Class.method`` qualnames one level deep (the repo convention);
+    nested functions as ``outer.inner``."""
     out: list = []
 
     def visit(node: ast.AST, prefix: str) -> None:
@@ -50,6 +96,29 @@ def walk_functions(tree: ast.AST) -> list:
 
     visit(tree, "")
     return out
+
+
+class Suppression:
+    """One ``# analysis: disable[-file]=...`` comment, with usage
+    tracking: the engine marks which rules it actually silenced so the
+    unused-suppression audit can flag the stale ones (ruff's
+    unused-noqa, applied to our own suppressions)."""
+
+    __slots__ = ("line", "rules", "file_scope", "used_rules")
+
+    def __init__(self, line: int, rules: set, file_scope: bool) -> None:
+        self.line = line
+        self.rules = frozenset(rules)
+        self.file_scope = file_scope
+        self.used_rules: set = set()
+
+    def matches(self, rule: str, line: int) -> bool:
+        if rule not in self.rules and "all" not in self.rules:
+            return False
+        if self.file_scope:
+            return True
+        # a trailing comment on the offending line, or one directly above
+        return line in (self.line, self.line + 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +138,14 @@ class Finding:
 
 
 class SourceFile:
-    """A parsed module. ``path`` is the display path (relative to the
-    working directory where possible); ``relparts`` are the path's
-    components relative to the scanned root, which rules scope by, so a
-    fixture passed explicitly does not inherit the scope of the tree it
-    lives in."""
+    """A parsed module plus its suppression map.
+
+    ``path`` is the display path (relative to the invocation cwd when
+    possible); ``relparts`` are the path components *relative to the
+    scanned root*, which is what rules use for scoping decisions — a
+    fixture tree passed explicitly must not inherit the exemptions of
+    the directory it happens to live under.
+    """
 
     def __init__(self, path: str, relparts: tuple, text: str) -> None:
         self.path = path
@@ -83,17 +155,57 @@ class SourceFile:
             self.tree = ast.parse(text, filename=path)
         except SyntaxError as e:
             raise AnalysisError(f"{path}: syntax error: {e}") from e
+        self.suppressions: list = []
+        self._collect_suppressions()
+
+    @property
+    def name(self) -> str:
+        return os.path.basename(self.path)
+
+    def _collect_suppressions(self) -> None:
+        try:
+            tokens = tokenize.generate_tokens(io.StringIO(self.text).readline)
+            for tok in tokens:
+                if tok.type != tokenize.COMMENT:
+                    continue
+                m = SUPPRESS_RE.search(tok.string)
+                if m is None:
+                    continue
+                rules = {r.strip() for r in m.group("rules").split(",")
+                         if r.strip()}
+                self.suppressions.append(Suppression(
+                    tok.start[0], rules, bool(m.group("scope"))))
+        except tokenize.TokenError:
+            pass  # the AST parsed; a trailing tokenize hiccup loses nothing
+
+    def match_suppression(self, rule: str, line: int):
+        """The :class:`Suppression` disabling ``rule`` at ``line`` (by a
+        trailing comment on the line itself, a comment on the line
+        directly above, or a file-wide ``disable-file``), or None."""
+        for sup in self.suppressions:
+            if sup.matches(rule, line):
+                return sup
+        return None
+
+    def suppressed(self, rule: str, line: int) -> bool:
+        return self.match_suppression(rule, line) is not None
 
 
 class Context:
-    """What one invocation shares across rules: which rules ran, their
-    side reports (``--report`` renders them) and the usage of each rule's
-    own waivers, which the unused-suppression audit reads."""
+    """Cross-rule invocation context (project root, tests location, and
+    — for the unused-suppression audit — which rules ran)."""
 
-    def __init__(self) -> None:
+    def __init__(self, root: str, tests_dir: str | None = None) -> None:
+        self.root = root
+        self.tests_dir = tests_dir
         self.ran_rules: set = set()
+        self.known_rules: set = set()
+        # rule name -> structured side-report (the hot-path rule's ranked
+        # vectorization-blockers inventory rides here; --report renders it)
         self.reports: dict = {}
-        # rule name -> [{"path", "line", "used"}]
+        # rule name -> [{"path","line","used"}] for comment-waiver forms
+        # that are not `# analysis: disable=` (host-sync's
+        # `# host-sync: allowed`); unused-suppression audits these too
         self.waiver_audits: dict = {}
 
 
@@ -138,10 +250,16 @@ def all_rules() -> list:
 
 
 def run_analysis(roots: Sequence[str], select: Iterable[str] | None = None,
+                 tests_dir: str | None = None,
+                 stats: dict | None = None,
                  reports: dict | None = None) -> list:
-    """Run the (selected) rules over ``roots``; returns the findings
-    sorted by location. ``reports``, when given, receives the rules' side
-    reports."""
+    """Run the (selected) rules over ``roots``; returns findings sorted by
+    location, with suppressed findings already dropped. When ``stats``
+    is a dict it is filled with the timing report ``--stats`` prints:
+    ``{"files": N, "parse_s": float, "rules": {name: seconds},
+    "total_s": float}`` — the dataflow pass made per-rule cost worth
+    watching, and CI holds the total to a wall-clock budget."""
+    t_start = time.perf_counter()
     rules = all_rules()
     if select is not None:
         wanted = set(select)
@@ -151,14 +269,34 @@ def run_analysis(roots: Sequence[str], select: Iterable[str] | None = None,
                 f"unknown rule(s): {', '.join(sorted(unknown))}")
         rules = [r for r in rules if r.name in wanted]
     sources = load_sources(roots)
-    ctx = Context()
+    parse_s = time.perf_counter() - t_start
+    by_path = {s.path: s for s in sources}
+    ctx = Context(root=os.path.abspath(roots[0]) if roots else os.getcwd(),
+                  tests_dir=tests_dir)
+    ctx.known_rules = {r.name for r in all_rules()}
     ctx.ran_rules = {r.name for r in rules}
-    # the audit reads every other rule's waiver usage, so it runs last
+    # the audit must observe every other rule's suppression usage, so it
+    # always runs last regardless of registry order
     rules = sorted(rules, key=lambda r: r.name == "unused-suppression")
     findings: list = []
+    rule_times: dict = {}
     for rule in rules:
-        findings.extend(rule.run(sources, ctx))
+        t_rule = time.perf_counter()
+        for finding in rule.run(sources, ctx):
+            src = by_path.get(finding.path)
+            if src is not None:
+                sup = src.match_suppression(finding.rule, finding.line)
+                if sup is not None:
+                    sup.used_rules.add(finding.rule)
+                    continue
+            findings.append(finding)
+        rule_times[rule.name] = time.perf_counter() - t_rule
     findings.sort(key=lambda f: (f.path, f.line, f.rule))
     if reports is not None:
         reports.update(ctx.reports)
+    if stats is not None:
+        stats["files"] = len(sources)
+        stats["parse_s"] = parse_s
+        stats["rules"] = rule_times
+        stats["total_s"] = time.perf_counter() - t_start
     return findings

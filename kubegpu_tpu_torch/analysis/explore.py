@@ -64,7 +64,8 @@ _real_rlock_factory = threading.RLock
 _real_condition = threading.Condition
 _real_monotonic = time.monotonic
 _real_perf_counter = time.perf_counter
-_real_time = time.time
+# clock virtualization must capture the wall clock itself
+_real_time = time.time  # analysis: disable=monotonic-time -- the virtualization layer wraps the real wall clock
 _real_sleep = time.sleep
 
 _PACKAGE_PREFIX = "kubegpu_tpu_torch"
@@ -179,7 +180,7 @@ class VThread:
 
     def _wait_turn(self) -> None:
         self._event.wait()
-        # explorer token-passing: at most one
+        # racer: single-writer -- explorer token-passing: at most one
         # thread runs between sync points
         self._event.clear()
         if self.ctl._aborting:
@@ -302,7 +303,7 @@ class CoopLock:
     def _release_all(self, vt: VThread) -> int:
         if self.owner is not vt:
             raise RuntimeError(f"wait() on un-owned {self.label}")
-        # explorer token-passing: at most one
+        # racer: single-writer -- explorer token-passing: at most one
         # thread runs between sync points
         depth, self.depth, self.owner = self.depth, 0, None
         vt.ctl.wake_lock_waiters(self)
@@ -358,7 +359,7 @@ class CoopCondition:
             return False
         ctl = vt.ctl
         depth = self._lock._release_all(vt)
-        # explorer token-passing: at most one
+        # racer: single-writer -- explorer token-passing: at most one
         # thread runs between sync points
         self._waiters.append(vt)
         deadline = ctl.clock + timeout if timeout is not None else None
@@ -560,13 +561,13 @@ class Controller:
     def run(self, bodies: Sequence[Callable[[], object]]) -> RunRecord:
         # controller state below is written by the exploring thread and,
         # between sync points, by exactly one token-holding VThread
-        self.bodies_live = True
-        self.threads = [VThread(i, fn, self)
+        self.bodies_live = True  # racer: single-writer
+        self.threads = [VThread(i, fn, self)  # racer: single-writer
                         for i, fn in enumerate(bodies)]
         try:
             self._loop()
         except PruneRun:
-            self.record.pruned = True
+            self.record.pruned = True  # racer: single-writer
         finally:
             self._teardown()
             self.bodies_live = False
@@ -600,15 +601,16 @@ class Controller:
                 self._last, preempt))
             self._switch_to(chosen)
             # exploring-thread-owned cursor
+            # racer: single-writer -- exploring-thread-owned cursor
             self._last = chosen_tid if chosen.state != DONE else None
             step += 1
 
     def _switch_to(self, vt: VThread) -> None:
-        self._current = vt    # token protocol
-        self._token.clear()   # token protocol
+        self._current = vt  # racer: single-writer -- token protocol
+        self._token.clear()  # racer: single-writer -- token protocol
         vt._resume()
         if not self._token.wait(self.watchdog_s):
-            self._aborting = True  # abort latch
+            self._aborting = True  # racer: single-writer -- abort latch
             raise ExploreError(
                 f"schedule wedged: thread {vt.tid} did not reach a sync "
                 f"point within {self.watchdog_s}s — a non-cooperative "
@@ -620,6 +622,7 @@ class Controller:
         if not deadlines:
             return False
         # advanced only when every thread blocks
+        # racer: single-writer -- advanced only when every thread blocks
         self.clock = max(self.clock, min(deadlines))
         for t in self.threads:
             if t.state == BLOCKED and t.deadline is not None \
@@ -704,6 +707,7 @@ class _Patch:
             "Condition": threading.Condition,
             "monotonic": time.monotonic,
             "perf_counter": time.perf_counter,
+            # analysis: disable=monotonic-time -- saving whatever wall clock is installed, to restore it
             "time": time.time, "sleep": time.sleep,
         }
         threading.Lock = _coop_lock_factory  # type: ignore[assignment]
@@ -711,7 +715,7 @@ class _Patch:
         threading.Condition = _coop_condition_factory  # type: ignore[misc,assignment]
         time.monotonic = _virt_monotonic
         time.perf_counter = _virt_perf_counter
-        time.time = _virt_time
+        time.time = _virt_time  # analysis: disable=monotonic-time -- installing the virtual wall clock
         time.sleep = _virt_sleep
 
     def uninstall(self) -> None:
@@ -720,7 +724,7 @@ class _Patch:
         threading.Condition = self.saved["Condition"]
         time.monotonic = self.saved["monotonic"]
         time.perf_counter = self.saved["perf_counter"]
-        time.time = self.saved["time"]
+        time.time = self.saved["time"]  # analysis: disable=monotonic-time -- restoring the saved wall clock
         time.sleep = self.saved["sleep"]
 
 

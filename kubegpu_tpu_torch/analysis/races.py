@@ -39,6 +39,8 @@ The races:
   reconnect, and the front door's reject during a drain.
 """
 
+# analysis: disable-file=racer -- the twins run only under the explorer's cooperative scheduler, one virtual thread at a time, and each mutant is racy on purpose: the reference keeps its twins under tests/, outside the scanned package
+
 from __future__ import annotations
 
 import copy

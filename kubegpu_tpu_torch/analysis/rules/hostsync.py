@@ -196,8 +196,8 @@ class _Typestate:
     def __init__(self, model: _FileModel, info: _FnInfo) -> None:
         self.model = model
         self.info = info
-        self.events: list = []
-        self._node_idx = -1
+        self.events: list = []  # racer: single-writer -- per-call local
+        self._node_idx = -1     # racer: single-writer -- per-call local
 
     def _sink(self, line: int, desc: str) -> None:
         self.events.append((self._node_idx, _Sink(

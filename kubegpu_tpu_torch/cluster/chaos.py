@@ -156,9 +156,10 @@ class TenantFlood:
         self.pace_s = pace_s
         self.mode = mode
         self._stop = threading.Event()
-        # start() and stop() are the calling thread's; workers never touch
-        # these two lists
+        # racer: single-writer -- start()/stop() are the driver
+        # thread's lifecycle calls; flood workers never touch these
         self._workers: list = []
+        # racer: single-writer -- same owner-thread lifecycle contract
         self._clients: list = []
         self._lock = threading.Lock()
         self.accepted = 0

@@ -597,7 +597,7 @@ class _EventLog:
         # behind a fan-out pass. The wall-clock stamp rides the frame so
         # the receiving process can measure push lag; wall clock on
         # purpose (cross-process stamp, like the advertiser heartbeat).
-        now_ts = time.time()
+        now_ts = time.time()  # analysis: disable=monotonic-time -- cross-process push-lag stamp, like the heartbeat annotation
         sent = 0
         relist_frame = None
         cache: dict = {}    # (kinds, cursor) -> frame
@@ -700,15 +700,15 @@ def _route_request(api: InMemoryAPIServer, log: _EventLog, method: str,
     or raises NotFound/Conflict for the transport to map. Both the HTTP
     handler and the stream dispatcher call THIS — one route surface,
     two framings."""
-    if parts == ["healthz"]:
+    if parts == ["healthz"]:  # analysis: disable=wire-contract -- curl/monitoring liveness probe; no package client consumes it
         return 200, {"ok": True}
-    if parts == ["debug", "traces"] and method == "GET":
+    if parts == ["debug", "traces"] and method == "GET":  # analysis: disable=wire-contract -- operator debug surface (curl/Perfetto), deliberately client-less
         # this process's span ring, Perfetto-loadable
         return 200, obs.chrome_trace()
     if parts == ["debug", "profile"] and method == "GET":
         # the sampling profiler's attribution table + collapsed stacks
         return 200, obs.profile_status()
-    if parts == ["metrics", "history"] and method == "GET":
+    if parts == ["metrics", "history"] and method == "GET":  # analysis: disable=wire-contract -- operator/monitoring surface (curl), deliberately client-less
         # the metrics time-series' windowed summary (counter rates,
         # windowed histogram percentiles, gauge envelopes)
         return 200, obs.metrics_history(
@@ -1234,6 +1234,8 @@ class HTTPAPIClient:
         self.watch_errors = 0             # failed watch rounds survived
         self.relist_count = 0             # resume gaps that forced a relist
         self._stop = threading.Event()
+        # racer: single-writer -- threading.local: each thread writes
+        # only its own slot by construction
         self._local = threading.local()   # this thread's connections
         self._conn_lock = threading.Lock()
         self._conns: set = set()          # every live HTTP connection
@@ -1297,13 +1299,15 @@ class HTTPAPIClient:
                 raise ConnectionError("client is closed")
             conn = stream.StreamConn.connect(self.base_url, timeout,
                                              label=self.transport_label)
-            self._local.stream = conn
             with self._conn_lock:
-                if self._stop.is_set():
-                    self._local.stream = None
-                    conn.close()
-                    raise ConnectionError("client is closed")
-                self._stream_conns.add(conn)
+                closed = self._stop.is_set()
+                if not closed:
+                    self._stream_conns.add(conn)
+            if closed:
+                # close() swept before this dial registered: never keep it
+                conn.close()
+                raise ConnectionError("client is closed")
+            self._local.stream = conn
         try:
             return conn.request(method, path, body, timeout)
         except BaseException:
@@ -1325,7 +1329,8 @@ class HTTPAPIClient:
                 logging.getLogger(__name__).info(
                     "server at %s has no stream wire; negotiated down to "
                     "json", self.base_url)
-                # a one-way latch: every racing writer stores this value
+                # racer: single-writer -- one-way latch: every racing
+                # writer stores the same constant, atomically under the GIL
                 self.wire = stream.WIRE_JSON
         data = json.dumps(body).encode() if body is not None else None
         status, payload = self._roundtrip(method, path, data, timeout)
@@ -1728,7 +1733,7 @@ class HTTPAPIClient:
                     # the server's wall-clock stamp: push lag across
                     # processes
                     metrics.WATCH_PUSH_LAG_MS.observe(
-                        max(0.0, (time.time() - ts) * 1e3))
+                        max(0.0, (time.time() - ts) * 1e3))  # analysis: disable=monotonic-time -- cross-process stamp comparison, never liveness
                 self._apply_watch_out(st, out, log)
         except stream.StreamUnsupported:
             log.info("server at %s has no stream wire; the watch falls "

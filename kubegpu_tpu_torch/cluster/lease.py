@@ -209,7 +209,10 @@ class Elector:
                 except Exception:
                     log.exception("elector tick failed")
                 self._stop.wait(interval)
+
+        # racer: single-writer -- start()/stop() are owner-thread calls
         self._stop = threading.Event()
+        # racer: single-writer -- stop() joins the loop before clearing
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name=f"elector-{self.name}")
         self._thread.start()
@@ -322,7 +325,10 @@ class ShardCoordinator:
                 except Exception:
                     log.exception("shard coordinator tick failed")
                 self._stop.wait(interval)
+
+        # racer: single-writer -- start()/stop() are owner-thread calls
         self._stop = threading.Event()
+        # racer: single-writer -- stop() joins the loop before clearing
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name=f"shard-coord-{self.shard}")
         self._thread.start()

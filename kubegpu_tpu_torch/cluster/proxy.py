@@ -113,8 +113,9 @@ class WatchCacheProxy:
                                        transport_label=stream.WIRE_PROXY)
         self._mirror = InMemoryAPIServer()
         self._log = _EventLog(self._mirror, limit=limit, attach=False)
-        # written by __init__ (before the consumer thread exists), then by
-        # the consumer thread alone
+        # racer: single-writer -- cursor/epoch are written by __init__
+        # (before the consumer thread exists) and then only by the
+        # consumer thread; downstream handlers never read them
         self._cursor = 0
         self._epoch = None
         self._sync()
@@ -250,8 +251,9 @@ class WatchCacheProxy:
         ts = out.get("ts") or 0.0
         if ts:
             # wall clock: the stamp was taken in the server's process
+            now = time.time()  # analysis: disable=monotonic-time -- cross-process push-lag stamp, like the pump's
             metrics.PROXY_UPSTREAM_LAG_MS.observe(
-                max(0.0, (time.time() - ts) * 1e3))
+                max(0.0, (now - ts) * 1e3))
         events = out.get("events") or []
         for _seq, kind, event, obj in events:
             self._mirror.restore_object(kind, event, obj)

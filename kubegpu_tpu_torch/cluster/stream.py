@@ -170,7 +170,11 @@ class StreamConn:
         # thread's single SUB): the lock is uncontended
         self._wlock = threading.Lock()
         self._rfile = sock.makefile("rb")
+        # racer: single-writer -- a StreamConn serves one requesting
+        # thread at a time (per-thread keep-alive contract)
         self._rid = 0
+        # racer: single-writer -- one-way latch: close() may race the
+        # owner but every writer stores True
         self.closed = False
 
     @classmethod

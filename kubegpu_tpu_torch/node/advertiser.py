@@ -37,6 +37,11 @@ class DeviceAdvertiser:
         self.dev_mgr = dev_mgr
         self.node_name = node_name
         self.address = address
+        # Deliberately NOT monotonic: the stamp crosses process (and
+        # potentially host) boundaries, where monotonic clocks are
+        # meaningless; the consumer (scheduler/lifecycle.py) ages its own
+        # local observations instead of comparing clocks.
+        # analysis: disable=monotonic-time
         self.clock = clock if clock is not None else time.time
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -60,8 +65,8 @@ class DeviceAdvertiser:
         if self.address:
             meta["annotations"][codec.NODE_ADDRESS_ANNOTATION] = self.address
         self.client.patch_node_metadata(self.node_name, meta)
-        self.patch_count += 1
-        self.last_success_monotonic = time.monotonic()
+        self.patch_count += 1  # racer: single-writer
+        self.last_success_monotonic = time.monotonic()  # racer: single-writer
 
     def healthy(self, now: float | None = None) -> bool:
         """The agent's ``/healthz``: false until the first pass lands, and
@@ -77,8 +82,9 @@ class DeviceAdvertiser:
               retry_s: float = DEFAULT_RETRY_S) -> None:
         """Run the advertise loop in a daemon thread
         (`advertise_device.go:120-133`)."""
+        # racer: single-writer -- start()/stop() are owner-thread calls
         self._interval_s = interval_s
-        self._retry_s = retry_s
+        self._retry_s = retry_s  # racer: single-writer -- ditto
 
         def loop():
             while not self._stop.is_set():
@@ -93,6 +99,7 @@ class DeviceAdvertiser:
                     wait = retry_s
                 self._stop.wait(wait)
 
+        # racer: single-writer -- stop() joins the loop before clearing
         self._thread = threading.Thread(target=loop, daemon=True,
                                         name=f"advertiser-{self.node_name}")
         self._thread.start()

@@ -203,8 +203,8 @@ class DevicesManager:
 
     def add_device(self, device) -> None:
         name = device.get_name()  # probe before mutating
-        self.devices.append(device)
-        self.operational[name] = False
+        self.devices.append(device)  # racer: single-writer
+        self.operational[name] = False  # racer: single-writer
 
     def add_devices_from_plugins(self, directory: str) -> int:
         """Register the devices of a plugin directory (the agent's

@@ -349,6 +349,7 @@ class Sampler:
         self.max_depth = max_depth
         self._lock = threading.Lock()
         self._stop = threading.Event()
+        # racer: single-writer -- start()/stop() are owner-thread calls
         self._thread: Optional[threading.Thread] = None
         self._started_mono = 0.0
         self._stopped_mono: Optional[float] = None
@@ -371,7 +372,9 @@ class Sampler:
         if self._thread is not None:
             return self
         trace.enable_phase_tracking()
+        # racer: single-writer -- start()/stop() are owner-thread calls
         self._started_mono = time.monotonic()
+        # racer: single-writer -- stop() joins the loop before clearing
         self._stop.clear()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="profile-sampler")
@@ -388,6 +391,7 @@ class Sampler:
             self._thread = None
             trace.disable_phase_tracking()
         if self._stopped_mono is None:
+            # racer: single-writer -- start()/stop() are owner-thread calls
             self._stopped_mono = time.monotonic()
         return self.attribution()
 
@@ -402,9 +406,7 @@ class Sampler:
             t0 = time.perf_counter()
             try:
                 self._sample_once()
-            except Exception:
-                # a failed tick heals at the next; logging at 125 Hz would
-                # be the outage
+            except Exception:  # analysis: disable=no-swallowed-exceptions -- a failed tick self-heals at the next one; logging at 125 Hz would be the outage
                 pass
             busy = time.perf_counter() - t0
             with self._lock:

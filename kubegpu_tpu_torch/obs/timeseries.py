@@ -90,6 +90,7 @@ class MetricsTimeSeries:
         self._lock = threading.Lock()
         self._ring: deque = deque(maxlen=max(4, capacity))
         self._stop = threading.Event()
+        # racer: single-writer -- start()/stop() are owner-thread calls
         self._thread: Optional[threading.Thread] = None
 
     # -- lifecycle -----------------------------------------------------------
@@ -97,6 +98,7 @@ class MetricsTimeSeries:
     def start(self) -> "MetricsTimeSeries":
         if self._thread is not None:
             return self
+        # racer: single-writer -- start()/stop() are owner-thread calls
         self._stop.clear()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="metrics-ts")

@@ -226,6 +226,7 @@ class CRIHookServer:
         return self._server.server_address[1]
 
     def start(self) -> None:
+        # racer: single-writer -- start()/stop() are owner-thread calls
         self._thread = threading.Thread(
             target=self._server.serve_forever, daemon=True, name="cri-hook")
         self._thread.start()

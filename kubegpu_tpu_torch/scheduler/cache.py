@@ -261,9 +261,17 @@ class _FleetColumns:
         self._view_cache: "ColumnarView | None" = None
         # guarded-by: SchedulerCache._lock -- full-row changes (charge path)
         self._dirty_rows: set = set()
-        self._dirty_gen: set = set()    # generation-only changes
+        # guarded-by: SchedulerCache._lock -- generation-only changes, made
+        # by set_gen and bump_all_gens under _invalidate_*_locked. Declared
+        # here, unlike the reference: the race twins of analysis/races.py
+        # subclass SchedulerCache and call _charge_locked under the lock
+        # they inherit, which the lockset model cannot see through the
+        # subclass, so it would otherwise read those paths as lock-free
+        self._dirty_gen: set = set()
         self._dirty_canon: set = set()  # canonicalization map changes
-        self._gen_all = False           # bump_all_gens: whole gen column
+        # guarded-by: SchedulerCache._lock -- bump_all_gens: whole gen
+        # column (declared for the same reason as _dirty_gen)
+        self._gen_all = False
 
     # -- row computation (mutation-path hooks) ------------------------------
 

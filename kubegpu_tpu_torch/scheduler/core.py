@@ -2560,7 +2560,15 @@ class Scheduler:
         a lost reply is resent instead of costing the gang a replan.
         Conflict (a member bound elsewhere) and NotFound (a member
         deleted mid-flight) are definitive server answers: never
-        retried."""
+        retried.
+
+        Over a transport whose ``bind_many`` is not atomic
+        (``KubeAPIClient``: annotate every member, then bind every
+        member) a refused member keeps its stamp, unlike the single-pod
+        path's (`_bind_write`). That is deliberate: the reader keeps a
+        pending member's same-node allocation as its pin, which is how a
+        partially committed gang's stragglers retry on their planned
+        cards."""
         bindings = {n: node for n, node, _ in pinned_members}
         annotations = {n: p["metadata"].get("annotations") or {}
                        for n, _, p in pinned_members}
@@ -2997,7 +3005,10 @@ class Scheduler:
         pending pod, every replan on that host would read it back as the
         pod's own pinned allocation and fail on the taken card: hence one
         write, and for the extender's two writes a stamp withdrawn when
-        the bind fails (`_withdraw_stamp`)."""
+        the bind fails (`_withdraw_stamp`). A transport whose
+        ``bind_many`` is not atomic (``atomic_bind_many = False``:
+        ``KubeAPIClient``, since Kubernetes has none) annotates and then
+        binds, so its refused bind is withdrawn the same way."""
         # an extender declaring a bind verb owns the binding
         # (`extender.go:44,90`); an ignorable binder that errors falls
         # back to the API binding, a non-ignorable one fails the bind
@@ -3006,10 +3017,13 @@ class Scheduler:
                        if getattr(e, "bind_verb", None)), None)
         annotations = kube_pod["metadata"].get("annotations") or {}
         attempts = max(1, attempts)
+        two_stage = not getattr(self.api, "atomic_bind_many", True)
         stamped = False
         for attempt in range(attempts):
             try:
                 if binder is None:
+                    # a two-stage bind_many may have stamped before failing
+                    stamped = two_stage
                     self.api.bind_many({name: host}, {name: annotations})
                     return
                 self.api.update_pod_annotations(name, annotations)

@@ -54,8 +54,10 @@ class DevicesScheduler:
         # probe the interface BEFORE mutating: a malformed plugin must not
         # leave itself half-registered when the probe raises
         group_capable = bool(device.uses_group_scheduler())
-        self.devices.append(device)
+        # plugin registration happens during single-threaded startup
+        self.devices.append(device)  # racer: single-writer
         if group_capable:
+            # racer: single-writer -- ditto
             self.run_group_scheduler = [False] * len(self.run_group_scheduler)
             self.run_group_scheduler.append(True)
         else:

@@ -163,6 +163,7 @@ class VectorizedFitPass:
 
     # ---- masked filter ------------------------------------------------------
 
+    # hot-path: pure alloc=12
     def run_filter(self, kube_pod: dict, eq_class: str, cols: Any,
                    snaps: dict, nominated: Any,
                    pod_info_get: Any) -> tuple:
@@ -231,6 +232,7 @@ class VectorizedFitPass:
         self._store_mask(eq_class, cols, memo, computed)
         return results, scalar_names
 
+    # hot-path: pure alloc=12
     def _compute_rows(self, kube_pod: dict, cols: Any, snaps: dict,
                       pod_info_get: Any, comp_idx: Any, computed: dict,
                       results: dict) -> None:
@@ -321,6 +323,7 @@ class VectorizedFitPass:
             pod_info_get(name), node_ex, False)
         return (fits, [str(r) for r in reasons], score)
 
+    # hot-path: pure alloc=8
     def _shape_verdict(self, fp: tuple, bclass: tuple, rep_name: str,
                        snaps: dict, pod_info_get: Any,
                        canon: dict) -> "tuple | None":
@@ -352,6 +355,7 @@ class VectorizedFitPass:
                 del self._shape_verdicts[k]
         self._shape_verdicts[key] = verdict
 
+    # hot-path: pure alloc=8
     def _store_mask(self, eq_class: str, cols: Any, memo: dict | None,
                     computed: dict) -> None:
         np = _np
@@ -440,6 +444,7 @@ class _ScoreColumns:
         self.mem_present = self.mem_cap != 0
 
 
+# hot-path: pure alloc=12
 def _fractions(cols: _ScoreColumns) -> tuple:
     """`priorities._fraction` per resource, vectorized: min(max(u/c,0),1)
     with a poisoned denominator masked off afterwards."""
@@ -453,6 +458,7 @@ def _fractions(cols: _ScoreColumns) -> tuple:
     return cpu, mem
 
 
+# hot-path: pure alloc=8
 def _kernel_least_requested(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     cpu_f, mem_f = _fractions(cols)
@@ -466,6 +472,7 @@ def _kernel_least_requested(kube_pod, pod_requests, cols, node_snaps, sels):
                     prio_mod.MAX_PRIORITY / 2)
 
 
+# hot-path: pure alloc=8
 def _kernel_most_requested(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     cpu_f, mem_f = _fractions(cols)
@@ -477,6 +484,7 @@ def _kernel_most_requested(kube_pod, pod_requests, cols, node_snaps, sels):
                     prio_mod.MAX_PRIORITY / 2)
 
 
+# hot-path: pure alloc=8
 def _kernel_balanced(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     cpu_f, mem_f = _fractions(cols)
@@ -591,12 +599,14 @@ def _kernel_avoid(kube_pod, pod_requests, cols, node_snaps, sels):
     return out
 
 
+# hot-path: pure alloc=4
 def _kernel_interpod(kube_pod, pod_requests, cols, node_snaps, sels):
     # only reachable with meta is None (the engine gates on it): the
     # scalar batch returns 0.0 everywhere in that case
     return _np.zeros(len(node_snaps))
 
 
+# hot-path: pure alloc=4
 def _kernel_equal(kube_pod, pod_requests, cols, node_snaps, sels):
     return _np.ones(len(node_snaps))
 
@@ -741,6 +751,7 @@ class FastPreemptFit:
     def cache_node(self, name: str) -> Any:
         return self.vec.cache.get_node(name)
 
+    # hot-path: pure alloc=10
     def fits(self, snap: Any) -> "bool | None":
         """The full-chain verdict for the mutated snapshot, or None when
         this node needs the scalar chain after all."""

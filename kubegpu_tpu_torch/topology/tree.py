@@ -38,6 +38,8 @@ class SortedTreeNode:
             ):
                 at = i
                 break
+        # racer: single-writer -- a tree is built, then read, by the one
+        # allocation call that made it; no tree is shared between threads
         self.children.insert(at, child)
         return child
 

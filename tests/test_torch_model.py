@@ -221,7 +221,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "scheduler.extender", "scheduler.repair",
                  "cluster.apiserver", "cluster.wal", "cmd.apiserver_main",
                  "cluster.proxy", "cluster.chaos", "cmd.proxy_main",
-                 "cmd.simulate", "analysis.explore", "analysis.schedules"):
+                 "cmd.simulate", "analysis.explore", "analysis.schedules",
+                 "cluster.kubeclient", "cluster.mock_kube",
+                 "analysis.locksets", "analysis.rules.locks",
+                 "analysis.rules.clocks", "analysis.rules.exceptions",
+                 "analysis.rules.codecs", "analysis.rules.charges",
+                 "analysis.rules.lifecycle", "analysis.rules.metricsrule",
+                 "analysis.rules.wire", "analysis.rules.racer"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
