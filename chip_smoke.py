@@ -219,7 +219,8 @@ T = 2048, no remat), random weights from a seed:
    the repair leg (its own line): ``--repair --tenant-quota`` with a
    config declaring a filter extender (a stub here) that vetoes a third
    node with no agent, the pod bound to A trains 3 steps with
-   ``--checkpoint-dir D --checkpoint-every 1``, A's card is reported
+   ``--checkpoint-dir D --checkpoint-every 3`` (one save, of the step
+   the resume reads), A's card is reported
    failed (A's agent SIGSTOPped, this process running the advertiser's
    pass with the card failed), the controller stamps the checkpoint
    request, evicts and requeues the pod, which binds to B and resumes
@@ -280,8 +281,12 @@ T = 2048, no remat), random weights from a seed:
    charges no card twice; a card taken behind the engine's back refuses
    its bind, the stamp is withdrawn and the pod binds to another card;
 23. checkers: ``python -m kubegpu_tpu_torch.analysis --stats`` over the
-   port's tree (0 findings, the rules that ran, their seconds); then,
-   under the dispatch/sync/build counter
+   port's tree (0 findings from 17 rules, twin-coverage,
+   mirror-maintenance and reason-parity among them; their seconds); then
+   the full mutation sweep, ``python -m kubegpu_tpu_torch.analysis
+   --mutate --format json`` (its own line, ``checkers_mutation``:
+   mutants, killed, waived, survivors, seconds; no unwaived survivor);
+   then, under the dispatch/sync/build counter
    (``analysis/dispatchcount.py``), a float32 greedy drain of the serve
    phase's traffic at full width, fused and through the per-token oracle:
    equal streams, the fused syncs one a chunk plus one an admission and
@@ -4208,7 +4213,8 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
     on the card under the names A and B. The pod (tenant ``smoke``; not a
     gang, whose planner consults no extender) binds to A; ``train`` runs
     train_demo 3 steps with
-    ``--checkpoint-dir D --checkpoint-every 1`` through A's hook. Then A's
+    ``--checkpoint-dir D --checkpoint-every 3`` through A's hook (one save,
+    of step 3, the one B resumes from). Then A's
     card is reported failed: NVML reports every card healthy and A's
     agent stamps its health every second, so A's agent is SIGSTOPped (the
     lifecycle controller is off, so its still heartbeat is no fault) and
@@ -4236,7 +4242,10 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
 
     node_a, node_b, node_c = "smoke-node-a", "smoke-node-b", "smoke-node-c"
     ckpt = os.path.join(tmp, "repair-ckpt")
-    extra = ("--checkpoint-dir", ckpt, "--checkpoint-every", "1")
+    # one save a pod, of the step the resume reads: A saves its last step
+    # (DEVICE_STEPS), B resumes there and saves its own last step
+    extra = ("--checkpoint-dir", ckpt, "--checkpoint-every",
+             str(DEVICE_STEPS))
     stub = _StubAPIServer()
     ext = _ExtenderStub(node_c)
     config = os.path.join(tmp, "repair-config.json")
@@ -4548,8 +4557,7 @@ class _APIServerProc:
     again after `stop` restarts it on the same port and arguments."""
 
     def __init__(self, root: str, env: dict, tmp: str, *args):
-        self.port = _free_port()
-        self.url = f"http://127.0.0.1:{self.port}"
+        self.port = self.url = None  # chosen at the first start
         self.root, self.env, self.tmp, self.args = root, env, tmp, args
         self.proc = self._err = None
         self.lives = 0
@@ -4557,6 +4565,12 @@ class _APIServerProc:
     def start(self) -> None:
         import threading
 
+        if self.port is None:
+            # picked just before the first bind: a port picked at the
+            # phase's start can meanwhile become the local port of one of
+            # the phase's client connections (the flood opens hundreds)
+            self.port = _free_port()
+            self.url = f"http://127.0.0.1:{self.port}"
         self.lives += 1
         self.err_path = os.path.join(
             self.tmp, f"apiserver-{self.port}-{self.lives}.err")
@@ -5974,6 +5988,11 @@ def kube_phase(backend: str = "nvml", train: bool = True) -> dict:
     return row
 
 
+# the port's static rules: 17, the three twin rules among them
+STATIC_RULES = 17
+TWIN_RULES = ("twin-coverage", "mirror-maintenance", "reason-parity")
+
+
 def _static_rules() -> dict:
     """``python -m kubegpu_tpu_torch.analysis --stats`` over the port's
     tree on this machine's Python: its findings (0 for a clean tree), the
@@ -5996,9 +6015,49 @@ def _static_rules() -> dict:
     if proc.returncode != 0 or findings != 0 or stats is None:
         raise AssertionError(f"the static rules exited {proc.returncode}: "
                              f"{proc.stdout[-3000:]} {proc.stderr[-2000:]}")
+    if len(rules) != STATIC_RULES or not set(TWIN_RULES) <= set(rules):
+        raise AssertionError(f"the static rules ran {len(rules)} rules "
+                             f"({rules}), not {STATIC_RULES} with "
+                             f"{TWIN_RULES}")
     return {"findings": findings, "rules": len(rules), "rule_names": rules,
-            "files": int(stats.group(1)),
+            "twin_rules": list(TWIN_RULES), "files": int(stats.group(1)),
             "analysis_s": int(stats.group(3)) / 1e3, "process_s": wall}
+
+
+def _mutation_sweep(tmp: str) -> dict:
+    """``python -m kubegpu_tpu_torch.analysis --mutate --format json``, the
+    full mutation sweep over the masked pass's twin closure, on this
+    machine's Python: its mutants, kills, waivers, survivors and seconds
+    (the sweep's own and the process's), printed as a line of its own.
+    Raises on a non-zero exit or an unwaived survivor."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    report_path = os.path.join(tmp, "mutation-sweep.json")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubegpu_tpu_torch.analysis", "--mutate",
+         "--format", "json", "--output", report_path], cwd=root,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    report = None
+    if os.path.exists(report_path):
+        with open(report_path) as f:
+            report = json.load(f)
+    if proc.returncode != 0 or report is None or report["survived"] or \
+            report["skipped"]:
+        raise AssertionError(f"the mutation sweep exited {proc.returncode}: "
+                             f"{proc.stdout[-3000:]} {proc.stderr[-3000:]}")
+    kills: dict = {}
+    for m in report["mutants"]:
+        if m["status"] == "killed":
+            kills[m["killed_by"]] = kills.get(m["killed_by"], 0) + 1
+    row = {"phase": "checkers_mutation", "mutants": report["total"],
+           "killed": report["killed"], "waived": report["waived"],
+           "survivors": report["survived"], "kill_rate": report["kill_rate"],
+           "modules": len(report["targets"]), "checks": report["checks"],
+           "kills_by_check": kills, "sweep_s": report["elapsed_s"],
+           "process_s": wall}
+    emit(row)
+    return row
 
 
 def _counted_drain(cfg, params, prompts, fused) -> dict:
@@ -6037,8 +6096,9 @@ def _counted_drain(cfg, params, prompts, fused) -> dict:
 
 def checkers_phase(dev) -> dict:
     """The port's static rules over its own tree on this machine
-    (`_static_rules`: 0 findings), then the dispatch/sync/build counter on
-    the card. Serving: a float32
+    (`_static_rules`: 17 rules, the twin rules among them, 0 findings) and
+    the full mutation sweep (`_mutation_sweep`: no unwaived survivor),
+    then the dispatch/sync/build counter on the card. Serving: a float32
     greedy drain of the serve phase's traffic at full width, fused and
     through the per-token oracle, after a warm-up drain: equal streams,
     one sync a chunk plus one an admission on the fused path and its
@@ -6050,6 +6110,7 @@ def checkers_phase(dev) -> dict:
     the autograd engine's thread) equal the kernels' own launch counts,
     6 each."""
     import dataclasses
+    import tempfile
 
     import numpy as np
     import torch
@@ -6062,6 +6123,8 @@ def checkers_phase(dev) -> dict:
 
     t0 = time.perf_counter()
     rules = _static_rules()
+    with tempfile.TemporaryDirectory(prefix="kgt-mutate-") as tmp:
+        sweep = _mutation_sweep(tmp)
     cfg = dataclasses.replace(TransformerConfig(**MODEL), dtype="float32")
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     prompts = _serve_prompts(cfg)
@@ -6095,6 +6158,8 @@ def checkers_phase(dev) -> dict:
     budget = 1.5 / fused["chunk"]
     n = tcfg.n_layers
     row = {"phase": "checkers", "static_rules": rules,
+           "mutation_sweep": {k: sweep[k] for k in (
+               "mutants", "killed", "waived", "survivors", "sweep_s")},
            "slots": SERVE_SLOTS,
            "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
            "dtype": "float32", "tokens": fused["tokens"],

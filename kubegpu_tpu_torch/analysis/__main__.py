@@ -5,7 +5,9 @@ Runs the port's static rules over PATHS, by default the
 no-blocking-under-lock, transitive-locks, monotonic-time, codec-pairing,
 no-swallowed-exceptions, metric-registration, charge-pairing,
 resource-lifecycle, wire-contract, racer, hot-path), the device
-boundary's host-sync, and the unused-suppression audit of every waiver.
+boundary's host-sync, the scheduler's twin rules (twin-coverage,
+mirror-maintenance, reason-parity), and the unused-suppression audit of
+every waiver.
 
 Exit codes: 0 clean, 1 findings, 2 usage/parse error, 3 wall-clock
 budget exceeded (``--budget-s``).
@@ -14,10 +16,17 @@ budget exceeded (``--budget-s``).
 (machine-readable list), or ``sarif`` (SARIF 2.1.0, whose driver
 metadata carries every registered rule, not just the ones that fired).
 ``--select A,B`` and ``--rule NAME`` (repeatable) select rules,
-``--tests-dir`` names the tests codec-pairing reads (default: the
-repo's ``tests/``), ``--stats`` prints the per-rule timing report,
-``--budget-s`` turns the total into a gate, and ``--report`` renders
-the hot-path and host-sync inventories after the findings.
+``--tests-dir`` names the tests codec-pairing and twin-coverage read
+(default: the repo's ``tests/``), ``--stats`` prints the per-rule timing
+report, ``--budget-s`` turns the total into a gate, and ``--report``
+renders the hot-path and host-sync inventories after the findings.
+
+``--mutate`` switches to the dynamic half (``analysis/mutate.py``): the
+AST mutation sweep over the vector/scalar twin closure, exit 1 on
+unwaived survivors. ``--mutate-smoke`` runs the pinned subset,
+``--mutate-ids`` an explicit one, ``--list-mutants`` enumerates the
+deterministic mutant ids, and ``--budget-s`` here stops the sweep
+cleanly (remaining mutants reported ``skipped``, exit unaffected).
 """
 
 from __future__ import annotations
@@ -104,6 +113,49 @@ def render(findings: list, fmt: str) -> str:
     return "\n".join(lines)
 
 
+def _mutation_main(args: "argparse.Namespace") -> int:
+    """The ``--mutate`` / ``--list-mutants`` half of the CLI: the
+    dynamic twin of the static rules. Exit 0 when every run mutant is
+    killed or carries a justified waiver; 1 on unwaived survivors."""
+    from kubegpu_tpu_torch.analysis import mutate
+
+    fmt = args.fmt
+    try:
+        if args.list_mutants:
+            refs = mutate.enumerate_mutants()
+            if fmt == "json":
+                report = json.dumps([r.describe() for r in refs], indent=2)
+            else:
+                report = mutate.render_mutant_list(refs)
+            if args.output:
+                with open(args.output, "w", encoding="utf-8") as fh:
+                    fh.write(report + "\n")
+            else:
+                print(report)
+            return 0
+        ids = None
+        if args.mutate_ids:
+            ids = [i.strip() for i in args.mutate_ids.split(",")
+                   if i.strip()]
+        elif args.mutate_smoke:
+            ids = list(mutate.PINNED_SMOKE)
+        report_dict = mutate.run_sweep(
+            ids=ids, budget_s=args.budget_s,
+            log=lambda line: print(line, file=sys.stderr))
+    except mutate.MutationError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    report = json.dumps(report_dict, indent=2) if fmt == "json" \
+        else mutate.render_report(report_dict)
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as fh:
+            fh.write(report + "\n")
+        print(mutate.render_report(report_dict).splitlines()[0])
+    else:
+        print(report)
+    return 1 if report_dict["survived"] else 0
+
+
 def main(argv: list | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m kubegpu_tpu_torch.analysis",
@@ -138,12 +190,30 @@ def main(argv: list | None = None) -> int:
                         help="write the report to FILE instead of stdout")
     parser.add_argument("--list-rules", action="store_true",
                         help="list rules and exit")
+    parser.add_argument("--mutate", action="store_true",
+                        help="run the mutation sweep over the targeted "
+                             "vector/scalar closure instead of the "
+                             "static rules (exit 1 on unwaived "
+                             "survivors)")
+    parser.add_argument("--mutate-ids", default=None, metavar="ID[,ID...]",
+                        help="restrict --mutate to these mutant ids")
+    parser.add_argument("--mutate-smoke", action="store_true",
+                        help="run --mutate on the pinned subset "
+                             "(analysis.mutate.PINNED_SMOKE)")
+    parser.add_argument("--list-mutants", action="store_true",
+                        help="enumerate the mutation sweep's mutants "
+                             "(deterministic content-addressed ids) and "
+                             "exit without executing anything")
     args = parser.parse_args(argv)
 
     if args.list_rules:
         for rule in all_rules():
             print(f"{rule.name:26s} {rule.description}")
         return 0
+
+    if args.mutate or args.mutate_smoke or args.list_mutants or \
+            args.mutate_ids:
+        return _mutation_main(args)
 
     package = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     paths = args.paths or [package]

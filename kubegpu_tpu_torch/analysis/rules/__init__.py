@@ -15,6 +15,8 @@ from kubegpu_tpu_torch.analysis.rules.locks import (LockDiscipline,
 from kubegpu_tpu_torch.analysis.rules.metricsrule import MetricRegistration
 from kubegpu_tpu_torch.analysis.rules.racer import HotPathPurity, Racer
 from kubegpu_tpu_torch.analysis.rules.suppressions import UnusedSuppression
+from kubegpu_tpu_torch.analysis.rules.twins import (MirrorMaintenance,
+                                                    ReasonParity, TwinCoverage)
 from kubegpu_tpu_torch.analysis.rules.wire import WireContract
 
 ALL_RULES = [
@@ -31,6 +33,9 @@ ALL_RULES = [
     Racer(),
     HotPathPurity(),
     HostSync(),
+    TwinCoverage(),
+    MirrorMaintenance(),
+    ReasonParity(),
     # always ordered last by the engine: it audits what the others used
     UnusedSuppression(),
 ]

@@ -603,10 +603,9 @@ class SchedulerCache:
             changed = old_labels is None or \
                 fingerprint != cached.fit_fingerprint
             cached.fit_fingerprint = fingerprint
-            if changed:
-                self.columns.set_node(cached)
             if not changed:
                 return
+            self.columns.set_node(cached)
             if old_labels is None:
                 # first registration: bump (a re-added name must move past
                 # any generation an old pass captured) but don't count it

@@ -164,6 +164,7 @@ class VectorizedFitPass:
     # ---- masked filter ------------------------------------------------------
 
     # hot-path: pure alloc=12
+    # twin-of: kubegpu_tpu_torch.scheduler.core.GenericScheduler._run_predicates
     def run_filter(self, kube_pod: dict, eq_class: str, cols: Any,
                    snaps: dict, nominated: Any,
                    pod_info_get: Any) -> tuple:
@@ -233,6 +234,10 @@ class VectorizedFitPass:
         return results, scalar_names
 
     # hot-path: pure alloc=12
+    # twin-of: kubegpu_tpu_torch.scheduler.predicates.check_node_condition
+    # twin-of: kubegpu_tpu_torch.scheduler.factory._p_memory_pressure
+    # twin-of: kubegpu_tpu_torch.scheduler.factory._p_disk_pressure
+    # twin-of: kubegpu_tpu_torch.scheduler.predicates.pod_fits_resources
     def _compute_rows(self, kube_pod: dict, cols: Any, snaps: dict,
                       pod_info_get: Any, comp_idx: Any, computed: dict,
                       results: dict) -> None:
@@ -383,6 +388,7 @@ class VectorizedFitPass:
 
     # ---- vectorized scoring -------------------------------------------------
 
+    # twin-of: kubegpu_tpu_torch.scheduler.core.GenericScheduler.prioritize_nodes
     def run_scores(self, kube_pod: dict, feasible: dict, snaps: dict,
                    algorithm: Any, owner_selectors: Any) -> dict | None:
         """The default priority suite as array arithmetic over columns
@@ -459,6 +465,7 @@ def _fractions(cols: _ScoreColumns) -> tuple:
 
 
 # hot-path: pure alloc=8
+# twin-of: kubegpu_tpu_torch.scheduler.priorities.least_requested
 def _kernel_least_requested(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     cpu_f, mem_f = _fractions(cols)
@@ -473,6 +480,7 @@ def _kernel_least_requested(kube_pod, pod_requests, cols, node_snaps, sels):
 
 
 # hot-path: pure alloc=8
+# twin-of: kubegpu_tpu_torch.scheduler.priorities.most_requested
 def _kernel_most_requested(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     cpu_f, mem_f = _fractions(cols)
@@ -485,6 +493,7 @@ def _kernel_most_requested(kube_pod, pod_requests, cols, node_snaps, sels):
 
 
 # hot-path: pure alloc=8
+# twin-of: kubegpu_tpu_torch.scheduler.priorities.balanced_allocation
 def _kernel_balanced(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     cpu_f, mem_f = _fractions(cols)
@@ -494,6 +503,7 @@ def _kernel_balanced(kube_pod, pod_requests, cols, node_snaps, sels):
                     prio_mod.MAX_PRIORITY / 2)
 
 
+# twin-of: kubegpu_tpu_torch.scheduler.factory._pr_spreading
 def _kernel_spreading(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     n = len(node_snaps)
@@ -542,6 +552,7 @@ def _kernel_spreading(kube_pod, pod_requests, cols, node_snaps, sels):
     return out
 
 
+# twin-of: kubegpu_tpu_torch.scheduler.priorities.node_affinity
 def _kernel_node_affinity(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     affinity = ((kube_pod.get("spec") or {}).get("affinity") or {}) \
@@ -563,6 +574,7 @@ def _kernel_node_affinity(kube_pod, pod_requests, cols, node_snaps, sels):
     return out
 
 
+# twin-of: kubegpu_tpu_torch.scheduler.priorities.taint_toleration
 def _kernel_taints(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     tolerations = (kube_pod.get("spec") or {}).get("tolerations") or []
@@ -580,6 +592,7 @@ def _kernel_taints(kube_pod, pod_requests, cols, node_snaps, sels):
     return out
 
 
+# twin-of: kubegpu_tpu_torch.scheduler.priorities.node_prefer_avoid_pods
 def _kernel_avoid(kube_pod, pod_requests, cols, node_snaps, sels):
     np = _np
     out = np.full(len(node_snaps), prio_mod.MAX_PRIORITY)
@@ -600,6 +613,7 @@ def _kernel_avoid(kube_pod, pod_requests, cols, node_snaps, sels):
 
 
 # hot-path: pure alloc=4
+# twin-of: kubegpu_tpu_torch.scheduler.factory._pr_interpod
 def _kernel_interpod(kube_pod, pod_requests, cols, node_snaps, sels):
     # only reachable with meta is None (the engine gates on it): the
     # scalar batch returns 0.0 everywhere in that case
@@ -607,6 +621,7 @@ def _kernel_interpod(kube_pod, pod_requests, cols, node_snaps, sels):
 
 
 # hot-path: pure alloc=4
+# twin-of: kubegpu_tpu_torch.scheduler.priorities.equal_priority
 def _kernel_equal(kube_pod, pod_requests, cols, node_snaps, sels):
     return _np.ones(len(node_snaps))
 
@@ -752,6 +767,7 @@ class FastPreemptFit:
         return self.vec.cache.get_node(name)
 
     # hot-path: pure alloc=10
+    # twin-of: kubegpu_tpu_torch.scheduler.core.GenericScheduler._fits_after_evictions
     def fits(self, snap: Any) -> "bool | None":
         """The full-chain verdict for the mutated snapshot, or None when
         this node needs the scalar chain after all."""

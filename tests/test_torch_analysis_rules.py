@@ -1,10 +1,11 @@
 """The port's control-plane static rules (``kubegpu_tpu_torch/analysis``:
 locks, clocks, exceptions, codecs, charges, lifecycle, metrics, wire,
-racer and hot-path, with the suppression audit) held against the JAX
-package's: the same findings (rule, file, line, message) on every fixture
-of tests/fixtures/analysis, the detail tests of tests/test_analysis.py
-and the lockset-model tests of tests/test_locksets.py as port tests, and
-the port's own tree clean under its rules and under the JAX package's."""
+racer, hot-path and the twin rules, with the suppression audit) held
+against the JAX package's: the same findings (rule, file, line, message)
+on every fixture of tests/fixtures/analysis, the detail tests of
+tests/test_analysis.py and the lockset-model tests of
+tests/test_locksets.py as port tests, and the port's own tree clean under
+its rules and under the JAX package's."""
 
 import json
 import os
@@ -25,11 +26,17 @@ GOOD = os.path.join(FIXTURES, "good")
 TESTS_DIR = os.path.join(REPO, "tests")
 PKG = os.path.join(REPO, "kubegpu_tpu_torch")
 
-# the rules ported from the JAX package, the 13 its tree is gated by
+# the rules ported from the JAX package, the 16 its tree is gated by
 PORTED = ["lock-discipline", "no-blocking-under-lock", "transitive-locks",
           "monotonic-time", "codec-pairing", "no-swallowed-exceptions",
           "metric-registration", "charge-pairing", "resource-lifecycle",
-          "wire-contract", "racer", "hot-path", "unused-suppression"]
+          "wire-contract", "racer", "hot-path", "twin-coverage",
+          "mirror-maintenance", "reason-parity", "unused-suppression"]
+TWIN_RULES = ["twin-coverage", "mirror-maintenance", "reason-parity"]
+TWIN_FIXTURES = sorted(
+    os.path.join(tree, name) for tree in ("bad", "good")
+    for name in os.listdir(os.path.join(FIXTURES, tree))
+    if name.startswith(("twins_", "mirror_", "reasons_")))
 RULES = PORTED + ["host-sync"]
 FIXTURE_FILES = sorted(
     os.path.join(tree, name) for tree in ("bad", "good")
@@ -42,8 +49,47 @@ def findings_for(root, rule=None):
     return run_analysis([root], select=select, tests_dir=TESTS_DIR)
 
 
+# twin-coverage names the differential tests it read: the port's two
+# files where the JAX rule names its test_vector*.py glob
+_PORT_DIFF_TESTS = "(test_torch_vectorized.py, test_torch_batch.py)"
+_JAX_DIFF_TESTS = "(test_vector*.py)"
+
+
 def _keyed(findings) -> list:
-    return [(f.rule, f.path, f.line, f.message) for f in findings]
+    return [(f.rule, f.path, f.line,
+             f.message.replace(_PORT_DIFF_TESTS, _JAX_DIFF_TESTS))
+            for f in findings]
+
+
+@pytest.fixture(scope="module")
+def evidence(tmp_path_factory):
+    """A tests directory both packages' rules read alike. The fixtures'
+    twin pairs model the JAX package's (its mesh search among them), which
+    its differential suites exercise, so those suites stand here under
+    both rules' names: test_vectorized.py and test_vector_batch.py (the
+    JAX rule's test_vector*.py) and test_torch_vectorized.py and
+    test_torch_batch.py (the port's). The codec round-trip tests are
+    copied as they are. Each rule then judges the same pairs against the
+    same identifiers."""
+    import shutil
+
+    out = tmp_path_factory.mktemp("evidence")
+    for name in os.listdir(TESTS_DIR):
+        if name.startswith(("test_codec", "test_torch_codec")):
+            shutil.copy(os.path.join(TESTS_DIR, name), out / name)
+    for jax_name, port_name in (("test_vectorized.py",
+                                 "test_torch_vectorized.py"),
+                                ("test_vector_batch.py",
+                                 "test_torch_batch.py")):
+        shutil.copy(os.path.join(TESTS_DIR, jax_name), out / jax_name)
+        shutil.copy(os.path.join(TESTS_DIR, jax_name), out / port_name)
+    return str(out)
+
+
+def _both(root, rules, tests_dir=TESTS_DIR) -> tuple:
+    """(the port's findings, the JAX rules' findings) on one input."""
+    return (run_analysis([root], select=rules, tests_dir=tests_dir),
+            jax_run_analysis([root], select=rules, tests_dir=tests_dir))
 
 
 def test_rule_registry_is_complete():
@@ -55,10 +101,10 @@ def test_rule_registry_is_complete():
 
 @pytest.mark.parametrize("tree", ["bad", "good"])
 @pytest.mark.parametrize("rule", PORTED)
-def test_findings_equal_the_jax_rule_on_each_fixture_tree(tree, rule):
+def test_findings_equal_the_jax_rule_on_each_fixture_tree(tree, rule,
+                                                          evidence):
     root = os.path.join(FIXTURES, tree)
-    want = jax_run_analysis([root], select=[rule], tests_dir=TESTS_DIR)
-    got = findings_for(root, rule)
+    got, want = _both(root, [rule], evidence)
     assert _keyed(got) == _keyed(want)
     if tree == "good":
         assert got == []
@@ -67,10 +113,10 @@ def test_findings_equal_the_jax_rule_on_each_fixture_tree(tree, rule):
 
 
 @pytest.mark.parametrize("fixture", FIXTURE_FILES)
-def test_findings_equal_the_jax_rules_on_each_fixture_file(fixture):
+def test_findings_equal_the_jax_rules_on_each_fixture_file(fixture,
+                                                           evidence):
     path = os.path.join(FIXTURES, fixture)
-    want = jax_run_analysis([path], select=PORTED, tests_dir=TESTS_DIR)
-    got = run_analysis([path], select=PORTED, tests_dir=TESTS_DIR)
+    got, want = _both(path, PORTED, evidence)
     assert _keyed(got) == _keyed(want)
 
 
@@ -172,6 +218,186 @@ def test_disable_file_scope(tmp_path):
 def test_unknown_rule_is_an_error():
     with pytest.raises(AnalysisError):
         run_analysis([GOOD], select=["not-a-rule"])
+
+
+# ---- the twin rules (tests/test_analysis.py's, in parity form) -------------
+
+
+@pytest.mark.parametrize("fixture", TWIN_FIXTURES)
+def test_twin_rules_equal_the_jax_rules_on_each_twin_fixture(fixture,
+                                                             evidence):
+    path = os.path.join(FIXTURES, fixture)
+    for rule in TWIN_RULES:
+        got, want = _both(path, [rule], evidence)
+        assert _keyed(got) == _keyed(want), rule
+        if fixture.startswith("good"):
+            assert got == [], rule
+
+
+def test_twin_coverage_flags_each_contract_breach(evidence):
+    hits, want = _both(os.path.join(BAD, "twins_bad.py"), ["twin-coverage"],
+                       evidence)
+    msgs = " ".join(f.message for f in hits)
+    assert "dangling" in msgs                      # unresolvable twin-of
+    assert "never appears in the differential tests" in msgs
+    assert _PORT_DIFF_TESTS in msgs                # the port's suites
+    assert "no declared vector twin and no `# vector-gate:`" in msgs
+    assert "binds to no function definition" in msgs  # orphaned comment
+    assert len(hits) == 4
+    assert _keyed(hits) == _keyed(want)
+
+
+def test_twin_coverage_resolution_requires_the_right_owner(tmp_path):
+    """A target resolves only through its last two segments — a moved
+    original cannot hide behind a same-named function elsewhere."""
+    src = tmp_path / "mod.py"
+    src.write_text(
+        "class Right:\n"
+        "    def original(self):\n"
+        "        pass\n"
+        "# twin-of: mod.Wrong.original\n"
+        "def masked(rows):\n"
+        "    return rows\n")
+    hits, want = _both(str(src), ["twin-coverage"], None)
+    assert len(hits) == 1 and "does not resolve" in hits[0].message
+    assert _keyed(hits) == _keyed(want)
+    src.write_text(
+        "class Right:\n"
+        "    def original(self):\n"
+        "        pass\n"
+        "# twin-of: kubegpu_tpu_torch.mod.Right.original\n"
+        "def masked(rows):\n"
+        "    return rows\n")
+    hits, want = _both(str(src), ["twin-coverage"], None)
+    assert all("does not resolve" not in f.message for f in hits)
+    assert _keyed(hits) == _keyed(want)
+
+
+def test_twin_coverage_reads_only_the_port_differential_tests(tmp_path):
+    """The exercised check reads test_torch_vectorized.py and
+    test_torch_batch.py; a pair named only in the reference's
+    test_vector*.py or test_vector_batch.py is unexercised."""
+    src = tmp_path / "mod.py"
+    src.write_text(
+        "def original(rows):\n"
+        "    return rows\n"
+        "# twin-of: mod.original\n"
+        "def masked(rows):\n"
+        "    return rows\n")
+    tests = tmp_path / "tests"
+    tests.mkdir()
+    for name in ("test_vectorized.py", "test_vector_batch.py"):
+        (tests / name).write_text("from mod import masked\nmasked([])\n")
+    (tests / "test_torch_vectorized.py").write_text("x = 1\n")
+    hits = run_analysis([str(src)], select=["twin-coverage"],
+                        tests_dir=str(tests))
+    assert len(hits) == 1 and "never appears" in hits[0].message
+    for name in ("test_torch_vectorized.py", "test_torch_batch.py"):
+        (tests / "test_torch_vectorized.py").write_text("x = 1\n")
+        (tests / name).write_text("from mod import original\noriginal([])\n")
+        assert run_analysis([str(src)], select=["twin-coverage"],
+                            tests_dir=str(tests)) == [], name
+        (tests / name).write_text("x = 1\n")
+
+
+def test_hot_path_contract_binds_through_stacked_comments(tmp_path):
+    """A `# twin-of:` (or any comment) stacked between `# hot-path:
+    pure` and its def must not unbind the purity contract."""
+    src = tmp_path / "mod.py"
+    src.write_text(
+        "import threading\n"
+        "lock = threading.Lock()\n"
+        "\n"
+        "# hot-path: pure\n"
+        "# twin-of: mod.scalar_original\n"
+        "def kernel(x):\n"
+        "    with lock:\n"
+        "        return x\n"
+        "\n"
+        "def scalar_original(x):\n"
+        "    return x\n")
+    hits, want = _both(str(src), ["hot-path"], None)
+    assert hits and "contracted" in hits[0].message
+    assert _keyed(hits) == _keyed(want)
+
+
+def test_twin_coverage_good_twin_is_clean(evidence):
+    """Gate comments, one-hop builder resolution, and pairs whose names
+    the port's differential tests reference all satisfy the contract."""
+    assert _both(GOOD, ["twin-coverage"], evidence) == ([], [])
+
+
+def test_mirror_maintenance_flags_all_path_shapes():
+    hits, want = _both(BAD, ["mirror-maintenance"])
+    msgs = " ".join(f.message for f in hits)
+    assert "never mirrors them into the fleet columns" in msgs
+    assert "a normal path" in msgs
+    assert "exception edge" in msgs
+    assert "writes the generation map directly" in msgs
+    assert len(hits) == 4
+    assert _keyed(hits) == _keyed(want)
+
+
+def test_mirror_maintenance_good_twin_is_clean():
+    """finally-cleanup, handler-cleanup, and the None-guarded update
+    (credited at the guard) all discharge the mirror obligation."""
+    assert _both(GOOD, ["mirror-maintenance"]) == ([], [])
+
+
+def test_mirror_maintenance_credits_the_merged_set_node_test(tmp_path):
+    """The port's ``SchedulerCache.set_node`` returns when nothing
+    changed and updates the columns before any bump. The split form it
+    had (``if changed:`` update, then ``if not changed: return``) reads
+    as a bump with no update on a normal path."""
+    body = ("class Cache:\n"
+            "    def __init__(self):\n"
+            "        self.columns = object()\n"
+            "    def set_node(self, cached, changed):\n"
+            "{test}"
+            "        self._invalidate_locked(cached)\n")
+    merged = ("        if not changed:\n"
+              "            return\n"
+              "        self.columns.set_node(cached)\n")
+    split = ("        if changed:\n"
+             "            self.columns.set_node(cached)\n"
+             "        if not changed:\n"
+             "            return\n")
+    src = tmp_path / "cache.py"
+    src.write_text(body.format(test=merged))
+    assert run_analysis([str(src)], select=["mirror-maintenance"]) == []
+    src.write_text(body.format(test=split))
+    hits = run_analysis([str(src)], select=["mirror-maintenance"])
+    assert len(hits) == 1 and "a normal path" in hits[0].message
+
+
+def test_reason_parity_flags_drifted_literals():
+    hits, want = _both(BAD, ["reason-parity"])
+    msgs = " ".join(f.message for f in hits)
+    assert "reason constant" in msgs               # drifted _REASON* const
+    assert "Insufficient" in msgs                  # drifted f-string
+    assert len(hits) == 2
+    assert _keyed(hits) == _keyed(want)
+
+
+def test_reason_parity_good_twin_is_clean():
+    assert _both(GOOD, ["reason-parity"]) == ([], [])
+
+
+def test_port_declares_every_reference_twin_in_the_port():
+    """The port's vectorized.py declares each scalar original the JAX
+    package's declares, by its own qualname, and none of the reference's."""
+    import re
+
+    def decls(path):
+        with open(path, encoding="utf-8") as fh:
+            return re.findall(r"#\s*twin-of:\s*([\w.]+)", fh.read())
+
+    jax = decls(os.path.join(REPO, "kubegpu_tpu", "scheduler",
+                             "vectorized.py"))
+    port = decls(os.path.join(PKG, "scheduler", "vectorized.py"))
+    assert port == [q.replace("kubegpu_tpu.", "kubegpu_tpu_torch.", 1)
+                    for q in jax]
+    assert all(q.startswith("kubegpu_tpu_torch.scheduler.") for q in port)
 
 
 # ---- the interprocedural rules ---------------------------------------------
@@ -521,9 +747,10 @@ def test_format_json_lists_findings():
         set(findings[0])
 
 
-def test_sarif_driver_advertises_every_rule_even_when_clean():
+def test_sarif_driver_advertises_every_rule_even_when_clean(evidence):
     proc = subprocess.run(
         [sys.executable, "-m", "kubegpu_tpu_torch.analysis", "--format", "sarif",
+         "--tests-dir", evidence,
          os.path.join("tests", "fixtures", "analysis", "good")],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0
@@ -545,8 +772,9 @@ def test_rule_flag_selects_like_select():
     assert a.returncode == b.returncode == 1
 
 
-def test_stats_report_and_budget_gate():
+def test_stats_report_and_budget_gate(evidence):
     argv = [sys.executable, "-m", "kubegpu_tpu_torch.analysis", "--stats",
+            "--tests-dir", evidence,
             os.path.join("tests", "fixtures", "analysis", "good")]
     ok = subprocess.run(argv + ["--budget-s", "300"], cwd=REPO,
                         capture_output=True, text=True, timeout=120)

@@ -227,7 +227,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "analysis.rules.clocks", "analysis.rules.exceptions",
                  "analysis.rules.codecs", "analysis.rules.charges",
                  "analysis.rules.lifecycle", "analysis.rules.metricsrule",
-                 "analysis.rules.wire", "analysis.rules.racer"):
+                 "analysis.rules.wire", "analysis.rules.racer",
+                 "analysis.rules.twins", "analysis.mutate",
+                 "analysis.lockgraph", "analysis.leakguard",
+                 "analysis.pytest_plugin"):
         assert f"kubegpu_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -589,6 +589,34 @@ def test_masked_reason_strings_match_scalar_predicates(monkeypatch):
         sched.stop()
 
 
+def test_run_filter_verdicts_equal_run_predicates(monkeypatch):
+    """The masked pass node by node against its declared scalar twin:
+    every node ``run_filter`` evaluates gets the verdict
+    ``GenericScheduler._run_predicates`` gives on the same snapshot, and
+    the node it hands back to the scalar path is the tainted one."""
+    api, _hosts = build_cluster(random.Random(3))
+    sched = engine(api, monkeypatch, True)
+    try:
+        gen = sched.generic
+        for p in (pod("f1", 1), pod("f8", 8),
+                  pod("fmem", 2, memory=fake.H100_MEMORY)):
+            _names, snaps, _gens, cols = gen.cache.cycle_snapshot(
+                with_columns=True)
+            pod_info_get = gen._pod_info_provider(p)
+            results, scalar_names = gen.vector.run_filter(
+                p, equivalence_class(p), cols, snaps, {}, pod_info_get)
+            assert scalar_names == ["host2"]
+            assert sorted(results) == sorted(set(snaps) - {"host2"})
+            device_class = gen._device_class(p)
+            for name, (fits, reasons, score) in results.items():
+                want = gen._run_predicates(p, snaps[name], None,
+                                           pod_info_get, device_class, None)
+                assert (fits, reasons, score) == (
+                    want[0], [str(r) for r in want[1]], want[2]), name
+    finally:
+        sched.stop()
+
+
 def test_score_kernels_match_scalar_priorities():
     api = InMemoryAPIServer()
     labels = ({"topology.kubernetes.io/zone": "z1"},
