@@ -144,11 +144,12 @@ T = 2048, no remat), random weights from a seed:
    is the allocated one. Then the port's own node agent
    (``python -m kubegpu_tpu_torch.cmd.node_agent --backend nvml``, started
    without the device and process variables, from the checkout's root)
-   on its default wire, the stream wire, over a dict-backed stub of the
-   API server that serves both wires (its frames through the port's
-   ``cluster/stream.py`` and codec): the stub served the agent's frames
-   and the agent's ``/metrics`` shows ``transport_bytes_total`` under
-   ``wire="stream"`` alone; its advertised inventory equals the
+   on its default wire, the stream wire, over the port's own API server
+   in this process (``serve_api`` over the port's ``InMemoryAPIServer``,
+   both wires): the server dispatched the agent's requests
+   (``api_requests_total``) and the agent's ``/metrics`` shows
+   ``transport_bytes_total`` under ``wire="stream"`` alone; its
+   advertised inventory equals the
    in-process one, with a heartbeat, and ``/healthz`` answers 200; the
    tx and rx bytes of an advertise pass, and the median round trip of 50
    ``patch_node_metadata`` calls carrying the card's real annotation on
@@ -157,8 +158,8 @@ T = 2048, no remat), random weights from a seed:
    rewrites the stale config as the in-process hook does, and exits
    non-zero with a 409 naming ``AllocationMismatch`` for a pod that asks
    for one card more than it was allocated; the port's scheduling engine
-   (``scheduler/core.py``, in this process, over the stub's dicts through
-   its in-process face) places the agent's pod, a gang of one, on the
+   (``scheduler/core.py``, in this process, over the server's store)
+   places the agent's pod, a gang of one, on the
    node from the annotation the agent advertised and writes its process
    contract; ``POST /v1/launch-container`` runs ``python -m
    kubegpu_tpu_torch.cmd.train_demo`` at the training config for 3 steps
@@ -166,16 +167,25 @@ T = 2048, no remat), random weights from a seed:
    engine's contract), which exits 0 with finite
    losses and 18 sm90 launches each of K1, K2 and K3, counted in that
    process from zero (``launches_node_agent_run``), and whose
-   ``pod.alpha/ContainerStatus`` in the stub says exited 0; SIGTERM stops
-   the agent with exit 0 within 10 s, and the stub met no protocol fault.
-   Last, a second agent against a stub that answers the upgrade with plain
-   HTTP: it negotiates down to JSON once (one refused upgrade, no frame,
-   no stream byte) and advertises the same annotations. The
+   ``pod.alpha/ContainerStatus`` in the server says exited 0; SIGTERM
+   stops the agent with exit 0 within 10 s, and the server poisoned no
+   stream connection and refused no upgrade. Last, a second agent against
+   the port's server without the stream wire, which answers the upgrade
+   with plain HTTP: it negotiates down to JSON once (the server refused
+   one upgrade; no stream byte, no stream subscriber or pushed batch) and
+   advertises the same annotations. The
    ``control_plane_wire`` line gives, for each wire, start to first
    advertise, bytes per advertise pass and the patch round trip, beside
    the card's name and power limit;
-22. scheduler: the port's scheduling engine in process, over dicts, on
-   its default path (the batch cycle and the masked pass). A gang of one
+22. scheduler: first the allocator core on this host (its
+   ``scheduler_allocator`` line): ``os.cpu_count()``, the median ms per
+   search of the native route and of the plain Python path on 1-, 2-, 4-
+   and 8-card pods over one HGX host with the C call's share, and 120
+   seeded random problems on which both agree in fit, score, placements
+   and reasons. Then the port's scheduling engine in process, over dicts,
+   on its default path (the batch cycle and the masked pass), every
+   allocator search counted: the phase fails unless all went to the
+   native core (``allocator_searches``). A gang of one
    1-card pod more than the card's host (NVML) has cards leaves every
    member unbound; with a ``fake.rig_inventory`` host added the gang
    binds, one card each, ranks 0.. in name order, the count the gang's
@@ -203,7 +213,8 @@ T = 2048, no remat), random weights from a seed:
    the first pass: a binds 341 cards and b 170, the seconds to that state
    and ``quota_parked_total``; the 256-pod stream of one tenant with the
    gate on and off, equal placements and each one's p50);
-   scheduler_binary: ``kgtpu-gpu-scheduler`` over a stub API server: two
+   scheduler_binary: ``kgtpu-gpu-scheduler`` over the port's API server
+   in this process: two
    ``--leader-elect`` binaries, the leader binds the node agent's pod,
    which trains 3 steps (18 sm90 launches of each kernel), the standby
    takes over after a SIGKILL, a ``--wire json`` binary binds over the
@@ -2401,21 +2412,18 @@ def _gpu_node(name: str, backend) -> dict:
 
 
 class _EngineFace:
-    """The in-process face of a dict-backed API server: the calls the
-    port's scheduling engine makes (nodes and pods listed and read; pods
-    created, bound, annotated and deleted; a gang bound at once with
+    """A dict-backed API for the port's scheduling engine in this process:
+    the calls it makes (nodes and pods listed and read; pods created,
+    bound, annotated and deleted; a gang bound at once with
     ``bind_many``; events recorded; PDBs listed; watch callbacks), over
-    the dicts and
-    the lock that the HTTP routes of `_StubAPIServer` use. Callbacks run
-    after the lock is released; ``log(kind, event, obj)``, when set, sees
-    every change first (the stub's watch log)."""
+    the dicts and lock it is given. Callbacks run after the lock is
+    released."""
 
     def __init__(self, nodes: dict, pods: dict, lock):
         self.nodes, self.pods, self._lock = nodes, pods, lock
         self._watchers: list = []
         self.events: dict = {}          # pod name -> [(reason, message)]
         self.pdbs: list = []            # PodDisruptionBudgets, as listed
-        self.log = None
 
     @staticmethod
     def _copy(obj: dict) -> dict:
@@ -2425,8 +2433,6 @@ class _EngineFace:
         self._watchers.append(fn)
 
     def notify(self, kind: str, event: str, obj: dict) -> None:
-        if self.log is not None:
-            self.log(kind, event, obj)
         for fn in list(self._watchers):
             fn(kind, event, obj)
 
@@ -2539,350 +2545,76 @@ class _EngineFace:
             self.events.setdefault(name, []).append((reason, message))
 
 
-class _StubAPIServer:
-    """A dict-backed stand-in of the control plane's API server on
-    loopback, on both of its wires, with the JAX server's paths and
-    answers: nodes (``GET``/``POST /nodes``, ``GET``/``DELETE
-    /nodes/<n>``, ``PATCH /nodes/<n>/metadata``), pods (``GET /pods``
-    with ``node``, ``phase`` and ``bound``, ``POST /pods`` (409 for a
-    name it has), ``GET``/``DELETE /pods/<n>``, ``PUT
-    /pods/<n>/annotations``, ``POST /pods/<n>/bind``, ``POST /bindmany``
-    all or none, ``PUT /podannotations``), ``GET``/``POST /events``,
-    leases (``POST``/``GET``/``DELETE /leases/<n>``, 409 naming the
-    holder), empty ``/pdbs``, ``/pvs``, ``/pvcs`` and ``/quotas``, and the
-    watch: ``GET /watch?since=&timeout=&kinds=`` long-polls one event log
-    (a sequence and an epoch); on the stream wire, after ``GET /stream``
-    with ``Upgrade: kgtpu-stream``, ``REQ`` frames take the same routes
-    and a ``SUB`` frame turns the connection into ``PUSH`` batches from
-    that log, answered through the port's own frame and codec functions.
-    With ``stream_wire=False`` the upgrade gets a plain HTTP 404, as a
-    server without the stream wire answers. Counts the frames it served,
-    the upgrades it refused, the subscriptions it pushed to, the watch
-    polls it answered, the protocol faults it met and the ``PATCH /nodes/<n>/metadata`` it applied on
-    either wire. ``face`` is its
-    in-process face over the same dicts (`_EngineFace`): every change on
-    either wire or through the face enters the log and reaches the face's
-    watchers."""
-
-    PING_EVERY_S = 5.0
+class _PortAPIServer:
+    """The port's own API server in this process: `serve_api` over the
+    port's `InMemoryAPIServer` on loopback, on both of its wires (or,
+    with ``stream_wire=False``, refusing the upgrade as a server without
+    the stream wire does). ``api`` is the store itself, which the engine
+    and the gates read; ``log`` is the server's event log (its live
+    stream subscribers, the batches it encoded for them). What the gates
+    read besides: `node_patches`, the node PATCHes that changed a node,
+    from the store's own watch (every advertise pass stamps a new
+    heartbeat, so each lands as one event); `requests`, the server's
+    ``api_requests_total{server="apiserver"}`` (process-wide: one server
+    at a time when it is read); and the log's own fault counts,
+    ``stream_poisoned`` (stream connections dropped on a protocol fault)
+    and ``upgrades_refused`` (upgrades answered with plain HTTP)."""
 
     def __init__(self, stream_wire: bool = True):
         import threading
-        import urllib.parse
-        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-        from kubegpu_tpu_torch.cluster import stream
-        from kubegpu_tpu_torch.cluster.httpapi import Conflict, NotFound
-        from kubegpu_tpu_torch.core import codec
+        from kubegpu_tpu_torch.cluster.apiserver import InMemoryAPIServer
+        from kubegpu_tpu_torch.cluster.httpapi import serve_api
 
-        self.nodes, self.pods = {}, {}
-        self.frames_served = self.upgrades_refused = self.patches = 0
-        self.faults = self.subscriptions = self.polls = 0
-        lock = threading.Lock()
-        self._lock = lock
-        self.face = _EngineFace(self.nodes, self.pods, lock)
-        # the watch log: (seq, kind, event, obj), one epoch per stub
-        self._log: list = []
-        self._seq = 0
-        self.epoch = os.urandom(8).hex()
-        self._changed = threading.Condition(threading.Lock())
-        self._closing = False
-        self.leases: dict = {}          # name -> (holder, monotonic expiry)
+        self.api = InMemoryAPIServer()
+        self._server, self.url = serve_api(self.api,
+                                           stream_wire=stream_wire)
+        self.log = self._server.event_log
+        self._lock = threading.Lock()
+        self._patches: dict = {}
         outer = self
 
-        def record(kind, event, obj):
-            with outer._changed:
-                outer._seq += 1
-                outer._log.append((outer._seq, kind, event,
-                                   json.loads(json.dumps(obj))))
-                outer._changed.notify_all()
+        def count(kind, event, obj):
+            if kind == "node" and event == "modified":
+                with outer._lock:
+                    name = obj["metadata"]["name"]
+                    outer._patches[name] = outer._patches.get(name, 0) + 1
 
-        self.face.log = record
+        self.api.add_watcher(count)
 
-        def window(since, kinds, timeout):
-            """``(events after since, head seq)``, waiting up to
-            ``timeout`` for one."""
-            deadline = time.monotonic() + timeout
-            with outer._changed:
-                while True:
-                    evs = [e for e in outer._log[since:]
-                           if kinds is None or e[1] in kinds]
-                    left = deadline - time.monotonic()
-                    if evs or left <= 0 or outer._closing or \
-                            outer._seq > since:
-                        return evs, outer._seq
-                    outer._changed.wait(min(0.5, left))
-
-        def node_route(method, parts, body):
-            """The node routes, under the lock: another thread's PATCH must
-            not change an object while it is encoded."""
-            if parts == ["nodes"] and method == "GET":
-                return 200, {"items": list(outer.nodes.values())}, None
-            if parts == ["nodes"] and method == "POST":
-                name = body["metadata"]["name"]
-                if name in outer.nodes:
-                    return 409, {"error": f"node {name} exists"}, None
-                outer.nodes[name] = body
-                return 200, body, "added"
-            name = parts[1] if len(parts) > 1 else None
-            if name not in outer.nodes:
-                return 404, {"error": f"nodes {name} not found"}, None
-            obj = outer.nodes[name]
-            if method == "GET" and len(parts) == 2:
-                return 200, obj, None
-            if method == "DELETE" and len(parts) == 2:
-                del outer.nodes[name]
-                return 200, obj, "deleted"
-            if method == "PATCH" and parts[2:] == ["metadata"]:
-                meta = obj.setdefault("metadata", {})
-                for key, val in body.items():
-                    if isinstance(val, dict):
-                        meta.setdefault(key, {}).update(val)
-                    else:
-                        meta[key] = val
-                outer.patches += 1
-                return 200, obj, "modified"
-            return 404, {"error": f"no route {method} /{'/'.join(parts)}"}, \
-                None
-
-        def lease(method, name, query, body):
-            now = time.monotonic()
-            with lock:
-                holder, expiry = outer.leases.get(name, (None, 0.0))
-                if expiry <= now:
-                    holder = None
-                if method == "POST":
-                    if holder not in (None, body["holder"]):
-                        return 409, {"holder": holder}
-                    outer.leases[name] = (body["holder"],
-                                          now + float(body.get("ttl", 15.0)))
-                    return 200, {"holder": body["holder"]}
-                if method == "DELETE":
-                    if holder == query.get("holder"):
-                        outer.leases.pop(name, None)
-                    return 200, {}
-                return 200, {"holder": holder}
-
-        def route(method, parts, query, body):
-            """``(status, obj)`` of every route but the node ones and the
-            watch; the face's methods take the lock themselves."""
-            face = outer.face
-            if parts == ["pods"] and method == "GET":
-                return 200, {"items": face.list_pods(
-                    node_name=query.get("node"), phase=query.get("phase"),
-                    bound=query.get("bound") in ("1", "true"))}
-            if parts == ["pods"] and method == "POST":
-                name = body["metadata"]["name"]
-                with lock:
-                    exists = name in outer.pods
-                if exists:
-                    return 409, {"error": f"pod {name} exists"}
-                face.create_pod(body)
-                return 201, body
-            if parts[:1] == ["pods"] and len(parts) >= 2:
-                name = parts[1]
-                if method == "GET" and len(parts) == 2:
-                    return 200, face.get_pod(name)
-                if method == "DELETE" and len(parts) == 2:
-                    face.delete_pod(name)
-                    return 200, {}
-                if method == "PUT" and parts[2:] == ["annotations"]:
-                    return 200, face.update_pod_annotations(name, body)
-                if method == "POST" and parts[2:] == ["bind"]:
-                    face.bind_pod(name, body["node"])
-                    return 200, {}
-            if parts == ["bindmany"] and method == "POST":
-                face.bind_many(body["bindings"], body.get("annotations") or {})
-                return 200, {}
-            if parts == ["podannotations"] and method == "PUT":
-                face.update_pod_annotations_many(body)
-                return 200, {}
-            if parts == ["events"] and method == "POST":
-                for e in body if isinstance(body, list) else [body]:
-                    face.record_event(e.get("kind", "Pod"), e["name"],
-                                      e.get("type", "Normal"), e["reason"],
-                                      e.get("message", ""))
-                return (200 if isinstance(body, list) else 201), {}
-            if parts == ["events"] and method == "GET":
-                with lock:
-                    items = [{"involvedObject": {"kind": "Pod", "name": n},
-                              "reason": r, "message": m}
-                             for n, evs in face.events.items()
-                             for r, m in evs
-                             if query.get("involved") in (None, n)]
-                return 200, {"items": items}
-            if parts[:1] == ["leases"] and len(parts) == 2:
-                return lease(method, parts[1], query, body)
-            if parts in (["pdbs"], ["pvs"], ["pvcs"]) and method == "GET":
-                return 200, {"items": []}
-            if parts == ["quotas"] and method == "GET":
-                return 200, {"items": {}}
-            return 404, {"error": f"no route {method} /{'/'.join(parts)}"}
-
-        def dispatch(method, path, body, encode):
-            """``encode(status, obj)`` of the route's answer."""
-            split = urllib.parse.urlsplit(path)
-            parts = [p for p in split.path.split("/") if p]
-            query = dict(urllib.parse.parse_qsl(split.query))
-            if parts[:1] == ["nodes"]:
-                with lock:
-                    status, obj, event = node_route(method, parts, body)
-                    out = encode(status, obj)
-                    changed = json.loads(json.dumps(obj)) if event else None
-                if changed:
-                    outer.face.notify("node", event, changed)
-                return out
-            if parts == ["watch"] and method == "GET":
-                kinds = frozenset(query["kinds"].split(",")) \
-                    if query.get("kinds") else None
-                since = int(query.get("since", 0))
-                with lock:
-                    outer.polls += 1
-                if since > outer._seq:
-                    return encode(200, {"events": [], "seq": outer._seq,
-                                        "coalesced": 0, "epoch": outer.epoch,
-                                        "relist": True})
-                evs, seq = window(since, kinds,
-                                  float(query.get("timeout", 10.0)))
-                return encode(200, {"events": evs, "seq": seq,
-                                    "coalesced": 0, "epoch": outer.epoch})
-            try:
-                return encode(*route(method, parts, query, body))
-            except NotFound as e:
-                return encode(404, {"error": str(e)})
-            except Conflict as e:
-                out = {"error": str(e)}
-                if e.per_pod:
-                    out["per_pod"] = e.per_pod
-                return encode(409, out)
-
-        def push(conn, wlock, since, kinds):
-            """A subscribed connection: every batch after ``since`` as a
-            ``PUSH``, a ``PING`` when idle, until the client goes."""
-            cursor = since
-            while not outer._closing:
-                evs, seq = window(cursor, kinds, outer.PING_EVERY_S)
-                if seq > cursor:
-                    payload = codec.encode_watch_batch(
-                        evs, seq, epoch=outer.epoch, ts=time.time())
-                    stream.send_frame(conn, wlock, stream.PUSH, 0, payload)
-                    cursor = seq
-                elif not outer._closing:
-                    stream.send_frame(conn, wlock, stream.PING, 0, b"")
-
-        class Handler(BaseHTTPRequestHandler):
-            # keep-alive and no Nagle, as the JAX API server: a reply's
-            # headers and body go out in two writes, which Nagle would hold
-            # for the client's delayed ACK
-            protocol_version = "HTTP/1.1"
-            disable_nagle_algorithm = True
-
-            def log_message(self, *args):
-                pass
-
-            def _reply(self, code, blob):
-                self.send_response(code)
-                self.send_header("Content-Type", "application/json")
-                self.send_header("Content-Length", str(len(blob)))
-                self.end_headers()
-                self.wfile.write(blob)
-
-            def _json(self, method):
-                n = int(self.headers.get("Content-Length") or 0)
-                body = json.loads(self.rfile.read(n) or b"{}") \
-                    if method in ("POST", "PATCH", "PUT") else None
-                self._reply(*dispatch(
-                    method, self.path, body,
-                    lambda code, obj: (code, json.dumps(obj).encode())))
-
-            def _serve_stream(self):
-                self.send_response(101, "Switching Protocols")
-                self.send_header("Upgrade", stream.UPGRADE_TOKEN)
-                self.send_header("Connection", "Upgrade")
-                self.end_headers()
-                self.wfile.flush()
-                self.close_connection = True
-                # this handler's thread is the connection's one writer
-                wlock = threading.Lock()
-                try:
-                    while True:
-                        ftype, rid, payload = stream.read_frame(self.rfile)
-                        if ftype == stream.PING:
-                            continue
-                        if ftype == stream.SUB:
-                            args = codec.decode_value(payload)
-                            since = int(args.get("since") or 0)
-                            kinds = frozenset(args["kinds"]) \
-                                if args.get("kinds") else None
-                            with lock:
-                                outer.subscriptions += 1
-                            # the ack before any push
-                            stream.send_frame(
-                                self.connection, wlock, stream.RESP, rid,
-                                codec.encode_response(200, {
-                                    "seq": outer._seq,
-                                    "epoch": outer.epoch}))
-                            return push(self.connection, wlock, since,
-                                        kinds)
-                        if ftype != stream.REQ:
-                            raise stream.FrameError(f"frame type {ftype}")
-                        method, path, body, _ = codec.decode_request(payload)
-                        stream.send_frame(
-                            self.connection, wlock, stream.RESP, rid,
-                            dispatch(method, path, body,
-                                     codec.encode_response))
-                        with lock:
-                            outer.frames_served += 1
-                except (stream.FrameError, codec.CodecError):
-                    # a protocol fault the client's retry would hide: the
-                    # phase fails on any
-                    with lock:
-                        outer.faults += 1
-                except (stream.StreamClosed, OSError):
-                    pass
-
-            def do_GET(self):
-                if self.path == stream.UPGRADE_PATH and \
-                        (self.headers.get("Upgrade") or "").lower() == \
-                        stream.UPGRADE_TOKEN:
-                    if stream_wire:
-                        return self._serve_stream()
-                    with lock:
-                        outer.upgrades_refused += 1
-                    # the client hangs up once it has read the status
-                    self.close_connection = True
-                self._json("GET")
-
-            def do_POST(self):
-                self._json("POST")
-
-            def do_PATCH(self):
-                self._json("PATCH")
-
-            def do_PUT(self):
-                self._json("PUT")
-
-            def do_DELETE(self):
-                self._json("DELETE")
-
-        self._server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-        self._server.daemon_threads = True
-        # a client that hangs up mid-reply (a killed scheduler) is expected
-        self._server.handle_error = lambda *args: None
-        self.url = f"http://127.0.0.1:{self._server.server_address[1]}"
-        threading.Thread(target=self._server.serve_forever,
-                         daemon=True).start()
-
-    def count(self, name: str) -> int:
+    def node_patches(self, name: str) -> int:
         with self._lock:
-            return getattr(self, name)
+            return self._patches.get(name, 0)
+
+    def node_annotations(self, name: str) -> dict:
+        """A node's annotations; {} while it is not registered."""
+        from kubegpu_tpu_torch.cluster.apiserver import NotFound
+
+        try:
+            node = self.api.get_node(name)
+        except NotFound:
+            return {}
+        return (node.get("metadata") or {}).get("annotations") or {}
+
+    def bound_to(self, name: str):
+        from kubegpu_tpu_torch.cluster.apiserver import NotFound
+
+        try:
+            return (self.api.get_pod(name).get("spec") or {}).get("nodeName")
+        except NotFound:
+            return None
+
+    def event_reasons(self, name: str) -> set:
+        return {e["reason"] for e in self.api.list_events(involved_name=name)}
+
+    @staticmethod
+    def requests() -> float:
+        from kubegpu_tpu_torch import metrics
+
+        return metrics.API_REQUESTS.labels("apiserver").value
 
     def close(self) -> None:
-        with self._changed:
-            self._closing = True
-            self._changed.notify_all()
         self._server.shutdown()
-        self._server.server_close()
 
 
 def _wait_for(pred, timeout: float, what: str):
@@ -2932,9 +2664,9 @@ def _smi_inventory() -> list:
             for ln in out.strip().splitlines()]
 
 
-def _agent_transport_bytes(healthz: int) -> dict:
-    """The agent's ``transport_bytes_total`` from its ``/metrics``, as
-    ``{(wire, dir): bytes}``."""
+def _transport_bytes(healthz: int) -> dict:
+    """A node agent's or scheduler binary's ``transport_bytes_total`` from
+    the ``/metrics`` of its health port, as ``{(wire, dir): bytes}``."""
     import re
     import urllib.request
 
@@ -2946,20 +2678,20 @@ def _agent_transport_bytes(healthz: int) -> dict:
         re.M)}
 
 
-def _bytes_per_advertise(stub, healthz: int, wire: str,
+def _bytes_per_advertise(server, healthz: int, wire: str,
                          passes: int = 2) -> dict:
     """The tx and rx bytes one advertise pass (GET the node, PATCH its
     metadata) moves on ``wire``, from the agent's own counters read at two
     quiet points ``passes`` passes apart: the agent advertises every
     second, and each point is read 0.2 s after a pass landed in the
-    stub."""
+    server (`_PortAPIServer.node_patches`)."""
     def quiet_point(after: int):
-        _wait_for(lambda: stub.count("patches") > after, 10,
+        _wait_for(lambda: server.node_patches(NODE) > after, 10,
                   "an advertise pass")
         time.sleep(0.2)
-        return stub.count("patches"), _agent_transport_bytes(healthz)
+        return server.node_patches(NODE), _transport_bytes(healthz)
 
-    c0, b0 = quiet_point(stub.count("patches"))
+    c0, b0 = quiet_point(server.node_patches(NODE))
     c1, b1 = quiet_point(c0 + passes - 1)
     return {d + "_bytes_per_advertise":
             (b1.get((wire, d), 0) - b0.get((wire, d), 0)) / (c1 - c0)
@@ -2968,7 +2700,7 @@ def _bytes_per_advertise(stub, healthz: int, wire: str,
 
 def _patch_round_trips(url: str, annotations: dict, calls: int = 50) -> dict:
     """Median ms of the port client's ``patch_node_metadata`` carrying
-    ``annotations`` (the card's real advertisement) to the stub at ``url``
+    ``annotations`` (the card's real advertisement) to the server at ``url``
     over ``calls`` calls on each wire, the wires in turns, each client
     warmed by one call first."""
     import statistics
@@ -2997,31 +2729,33 @@ def _patch_round_trips(url: str, annotations: dict, calls: int = 50) -> dict:
 
 
 def _negotiation_leg(root: str, base_env: dict, want: dict) -> dict:
-    """The port's node agent on its default wire against a stub that
-    answers the upgrade with plain HTTP: it negotiates down once (one
-    refused upgrade, no frame, no stream byte), advertises ``want`` (the
-    stream run's annotations, heartbeat aside) over JSON, and stops on
-    SIGTERM with exit 0. Returns the JSON wire's first advertise and bytes
-    per advertise pass."""
+    """The port's node agent on its default wire against the port's
+    server without the stream wire (``serve_api(stream_wire=False)``),
+    which answers the upgrade with plain HTTP: the agent negotiates down
+    once (one upgrade the server refused over all its advertise passes,
+    no stream byte in its counters, no stream subscriber or pushed batch
+    in the server's log), advertises ``want`` (the stream run's
+    annotations, heartbeat aside) over JSON, and stops on SIGTERM with
+    exit 0. Returns the JSON wire's first advertise and bytes per
+    advertise pass."""
     import signal
     import tempfile
 
     from kubegpu_tpu_torch.core import codec
 
-    stub = _StubAPIServer(stream_wire=False)
+    server = _PortAPIServer(stream_wire=False)
     healthz = _free_port()
     err = tempfile.TemporaryFile(mode="w+")
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubegpu_tpu_torch.cmd.node_agent",
-         "--api", stub.url, "--node-name", NODE, "--node-address",
+         "--api", server.url, "--node-name", NODE, "--node-address",
          "127.0.0.1", "--backend", "nvml", "--register-node",
          "--healthz-port", str(healthz), "--advertise-interval", "1"],
         cwd=root, env=base_env, stdout=subprocess.DEVNULL, stderr=err)
     try:
         def advertised():
-            ann = (stub.nodes.get(NODE, {}).get("metadata") or {}).get(
-                "annotations") or {}
+            ann = server.node_annotations(NODE)
             return ann if codec.NODE_ANNOTATION_KEY in ann else None
 
         try:
@@ -3036,13 +2770,17 @@ def _negotiation_leg(root: str, base_env: dict, want: dict) -> dict:
         if got != {k: v for k, v in want.items() if k not in strip}:
             raise AssertionError(f"over json the agent advertised {got}, "
                                  f"over stream {want}")
-        per_pass = _bytes_per_advertise(stub, healthz, "json")
-        moved = _agent_transport_bytes(healthz)
-        refused, frames = (stub.count("upgrades_refused"),
-                           stub.count("frames_served"))
-        if (refused, frames) != (1, 0) or any(w != "json" for w, _ in moved):
+        per_pass = _bytes_per_advertise(server, healthz, "json")
+        moved = _transport_bytes(healthz)
+        refused = server.log.upgrades_refused
+        pushed = (server.log.stream_subscriber_count(),
+                  server.log.stream_encodes)
+        if refused != 1 or pushed != (0, 0) or \
+                not moved.get(("json", "tx")) or \
+                any(w != "json" for w, _ in moved):
             raise AssertionError(f"negotiation: {refused} upgrades refused, "
-                                 f"{frames} frames, {moved}")
+                                 f"(subscribers, batches) {pushed}, the "
+                                 f"agent moved {moved}")
         proc.send_signal(signal.SIGTERM)
         if proc.wait(timeout=10) != 0:
             raise AssertionError(f"the agent exited {proc.returncode}")
@@ -3051,7 +2789,7 @@ def _negotiation_leg(root: str, base_env: dict, want: dict) -> dict:
             proc.kill()
             proc.wait()
         err.close()
-        stub.close()
+        server.close()
     return {"first_advertise_s": first_advertise_s,
             "upgrades_refused": refused, **per_pass,
             "seconds": time.perf_counter() - t0}
@@ -3175,7 +2913,7 @@ def device_side_phase() -> dict:
         raise AssertionError(f"the pod sees {count} card(s), "
                              f"GPU-{uuid} against {gpu.uuid}")
     probe_s = time.perf_counter() - t
-    # 6. the port's node agent, over a stub API server, runs the pod
+    # 6. the port's node agent, over the port's API server, runs the pod
     agent = _node_agent_run(root, base_env, info, mgr, config)
     # 7. against a server without the stream wire it negotiates down
     json_wire = _negotiation_leg(root, base_env,
@@ -3204,10 +2942,10 @@ def device_side_phase() -> dict:
     return row
 
 
-def _start_agent(root: str, base_env: dict, stub, tmp: str,
+def _start_agent(root: str, base_env: dict, server, tmp: str,
                  backend: str = "nvml", node: str = NODE) -> tuple:
     """``python -m kubegpu_tpu_torch.cmd.node_agent --backend <backend>``
-    over ``stub`` (registering ``node``, its CRI hook on a free loopback
+    over ``server`` (registering ``node``, its CRI hook on a free loopback
     port, its stderr in ``tmp``), waited for until it serves the hook and
     says it advertises: ``(process, hook url, healthz port, stderr file,
     watchdog)``. The watchdog, started before the first read, kills the
@@ -3219,7 +2957,7 @@ def _start_agent(root: str, base_env: dict, stub, tmp: str,
     err = open(os.path.join(tmp, f"agent-{node}.err"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubegpu_tpu_torch.cmd.node_agent",
-         "--api", stub.url, "--node-name", node, "--node-address",
+         "--api", server.url, "--node-name", node, "--node-address",
          "127.0.0.1", "--backend", backend, "--register-node", "--cri-port",
          "0", "--healthz-port", str(healthz), "--advertise-interval", "1",
          "--launch-log-dir", os.path.join(tmp, f"logs-{node}")],
@@ -3293,16 +3031,19 @@ def _run_training_pod(cri: str, pod: str, config: dict,
 
 
 def _node_agent_run(root, base_env, info, mgr, config) -> dict:
-    """``python -m kubegpu_tpu_torch.cmd.node_agent --backend nvml`` over a
-    stub API server: its advertised inventory equals the in-process one
+    """``python -m kubegpu_tpu_torch.cmd.node_agent --backend nvml`` over
+    the port's API server in this process (`_PortAPIServer`): it
+    advertises over the stream wire, and its advertised inventory equals
+    the in-process one
     (``info``), ``/healthz`` answers 200, ``cmd.cri_hook --server`` rewrites
     ``config`` as the in-process hook does and exits non-zero with a 409
     naming AllocationMismatch for a pod short of a card, ``launch-container``
     runs the training pod (train_demo at the training config, DEVICE_STEPS
     steps, a gang of one) to exit 0 with finite losses, 18 sm90 launches
-    each of K1-K3 and the pod's ``pod.alpha/ContainerStatus`` in the stub,
-    and SIGTERM stops the agent with exit 0 within 10 s. Returns the
-    fields of the device_side row."""
+    each of K1-K3 and the pod's ``pod.alpha/ContainerStatus`` in the
+    server, and SIGTERM stops the agent with exit 0 within 10 s, the
+    server having poisoned no stream connection and refused no upgrade.
+    Returns the fields of the device_side row."""
     import signal
     import tempfile
     import urllib.request
@@ -3317,14 +3058,15 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
     from kubegpu_tpu_torch.scheduler.registry import build_device_scheduler
 
     tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-agent-")
-    stub = _StubAPIServer()
+    server = _PortAPIServer()
+    api = server.api
+    requests0 = server.requests()
     t0 = time.perf_counter()
-    proc, cri, healthz, err, watchdog = _start_agent(root, base_env, stub,
-                                                     tmp)
+    proc, cri, healthz, err, watchdog = _start_agent(root, base_env, server,
+                                                     tmp, "nvml")
     try:
         def advertised_annotations():
-            ann = (stub.nodes.get(NODE, {}).get("metadata") or {}).get(
-                "annotations") or {}
+            ann = server.node_annotations(NODE)
             return ann if codec.NODE_ANNOTATION_KEY in ann else None
 
         ann = _wait_for(advertised_annotations, 60,
@@ -3340,30 +3082,30 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         with urllib.request.urlopen(f"http://127.0.0.1:{healthz}/healthz",
                                     timeout=10) as r:
             healthz_status = r.status
-        # the agent's default wire: it upgraded, the stub served its frames,
-        # and its own counters moved under wire="stream" alone
-        moved = _agent_transport_bytes(healthz)
-        if stub.count("frames_served") == 0 or \
-                not moved.get(("stream", "tx")) or \
+        # the agent's default wire: it upgraded, the server dispatched its
+        # requests, and its own counters moved under wire="stream" alone
+        moved = _transport_bytes(healthz)
+        n_served = server.requests() - requests0
+        if not n_served or not moved.get(("stream", "tx")) or \
                 not moved.get(("stream", "rx")) or \
                 any(w != "stream" for w, _ in moved):
             raise AssertionError(f"the agent did not advertise over the "
-                                 f"stream wire: {stub.count('frames_served')}"
-                                 f" frames served, {moved}")
+                                 f"stream wire: {n_served} requests served, "
+                                 f"{moved}")
         stream_wire = {"first_advertise_s": first_advertise_s,
-                       **_bytes_per_advertise(stub, healthz, "stream")}
-        patch_rtt_ms = _patch_round_trips(stub.url, ann)
+                       **_bytes_per_advertise(server, healthz, "stream")}
+        patch_rtt_ms = _patch_round_trips(server.url, ann)
         # the engine places the pod, a gang of one, on the node the agent
         # advertised and writes its process contract; a pod that asks for
         # one card more than it was allocated is written by hand
-        engine = Scheduler(stub.face, build_device_scheduler())
+        engine = Scheduler(api, build_device_scheduler())
         gid = _free_gang_id()
         t = time.perf_counter()
-        stub.face.create_pod(_gpu_pod("agent-pod", 1, gang=gid, size=1))
+        api.create_pod(_gpu_pod("agent-pod", 1, gang=gid, size=1))
         engine.run_until_idle()
         engine_place_ms = (time.perf_counter() - t) * 1e3
         engine.stop()
-        placed = stub.face.get_pod("agent-pod")
+        placed = api.get_pod("agent-pod")
         contract = json.loads(placed["metadata"].get("annotations", {}).get(
             GANG_PROCESS_ANNOTATION) or "{}")
         want = {"gang": gid, "rank": 0, "count": 1, "coordinator_node": NODE,
@@ -3372,7 +3114,7 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
             raise AssertionError(
                 f"the engine placed agent-pod on "
                 f"{placed['spec'].get('nodeName')} with contract {contract}"
-                f": {stub.face.events.get('agent-pod')}")
+                f": {sorted(server.event_reasons('agent-pod'))}")
         pod = codec.kube_pod_to_pod_info(placed, invalidate_existing=False)
         alloc = pod.running_containers["main"].allocate_from
         cards = [grammar.gpu_id_from_path(p) for p in alloc.values()
@@ -3389,14 +3131,13 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
                 "gang": 1, "rank": 0, "count": 1, "coordinator_node": NODE,
                 "coordinator_port": _free_port()})}}
         codec.pod_info_to_annotation(meta, short)
-        stub.face.create_pod({"metadata": meta, "spec": {
+        api.create_pod({"metadata": meta, "spec": {
             "nodeName": NODE, "containers": [{"name": "main"}]}})
 
         served = _hook_cli(root, base_env, cri, pod.name, config)
         if served.returncode != 0:
             raise AssertionError(f"cri_hook failed: {served.stderr[-2000:]}")
-        in_process = GPURuntimeHook(_StubAPI(stub.pods, stub.nodes),
-                                    mgr).create_container(
+        in_process = GPURuntimeHook(api, mgr).create_container(
             pod.name, "main", json.loads(json.dumps(config)))
         served_cfg = json.loads(served.stdout)
         if served_cfg != in_process:
@@ -3411,7 +3152,7 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         pod_s, out, counted = _run_training_pod(cri, pod.name, config)
 
         def reported_exit():
-            raw = stub.pods[pod.name]["metadata"]["annotations"].get(
+            raw = api.get_pod(pod.name)["metadata"]["annotations"].get(
                 STATUS_ANNOTATION_KEY)
             main = json.loads(raw or "{}").get("main") or {}
             return main if main.get("state") == "exited" else None
@@ -3426,11 +3167,11 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
         stop_s = time.perf_counter() - t
         if rc != 0:
             raise AssertionError(f"the agent exited {rc} on SIGTERM")
-        if stub.count("faults") or stub.count("upgrades_refused"):
-            raise AssertionError(f"stream wire: {stub.count('faults')} "
-                                 f"protocol faults, "
-                                 f"{stub.count('upgrades_refused')} refusals")
-        frames_served = stub.count("frames_served")
+        if server.log.stream_poisoned or server.log.upgrades_refused:
+            raise AssertionError(f"stream wire: {server.log.stream_poisoned}"
+                                 f" connections poisoned, "
+                                 f"{server.log.upgrades_refused} refusals")
+        n_served = server.requests() - requests0
     finally:
         watchdog.cancel()
         if proc.poll() is None:
@@ -3438,9 +3179,9 @@ def _node_agent_run(root, base_env, info, mgr, config) -> dict:
             proc.wait()
         proc.stdout.close()
         err.close()
-        stub.close()
+        server.close()
     return {"agent_first_advertise_s": first_advertise_s,
-            "agent_wire": "stream", "stub_frames_served": frames_served,
+            "agent_wire": "stream", "server_requests": n_served,
             "wire_stream": stream_wire, "patch_rtt_ms": patch_rtt_ms,
             "advertised_annotations": ann,
             "agent_healthz": healthz_status, "agent_heartbeat": heartbeat,
@@ -3747,7 +3488,219 @@ def _quota_leg(engine, hgx, unlabelled: dict) -> dict:
     return row
 
 
+ALLOC_PROBLEMS = 120
+ALLOC_SEARCHES = 200
+
+
+def alloc_problem(rng) -> dict:
+    """A random group-allocation problem in the GPU grammar, as plain data
+    (``alloc``, ``used``, ``containers`` of ``(name, init, requests)``):
+    0-2 group levels over 1-4 cards a group, cards and memory leaves,
+    enum attributes on some cards, cards already used, and 1-2 containers
+    whose request paths match the tree by name pattern with indices of
+    their own."""
+    g = "alpha/grpresource"
+    depth = rng.choice([0, 1, 2])
+    alloc, used, leaves = {}, {}, []
+
+    def build(prefix, level):
+        if level == depth:
+            for d in range(rng.randint(1, 4)):
+                p = f"{prefix}/gpu/dev{d}"
+                alloc[f"{p}/cards"] = 1
+                alloc[f"{p}/memory"] = rng.choice([80000, 96000])
+                if rng.random() < 0.3:
+                    alloc[f"{p}/enumType"] = rng.randint(1, 15)
+                leaves.append(p)
+            return
+        for i in range(rng.randint(1, 2)):
+            build(f"{prefix}/gpugrp{depth - 1 - level}/{i}", level + 1)
+
+    build(g, 0)
+    for p in leaves:
+        if rng.random() < 0.25:
+            used[f"{p}/cards"] = 1
+    containers = []
+    for ci in range(rng.randint(1, 2)):
+        reqs = {}
+        for j, p in enumerate(rng.sample(leaves,
+                                         rng.randint(1, len(leaves)))):
+            parts = p[len(g) + 1:].split("/")
+            req = g
+            for k in range(0, len(parts) - 2, 2):
+                idx = j if rng.random() < 0.5 else parts[k + 1]
+                req += f"/{parts[k]}/{idx}"
+            req += f"/{parts[-2]}/r{j}"
+            reqs[f"{req}/cards"] = 1
+            if rng.random() < 0.6:
+                reqs[f"{req}/memory"] = rng.choice([40000, 80000])
+            if rng.random() < 0.2:
+                reqs[f"{req}/enumType"] = rng.randint(1, 15)
+        containers.append((f"c{ci}", ci > 0 and rng.random() >= 0.7, reqs))
+    return {"alloc": alloc, "used": used, "containers": containers}
+
+
+def alloc_objects(types, problem: dict) -> tuple:
+    """``(NodeInfo, PodInfo)`` of ``types`` (a ``core.types`` module) for
+    an `alloc_problem`."""
+    node = types.NodeInfo(name="n", capacity=dict(problem["alloc"]),
+                          allocatable=dict(problem["alloc"]),
+                          used=dict(problem["used"]))
+    pod = types.PodInfo(name="p")
+    for name, init, reqs in problem["containers"]:
+        phase = pod.init_containers if init else pod.running_containers
+        phase[name] = types.ContainerInfo(requests=dict(reqs),
+                                          dev_requests=dict(reqs))
+    return node, pod
+
+
+def _allocator_leg() -> dict:
+    """The native allocator core on this host: ms per search of the
+    native route (``grpalloc.pod_fits_group_constraints``) and of the
+    plain Python path on 1-, 2-, 4- and 8-card pods over one HGX host
+    (each the median of ALLOC_SEARCHES), with the share of the native
+    route spent in the C call (``native.grp_allocate``, timed inside each
+    search: the median of the per-search ratio); then ALLOC_PROBLEMS seeded random problems through both,
+    which must agree in fit, score (bit for bit), placements and reasons.
+    Prints the ``scheduler_allocator`` line and returns it."""
+    import random
+    import statistics
+
+    from kubegpu_tpu_torch import native
+    from kubegpu_tpu_torch.allocator import grpalloc
+    from kubegpu_tpu_torch.core import codec, types
+    from kubegpu_tpu_torch.node import fake
+    from kubegpu_tpu_torch.scheduler.gpu_scheduler import GPUScheduler
+
+    t0 = time.perf_counter()
+    sched = GPUScheduler()
+    host = codec.annotation_to_node_info(_gpu_node("hgx0", fake.FakeGPUBackend(
+        fake.hgx_h100_inventory(0)))["metadata"])
+    sched.add_node("hgx0", host)
+
+    def median_ms(fn, *args):
+        times = []
+        for _ in range(ALLOC_SEARCHES):
+            t = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    def native_ms_and_share(pod):
+        """Median ms of a native search, and the median share of each
+        search that its ``native.grp_allocate`` call took."""
+        real, inside = native.grp_allocate, []
+
+        def timed(payload):
+            t = time.perf_counter()
+            try:
+                return real(payload)
+            finally:
+                inside.append(time.perf_counter() - t)
+
+        times, shares = [], []
+        native.grp_allocate = timed
+        try:
+            for _ in range(ALLOC_SEARCHES):
+                inside.clear()
+                t = time.perf_counter()
+                grpalloc.pod_fits_group_constraints(host, pod, False)
+                total = time.perf_counter() - t
+                times.append(total * 1e3)
+                shares.append(sum(inside) / total)
+        finally:
+            native.grp_allocate = real
+        return statistics.median(times), statistics.median(shares)
+
+    per_search = {}
+    for cards in (1, 2, 4, 8):
+        pod = codec.kube_pod_to_pod_info(_gpu_pod(f"a{cards}", cards),
+                                         invalidate_existing=True)
+        ok, reasons = sched._translate(host, pod)
+        native_fit = grpalloc.pod_fits_group_constraints(host, pod.clone(),
+                                                         False)
+        python_fit = grpalloc._pod_fits_group_constraints_py(
+            host, pod.clone(), False)
+        if not ok or not native_fit[0] or native_fit != python_fit:
+            raise AssertionError(f"{cards} cards: native {native_fit}, "
+                                 f"python {python_fit}, {reasons}")
+        native_ms, share = native_ms_and_share(pod)
+        per_search[cards] = {
+            "native_ms": native_ms,
+            "python_ms": median_ms(grpalloc._pod_fits_group_constraints_py,
+                                   host, pod, False),
+            "c_call_share": share}
+
+    rng = random.Random(11)
+    fits = 0
+    for trial in range(ALLOC_PROBLEMS):
+        problem = alloc_problem(rng)
+        got, want = [], []
+        for fit, out in ((grpalloc.pod_fits_group_constraints, got),
+                         (grpalloc._pod_fits_group_constraints_py, want)):
+            node, pod = alloc_objects(types, problem)
+            ok, reasons, score = fit(node, pod, True)
+            out.extend([ok, score, sorted(r.info() for r in reasons),
+                        [dict(c.allocate_from)
+                         for _, c, _ in pod.all_containers()]])
+        if got != want:
+            raise AssertionError(f"allocator differential, problem {trial}: "
+                                 f"native {got}, python {want}")
+        fits += got[0]
+    row = {"phase": "scheduler_allocator", "nvidia_smi": smi_line(),
+           "note": "host times of the card's machine, one thread",
+           "cpu_count": os.cpu_count(), "per_search": per_search,
+           "differential": {"problems": ALLOC_PROBLEMS, "equal": True,
+                            "fitting": fits},
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+@contextlib.contextmanager
+def _counting_searches():
+    """Count the allocator's searches while the block runs: ``native``
+    calls of ``native.grp_allocate`` (any thread) and ``python``, the
+    ``allocator_native_fallbacks_total`` it adds."""
+    import threading
+
+    from kubegpu_tpu_torch import metrics, native
+
+    real = native.grp_allocate
+    lock = threading.Lock()
+    counts = {"native": 0, "python": 0}
+    before = metrics.NATIVE_FALLBACKS.value
+
+    def counted(payload):
+        with lock:
+            counts["native"] += 1
+        return real(payload)
+
+    native.grp_allocate = counted
+    try:
+        yield counts
+    finally:
+        native.grp_allocate = real
+        counts["python"] = metrics.NATIVE_FALLBACKS.value - before
+
+
 def scheduler_phase(backend=None) -> dict:
+    """The allocator core on this host (`_allocator_leg`, its own line),
+    then the engine's legs (`_scheduler_legs`) with every allocator
+    search counted: the phase fails unless they all went to the native
+    core. ``backend`` stands in for the card's NVML (a CPU rehearsal)."""
+    allocator = _allocator_leg()
+    with _counting_searches() as searches:
+        row = _scheduler_legs(backend)
+    if searches["python"] or not searches["native"]:
+        raise AssertionError(f"the scheduler phase's searches: {searches}")
+    row.update(allocator_searches=searches,
+               seconds=row["seconds"] + allocator["seconds"])
+    emit(row)
+    return row
+
+
+def _scheduler_legs(backend=None) -> dict:
     """The port's scheduling engine in process, over dicts
     (`_EngineFace`): a gang of one pod more than this card's host has
     cards binds none of its members, and all of them once a
@@ -3901,7 +3854,6 @@ def scheduler_phase(backend=None) -> dict:
                                    "cycle_ms": gang_ms},
            "auto_topology": auto, "gang_preempt": preempt, "quota": quota,
            "seconds": time.perf_counter() - t0, "ok": True}
-    emit(row)
     return row
 
 
@@ -3979,15 +3931,11 @@ class _SchedulerBinary:
             self._err.close()
 
 
-def _bound_to(stub, name: str):
-    with stub._lock:
-        return (stub.pods.get(name, {}).get("spec") or {}).get("nodeName")
-
-
-def _create_to_bound_ms(stub, pod: dict, timeout: float, what: str) -> float:
-    """Create ``pod`` through the stub's face and wait until a scheduler
-    binds it: ms from the create to the bind landing in the stub (stamped
-    by a face watcher, not by the polling)."""
+def _create_to_bound_ms(server, pod: dict, timeout: float,
+                        what: str) -> float:
+    """Create ``pod`` in the server's store and wait until a scheduler
+    binds it: ms from the create to the bind landing in the store (stamped
+    by a watcher of the store, not by the polling)."""
     name = pod["metadata"]["name"]
     stamp: dict = {}
 
@@ -3996,9 +3944,9 @@ def _create_to_bound_ms(stub, pod: dict, timeout: float, what: str) -> float:
                 (obj.get("spec") or {}).get("nodeName"):
             stamp.setdefault("bound", time.perf_counter())
 
-    stub.face.add_watcher(watch)
+    server.api.add_watcher(watch)
     t = time.perf_counter()
-    stub.face.create_pod(pod)
+    server.api.create_pod(pod)
     _wait_for(lambda: "bound" in stamp, timeout, what)
     return (stamp["bound"] - t) * 1e3
 
@@ -4020,7 +3968,8 @@ def _hook_cli(root: str, env: dict, cri: str, pod: str, config: dict):
 def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
                    train: bool) -> dict:
     """The node lifecycle controller of ``kgtpu-gpu-scheduler
-    --node-grace-s 3 --node-stale-s 1`` over a stub of its own, with two
+    --node-grace-s 3 --node-stale-s 1`` over a port API server of its own
+    (`_PortAPIServer`), with two
     node agents on the card under two names: the binary binds a gang of
     one to node A (then the only node), node B registers, and A's agent is
     SIGKILLed before anything launches the pod. The controller marks A
@@ -4036,7 +3985,8 @@ def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
     from kubegpu_tpu_torch.runtime.hook import GANG_PROCESS_ANNOTATION
 
     node_a, node_b = "smoke-node-a", "smoke-node-b"
-    stub = _StubAPIServer()
+    server = _PortAPIServer()
+    api = server.api
     agents: list = []
     binary = None
     stamps: dict = {}
@@ -4054,27 +4004,25 @@ def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
                 stamps.setdefault("rebound", now)
 
     def advertised(node):
-        with stub._lock:
-            ann = (stub.nodes.get(node, {}).get("metadata") or {}).get(
-                "annotations") or {}
-        return codec.NODE_ANNOTATION_KEY in ann
+        return codec.NODE_ANNOTATION_KEY in server.node_annotations(node)
 
     try:
-        agents.append(_start_agent(root, base_env, stub, tmp, backend,
+        agents.append(_start_agent(root, base_env, server, tmp, backend,
                                    node=node_a))
         _wait_for(lambda: advertised(node_a), 60, "node A's advertise")
         binary = _SchedulerBinary(
-            root, base_env, tmp, stub.url, "--wire", "stream",
+            root, base_env, tmp, server.url, "--wire", "stream",
             "--node-grace-s", str(LIFECYCLE_GRACE_S), "--node-stale-s",
             str(LIFECYCLE_STALE_S))
-        stub.face.add_watcher(watch)
+        api.add_watcher(watch)
         gid = _free_gang_id()
-        _create_to_bound_ms(stub, _gpu_pod("life-pod", 1, gang=gid, size=1),
+        _create_to_bound_ms(server,
+                            _gpu_pod("life-pod", 1, gang=gid, size=1),
                             30, "the pod's bind to node A")
-        first = stub.face.get_pod("life-pod")
+        first = api.get_pod("life-pod")
         if first["spec"]["nodeName"] != node_a:
             raise AssertionError(f"life-pod bound to {first['spec']}")
-        agents.append(_start_agent(root, base_env, stub, tmp, backend,
+        agents.append(_start_agent(root, base_env, server, tmp, backend,
                                    node=node_b))
         cri_b = agents[-1][1]
         _wait_for(lambda: advertised(node_b), 60, "node B's advertise")
@@ -4082,7 +4030,7 @@ def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
         agents[0][0].send_signal(signal.SIGKILL)
         _wait_for(lambda: "lost" in stamps, 30, "node A Lost")
         _wait_for(lambda: "rebound" in stamps, 30, "the rebind on node B")
-        placed = stub.face.get_pod("life-pod")
+        placed = api.get_pod("life-pod")
         contract = json.loads(placed["metadata"].get("annotations", {}).get(
             GANG_PROCESS_ANNOTATION) or "{}")
         if contract.get("coordinator_node") != node_b or \
@@ -4101,10 +4049,10 @@ def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
                 cont.requests.get(grammar.RESOURCE_NUM_GPU) != 1 or \
                 info.requests.get(grammar.RESOURCE_GANG) != gid:
             raise AssertionError(f"the requeued copy {copy}")
-        with stub._lock:
-            node_a_left = node_a in stub.nodes
-            reasons = {r for r, _ in stub.face.events.get(node_a, [])} | \
-                {r for r, _ in stub.face.events.get("life-pod", [])}
+        node_a_left = any(n["metadata"]["name"] == node_a
+                          for n in api.list_nodes())
+        reasons = server.event_reasons(node_a) | \
+            server.event_reasons("life-pod")
         if node_a_left or not {"NodeLost", "Evicted"} <= reasons:
             raise AssertionError(f"node A left {node_a_left}, events "
                                  f"{sorted(reasons)}")
@@ -4112,7 +4060,7 @@ def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
         stale = json.loads(json.dumps(copy))
         stale["metadata"]["name"] = "life-stale"
         stale["spec"]["nodeName"] = node_b
-        stub.face.create_pod(stale)
+        api.create_pod(stale)
         refused = _hook_cli(root, base_env, cri_b, "life-stale",
                             {"devices": [], "envs": []})
         if refused.returncode == 0 or "409" not in refused.stderr or \
@@ -4148,7 +4096,7 @@ def _lifecycle_leg(root: str, base_env: dict, tmp: str, backend: str,
             proc.wait()
             proc.stdout.close()
             err.close()
-        stub.close()
+        server.close()
     return {"lifecycle": {
         "grace_s": LIFECYCLE_GRACE_S, "stale_s": LIFECYCLE_STALE_S,
         "kill_to_lost_s": stamps["lost"] - stamps["kill"],
@@ -4209,7 +4157,8 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
     """The repair controller of ``kgtpu-gpu-scheduler --repair
     --tenant-quota`` with a config declaring one filter extender
     (`_ExtenderStub`, which vetoes node C, registered with a fake rig
-    inventory and no agent), over a stub of its own, with two node agents
+    inventory and no agent), over a port API server of its own
+    (`_PortAPIServer`), with two node agents
     on the card under the names A and B. The pod (tenant ``smoke``; not a
     gang, whose planner consults no extender) binds to A; ``train`` runs
     train_demo 3 steps with
@@ -4246,7 +4195,8 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
     # (DEVICE_STEPS), B resumes there and saves its own last step
     extra = ("--checkpoint-dir", ckpt, "--checkpoint-every",
              str(DEVICE_STEPS))
-    stub = _StubAPIServer()
+    server = _PortAPIServer()
+    api = server.api
     ext = _ExtenderStub(node_c)
     config = os.path.join(tmp, "repair-config.json")
     with open(config, "w") as f:
@@ -4272,25 +4222,22 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
             stamps.setdefault("rebound", now)
 
     def advertised(node):
-        with stub._lock:
-            ann = (stub.nodes.get(node, {}).get("metadata") or {}).get(
-                "annotations") or {}
-        return codec.NODE_ANNOTATION_KEY in ann
+        return codec.NODE_ANNOTATION_KEY in server.node_annotations(node)
 
     try:
-        agents.append(_start_agent(root, base_env, stub, tmp, backend,
+        agents.append(_start_agent(root, base_env, server, tmp, backend,
                                    node=node_a))
         _wait_for(lambda: advertised(node_a), 60, "node A's advertise")
-        stub.face.add_node(_gpu_node(node_c, fake.FakeGPUBackend(
+        api.create_node(_gpu_node(node_c, fake.FakeGPUBackend(
             fake.rig_inventory(7))))
         binary = _SchedulerBinary(
-            root, base_env, tmp, stub.url, "--wire", "stream", "--repair",
+            root, base_env, tmp, server.url, "--wire", "stream", "--repair",
             "--tenant-quota", "--lease-ttl", "2", "--config", config)
-        stub.face.add_watcher(watch)
+        api.add_watcher(watch)
         pod = _gpu_pod("repair-pod", 1)
         pod["metadata"]["labels"] = {"kgtpu.io/tenant": "smoke"}
-        _create_to_bound_ms(stub, pod, 30, "the pod's bind to node A")
-        first = stub.face.get_pod("repair-pod")
+        _create_to_bound_ms(server, pod, 30, "the pod's bind to node A")
+        first = api.get_pod("repair-pod")
         if first["spec"]["nodeName"] != node_a:
             raise AssertionError(f"repair-pod bound to {first['spec']}")
         alloc = codec.kube_pod_to_pod_info(
@@ -4298,7 +4245,7 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
             "main"].allocate_from
         uuid = next(grammar.gpu_id_from_path(p) for p in alloc.values()
                     if grammar.gpu_id_from_path(p))
-        agents.append(_start_agent(root, base_env, stub, tmp, backend,
+        agents.append(_start_agent(root, base_env, server, tmp, backend,
                                    node=node_b))
         cri_a, cri_b = agents[0][1], agents[1][1]
         _wait_for(lambda: advertised(node_b), 60, "node B's advertise")
@@ -4314,7 +4261,7 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
         mgr = DevicesManager()
         mgr.add_device(GPUDeviceManager(reported))
         mgr.start()
-        client = HTTPAPIClient(stub.url, wire="json")
+        client = HTTPAPIClient(server.url, wire="json")
         try:
             stamps["degraded"] = time.perf_counter()
             DeviceAdvertiser(client, mgr, node_a,
@@ -4323,14 +4270,13 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
             client.close()
         _wait_for(lambda: "rebound" in stamps, 30,
                   "the repaired pod's bind to node B")
-        placed = stub.face.get_pod("repair-pod")
-        with stub._lock:
-            reasons = [r for r, _ in stub.face.events.get("repair-pod", [])]
-        if not {"CheckpointRequested", "Evicted"} <= set(reasons) or \
+        placed = api.get_pod("repair-pod")
+        reasons = server.event_reasons("repair-pod")
+        if not {"CheckpointRequested", "Evicted"} <= reasons or \
                 not requests or requests[0].get("dir") != \
                 "ckpt/repair-pod" or CHECKPOINT_REQUEST_ANNOTATION in \
                 placed["metadata"].get("annotations", {}):
-            raise AssertionError(f"the repair's events {reasons}, "
+            raise AssertionError(f"the repair's events {sorted(reasons)}, "
                                  f"checkpoint requests {requests}")
         metrics_text = binary.get("/metrics")
         repaired = [float(line.split()[-1])
@@ -4369,7 +4315,7 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
             proc.wait()
             proc.stdout.close()
             err.close()
-        stub.close()
+        server.close()
         ext.close()
         shutil.rmtree(ckpt, ignore_errors=True)
     row = {"leg": "repair", "nodes": [node_a, node_b, node_c],
@@ -4393,13 +4339,16 @@ def _repair_leg(root: str, base_env: dict, tmp: str, backend: str,
 def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
     """``kgtpu-gpu-scheduler`` (the port's binary, a subprocess) places the
     node agent's pod on this card: the agent over NVML (``backend``) and
-    two binaries ``--leader-elect --lease-ttl 2 --wire stream`` against a
-    stub API server; the leader binds the agent's pod, a gang of one, with
+    two binaries ``--leader-elect --lease-ttl 2 --wire stream`` against
+    the port's API server in this process (`_PortAPIServer`); the leader
+    binds the agent's pod, a gang of one, with
     its gang contract, and the agent runs it through the CRI hook
     (train_demo, DEVICE_STEPS steps, 18 sm90 launches of each of K1-K3);
     the leader is killed and the standby takes the lease and binds a
-    second pod (placed only); a third binary ``--wire json`` binds a pod
-    over the long poll of a stub without the stream wire. Then the node
+    second pod (placed only), each binary's watch having subscribed over
+    the stream wire in turn; a third binary ``--wire json`` binds a pod
+    over the long poll of a port server without the stream wire. Then the
+    node
     lifecycle leg (`_lifecycle_leg`): a pod requeued off a killed node
     rebinds on another and trains there; and the repair leg
     (`_repair_leg`): a pod moved off a failed card by the repair
@@ -4421,19 +4370,20 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
         "CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "CUDA_DEVICE_ORDER",
         "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
     tmp = tempfile.mkdtemp(prefix="kgtpu-smoke-scheduler-")
-    stub = _StubAPIServer()
-    json_stub = _StubAPIServer(stream_wire=False)
+    server = _PortAPIServer()
+    api = server.api
+    json_server = None
     binaries: list = []
     agent = watchdog = None
     ttl = 2.0
     try:
         agent, cri, _, agent_err, watchdog = _start_agent(
-            root, base_env, stub, tmp, backend)
-        _wait_for(lambda: codec.NODE_ANNOTATION_KEY in (
-            stub.face.get_node(NODE)["metadata"].get("annotations") or {})
-            if NODE in stub.nodes else None, 60, "the agent's advertise")
+            root, base_env, server, tmp, backend)
+        _wait_for(lambda: codec.NODE_ANNOTATION_KEY in
+                  server.node_annotations(NODE), 60, "the agent's advertise")
+        subs = {"agent": server.log.stream_subscriber_count()}
         # two candidates for one lease, over the stream wire
-        binaries = [_SchedulerBinary(root, base_env, tmp, stub.url,
+        binaries = [_SchedulerBinary(root, base_env, tmp, server.url,
                                      "--leader-elect", "--lease-ttl",
                                      str(ttl), "--wire", "stream")
                     for _ in range(2)]
@@ -4444,9 +4394,13 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
         # the agent's pod, a gang of one: the leader binds it
         gid = _free_gang_id()
         stream_ms = _create_to_bound_ms(
-            stub, _gpu_pod("sched-pod", 1, gang=gid, size=1), 30,
+            server, _gpu_pod("sched-pod", 1, gang=gid, size=1), 30,
             "the leader's bind")
-        placed = stub.face.get_pod("sched-pod")
+        # the leader's watch is subscribed; the standby builds its engine,
+        # and subscribes, only once it leads
+        subs["leader"] = server.log.stream_subscriber_count()
+        leader_moved = _transport_bytes(leader.healthz)
+        placed = api.get_pod("sched-pod")
         contract = json.loads(placed["metadata"].get("annotations", {}).get(
             GANG_PROCESS_ANNOTATION) or "{}")
         want = {"gang": gid, "rank": 0, "count": 1, "coordinator_node": NODE,
@@ -4477,35 +4431,52 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
             pod_s, out, counted = _run_training_pod(
                 cri, "sched-pod", {"devices": [], "envs": []})
         # the pod is done: its card goes back, and the leader dies
-        stub.face.delete_pod("sched-pod")
+        api.delete_pod("sched-pod")
         t = time.perf_counter()
         leader.stop(signal.SIGKILL)
-        stub.face.create_pod(_gpu_pod("failover-pod", 1))
-        _wait_for(lambda: _bound_to(stub, "failover-pod"), 4 * ttl,
+        api.create_pod(_gpu_pod("failover-pod", 1))
+        _wait_for(lambda: server.bound_to("failover-pod"), 4 * ttl,
                   "the standby's bind")
         failover_s = time.perf_counter() - t
         if not standby.said("became leader") or failover_s > 3 * ttl:
             raise AssertionError(f"failover took {failover_s} s")
-        if stub.count("faults") or stub.count("upgrades_refused") or \
-                stub.count("subscriptions") < 2 or \
-                stub.count("frames_served") == 0:
+        # the killed leader's subscription is gone, the new leader's live
+        _wait_for(lambda: server.log.stream_subscriber_count() ==
+                  subs["agent"] + 1, 10, "the new leader's subscription")
+        subs["standby"] = server.log.stream_subscriber_count()
+        standby_moved = _transport_bytes(standby.healthz)
+        pushed = server.log.stream_encodes
+        if server.log.stream_poisoned or server.log.upgrades_refused or \
+                subs["leader"] != subs["agent"] + 1 or \
+                not pushed or any(
+                    not moved.get(("stream", "rx")) or
+                    any(w != "stream" for w, _ in moved)
+                    for moved in (leader_moved, standby_moved)):
             raise AssertionError(
-                f"stream wire: {stub.count('faults')} faults, "
-                f"{stub.count('upgrades_refused')} refusals, "
-                f"{stub.count('subscriptions')} subscriptions")
+                f"stream wire: {server.log.stream_poisoned} connections "
+                f"poisoned, {server.log.upgrades_refused} refusals, "
+                f"subscribers {subs}, {pushed} batches pushed, the "
+                f"binaries moved {leader_moved} and {standby_moved}")
         if standby.stop() != 0:
             raise AssertionError(f"the standby exited {standby.proc.returncode}"
                                  f": {standby.stderr()}")
-        # the JSON wire: a binary against a stub without the stream wire
-        json_stub.face.add_node(_gpu_node(NODE, build_backend(backend)))
-        solo = _SchedulerBinary(root, base_env, tmp, json_stub.url,
+        # the JSON wire: a binary against a server without the stream wire,
+        # which sees the pod through its long poll alone
+        json_server = _PortAPIServer(stream_wire=False)
+        json_server.api.create_node(_gpu_node(NODE, build_backend(backend)))
+        solo = _SchedulerBinary(root, base_env, tmp, json_server.url,
                                 "--wire", "json")
         binaries.append(solo)
-        json_ms = _create_to_bound_ms(json_stub, _gpu_pod("json-pod", 1), 30,
-                                      "the JSON binary's bind")
-        if json_stub.count("polls") < 1 or json_stub.count("frames_served") \
-                or json_stub.count("upgrades_refused"):
-            raise AssertionError("the JSON binary did not long-poll")
+        json_ms = _create_to_bound_ms(json_server, _gpu_pod("json-pod", 1),
+                                      30, "the JSON binary's bind")
+        solo_moved = _transport_bytes(solo.healthz)
+        if not solo_moved.get(("json", "rx")) or \
+                any(w != "json" for w, _ in solo_moved) or \
+                json_server.log.stream_subscriber_count() or \
+                json_server.log.stream_encodes or \
+                json_server.log.upgrades_refused:
+            raise AssertionError(f"the JSON binary did not long-poll: it "
+                                 f"moved {solo_moved}")
         if solo.stop() != 0:
             raise AssertionError(f"the JSON binary exited "
                                  f"{solo.proc.returncode}: {solo.stderr()}")
@@ -4525,13 +4496,16 @@ def scheduler_binary_phase(backend: str = "nvml", train: bool = True) -> dict:
                 agent.wait()
             agent.stdout.close()
             agent_err.close()
-        stub.close()
-        json_stub.close()
+        server.close()
+        if json_server is not None:
+            json_server.close()
     row = {"phase": "scheduler_binary", "nvidia_smi": smi_line(),
-           "note": "host times on the card's machine: create is the stub's "
-                   "write, bound the binary's bind landing in the stub",
+           "note": "host times on the card's machine: create is the "
+                   "server's write, bound the binary's bind landing in "
+                   "the server's store",
            "create_to_bound_ms": {"stream": stream_ms, "json": json_ms},
            "failover_s": failover_s, "lease_ttl_s": ttl,
+           "stream_subscribers": subs, "stream_batches_pushed": pushed,
            "leader_lease_transitions": transitions,
            "debug_pod_spans": len(spans), "contract": contract,
            "allocate_from": alloc, "pod_s": pod_s,

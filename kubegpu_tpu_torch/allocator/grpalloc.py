@@ -1,8 +1,10 @@
 """Hierarchical group allocation: the scheduling heart.
 
-The port's copy of the Python path of ``kubegpu_tpu/allocator/grpalloc.py``
-(the JAX package also dispatches to a native core, which the port leaves
-out). It re-implements the reference's backtracking group allocator
+The port's copy of ``kubegpu_tpu/allocator/grpalloc.py``: every search
+goes to the native core (``native/grpalloc.cpp``, through the port's own
+``native.py``), and the Python search below stays as its plain version,
+which the tests hold it against. It re-implements the reference's
+backtracking group allocator
 (`device-scheduler/grpalloc/grpallocate.go`) with identical observable
 semantics:
 
@@ -36,6 +38,7 @@ from __future__ import annotations
 import functools
 import re
 
+from kubegpu_tpu_torch import metrics, native
 from kubegpu_tpu_torch.allocator import scorers
 from kubegpu_tpu_torch.allocator.translate import InsufficientResourceError
 from kubegpu_tpu_torch.core import grammar
@@ -402,8 +405,19 @@ def pod_fits_group_constraints(
     ``node`` and ``pod`` are read and written by attribute alone, so the
     JAX control plane's own ``NodeInfo``/``PodInfo`` work here as the
     port's do.
+
+    The search runs in the native core. Only the two inputs its line
+    protocol cannot carry take the Python path, each counted in
+    ``allocator_native_fallbacks_total``: a token with whitespace and a
+    scorer that is neither leftover nor enum. A failed build, a native
+    error or a reply out of step with the request raises: unlike the JAX
+    package, the port never falls back on a fault.
     """
-    return _pod_fits_group_constraints_py(node, pod, allocating)
+    result = _native_pod_fits(node, pod, allocating)
+    if result is None:
+        metrics.NATIVE_FALLBACKS.inc()
+        return _pod_fits_group_constraints_py(node, pod, allocating)
+    return result
 
 
 def _pod_fits_group_constraints_py(
@@ -437,6 +451,116 @@ def _pod_fits_group_constraints_py(
             node_resource = grp.node_resource
 
     return found, fails, total_score
+
+
+# ---- native dispatch (`native/grpalloc.cpp`) --------------------------------
+
+# The line protocol is whitespace-delimited: a token with whitespace (pod
+# annotations are user-writable) would inject lines, so such inputs take
+# the Python path.
+_WS_RE = re.compile(r"\s")
+
+
+def _resolved_scorer_kind(res: str, scorer_type: int) -> int:
+    """Map a (resource, scorer enum) pair onto the native core's resolved
+    kinds: 0 leftover, 1 enum, -1 none/unresolvable."""
+    fn = scorers.scorer_for(res, scorer_type)
+    if fn is scorers.leftover_score:
+        return 0
+    if fn is scorers.enum_score:
+        return 1
+    return -1
+
+
+def _native_request(node: NodeInfo, pod: PodInfo):
+    """The core's request lines and the containers it searches, in the
+    order of its reply; None when an input cannot be carried."""
+    unsafe = _WS_RE.search
+    lines = []
+    for res in sorted_keys(node.allocatable):
+        if grammar.prechecked_resource(res):
+            continue
+        kind = _resolved_scorer_kind(
+            res, node.scorer.get(res, scorers.DEFAULT_SCORER))
+        if unsafe(res) or kind < 0:
+            return None
+        lines.append(f"A {res} {node.allocatable[res]} {kind}")
+    for res in sorted_keys(node.used):
+        if grammar.prechecked_resource(res):
+            continue
+        if unsafe(res):
+            return None
+        lines.append(f"U {res} {node.used[res]}")
+
+    searched = []
+    for phase_conts, is_init in ((pod.running_containers, False),
+                                 (pod.init_containers, True)):
+        for cont_name in sorted_keys(phase_conts):
+            cont = phase_conts[cont_name]
+            if unsafe(cont_name):
+                return None
+            required = {res: val for res, val in cont.dev_requests.items()
+                        if not grammar.prechecked_resource(res)}
+            rescore = bool(cont.allocate_from) or not required
+            lines.append(f"C {cont_name} {int(is_init)} {int(rescore)}")
+            if not rescore:
+                searched.append(cont)
+            for res in sorted_keys(required):
+                override = -1
+                if res in cont.scorer:
+                    override = _resolved_scorer_kind(res, cont.scorer[res])
+                if unsafe(res):
+                    return None
+                lines.append(f"R {res} {required[res]} {override}")
+            if rescore:
+                for req in sorted_keys(cont.allocate_from):
+                    alloc = cont.allocate_from[req]
+                    if unsafe(req) or unsafe(alloc):
+                        return None
+                    lines.append(f"F {req} {alloc}")
+    lines.append("E")
+    return "\n".join(lines) + "\n", searched
+
+
+def _native_pod_fits(node: NodeInfo, pod: PodInfo, allocating: bool):
+    """``(fits, reasons, score)`` from the native core, or None for an
+    input that its protocol cannot carry."""
+    request = _native_request(node, pod)
+    if request is None:
+        return None
+    payload, searched = request
+    reply = native.grp_allocate(payload)
+
+    fits, score = True, 0.0
+    reasons: list = []
+    # one C block per searched container, in request order: matched by
+    # position, not by name (a running and an init container may share
+    # a name)
+    placements: list = []
+    for line in reply.splitlines():
+        parts = line.split(" ")
+        if parts[0] == "FITS":
+            fits = parts[1] == "1"
+        elif parts[0] == "SCORE":
+            score = float(parts[1])
+        elif parts[0] == "C":
+            placements.append({})
+        elif parts[0] == "F" and placements:
+            placements[-1][parts[1]] = parts[2]
+        elif parts[0] == "REASON":
+            reasons.append(InsufficientResourceError(
+                parts[1], int(parts[2]), int(parts[3]), int(parts[4])))
+        else:
+            raise RuntimeError(f"grp_allocate: unexpected reply line "
+                               f"{line!r}")
+    if len(placements) != len(searched):
+        raise RuntimeError(
+            f"grp_allocate: {len(placements)} placements for "
+            f"{len(searched)} searched containers")
+    if allocating:
+        for cont, alloc_from in zip(searched, placements):
+            cont.allocate_from = alloc_from
+    return fits, reasons, score
 
 
 def pod_clear_allocate_from(pod: PodInfo) -> None:

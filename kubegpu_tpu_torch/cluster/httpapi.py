@@ -304,6 +304,11 @@ class _EventLog:
         self._pump_stop = False
         self.stream_encodes = 0   # batches encoded (once per window)
         self.stream_deliveries = 0  # frames offered across subscribers
+        # the transport's faults, counted by its handlers (note_fault):
+        # stream connections dropped on a torn or hostile frame, and
+        # upgrades answered with plain HTTP by a server without the wire
+        self.stream_poisoned = 0
+        self.upgrades_refused = 0
         # stream identity: WAL-backed logs keep theirs across restarts
         # (sequence continuity is real); a volatile log mints a fresh
         # one per life, so clients can detect a restart even when the
@@ -344,6 +349,14 @@ class _EventLog:
     def stream_subscriber_count(self) -> int:
         with self._lock:
             return len(self._subs)
+
+    def note_fault(self, kind: str) -> None:
+        """Count one transport fault: ``"poisoned"`` or ``"refused"``."""
+        with self._lock:
+            if kind == "poisoned":
+                self.stream_poisoned += 1
+            else:
+                self.upgrades_refused += 1
 
     # ---- a proxy's ingest (attach=False) ----------------------------------
 
@@ -1103,6 +1116,7 @@ def _serve_transport(dispatch, log: _EventLog, host: str = "127.0.0.1",
                 # hostile/torn frame: THIS connection is poisoned and
                 # dies; the server and every other connection carry on
                 slog.warning("stream connection poisoned: %s", e)
+                log.note_fault("poisoned")
             except (ConnectionError, OSError, ValueError):
                 # the peer vanished, or shutdown or a severed subscriber
                 # closed the socket (select refuses a closed one)
@@ -1113,10 +1127,12 @@ def _serve_transport(dispatch, log: _EventLog, host: str = "127.0.0.1",
                 self.close_connection = True
 
         def do_GET(self):
-            if self.path == stream.UPGRADE_PATH and stream_wire and \
+            if self.path == stream.UPGRADE_PATH and \
                     (self.headers.get("Upgrade") or "").lower() == \
                     stream.UPGRADE_TOKEN:
-                return self._serve_stream()
+                if stream_wire:
+                    return self._serve_stream()
+                log.note_fault("refused")
             self._route("GET")
 
         def do_POST(self):

@@ -253,6 +253,11 @@ SCHEDULE_ATTEMPTS = Counter("scheduler_schedule_attempts_total")
 SCHEDULE_FAILURES = Counter("scheduler_schedule_failures_total")
 PREEMPTION_VICTIMS = Counter("scheduler_preemption_victims_total")
 INTERNAL_ERRORS = Counter("scheduler_internal_errors_total")
+# Group-allocation searches that took the Python path
+# (allocator/grpalloc.py): only inputs the native core's line protocol
+# cannot carry go there, so a fleet whose searches never reach the core
+# shows here.
+NATIVE_FALLBACKS = Counter("allocator_native_fallbacks_total")
 FIT_CACHE_HITS = Counter("fit_cache_hits_total")
 FIT_CACHE_MISSES = Counter("fit_cache_misses_total")
 FIT_CACHE_INVALIDATIONS = Counter("fit_cache_invalidations_total")

@@ -148,7 +148,8 @@ class GenericScheduler:
         Executor.map dominated the (mostly GIL-serialized) per-node work
         — ~9.7k futures per preemption bench run, ~0.6 s of pure
         dispatch. One chunk per worker keeps the native-allocator calls
-        (which DO release the GIL) running concurrently.
+        (``native.grp_allocate``, a ctypes call, which DOES release the
+        GIL) running concurrently.
 
         The effective width adapts to the live item count each cycle:
         a 2-node cluster submits 2 chunks, so the (lazily-spawned) pool

@@ -30,6 +30,7 @@ from __future__ import annotations
 import re
 import threading
 
+from kubegpu_tpu_torch import native
 from kubegpu_tpu_torch.allocator import grpalloc
 from kubegpu_tpu_torch.allocator.translate import (InsufficientResourceError,
                                                    translate_resource)
@@ -186,6 +187,9 @@ class GPUScheduler:
 
     def __init__(self):
         self.shape_cache = ShapeCache()
+        # the allocator core is built and loaded here, before the first
+        # search, so the search path takes no lock
+        native.load_grpalloc()
 
     def uses_group_scheduler(self) -> bool:
         return True

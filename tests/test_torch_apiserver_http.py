@@ -220,6 +220,37 @@ def test_without_the_stream_wire_the_client_negotiates_down_to_json():
         server.shutdown()
 
 
+def test_the_server_counts_refused_upgrades_and_poisoned_connections():
+    """The event log's fault counts: one refused upgrade for each client
+    that negotiates down (its latch holds over later calls), and one
+    poisoned connection for each torn stream."""
+    plain, plain_url = httpapi.serve_api(apiserver.InMemoryAPIServer(),
+                                         stream_wire=False)
+    wired, wired_url = httpapi.serve_api(apiserver.InMemoryAPIServer())
+    clients = [httpapi.HTTPAPIClient(plain_url, wire="stream")
+               for _ in range(2)]
+    conn = stream.StreamConn.connect(wired_url, 5.0)
+    try:
+        for i, client in enumerate(clients):
+            for _ in range(3):
+                client.create_node({"metadata": {"name": f"n{i}-{_}"}})
+            assert plain.event_log.upgrades_refused == i + 1
+        assert plain.event_log.stream_poisoned == 0
+        conn._sock.sendall(b"\xde\xad\xbe\xef" * 8)
+        deadline = time.monotonic() + 10
+        while wired.event_log.stream_poisoned == 0 and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert wired.event_log.stream_poisoned == 1
+        assert wired.event_log.upgrades_refused == 0
+    finally:
+        conn.close()
+        for client in clients:
+            client.close()
+        plain.shutdown()
+        wired.shutdown()
+
+
 def _events(rng) -> list:
     out = []
     for seq in range(1, rng.randint(2, 40)):

@@ -5,9 +5,10 @@ table of tests/test_grpalloc.py (the reference's
 the 4+2 split across gpugrp1 groups.
 
 Each scenario runs through the JAX allocator's default path, its Python
-path (`_pod_fits_group_constraints_py`), the port's copy, and the port's
-copy over the JAX package's own NodeInfo/PodInfo (the objects the JAX
-control plane hands a plugin): equal fit, equal `allocate_from`, scores
+path (`_pod_fits_group_constraints_py`), the port's default path (its
+native core), the port's Python path, and the port's default path over
+the JAX package's own NodeInfo/PodInfo (the objects the JAX control plane
+hands a plugin): equal fit, equal `allocate_from`, scores
 within 1e-9, the same idempotent re-check, and take/return that drains
 `used` to zero in both packages."""
 
@@ -139,6 +140,8 @@ ROUTES = {
     "jax_default": (jtypes, jtranslate, jalloc.pod_fits_group_constraints, jalloc),
     "jax_python": (jtypes, jtranslate, jalloc._pod_fits_group_constraints_py, jalloc),
     "port": (ttypes, ttranslate, talloc.pod_fits_group_constraints, talloc),
+    "port_python": (ttypes, ttranslate,
+                    talloc._pod_fits_group_constraints_py, talloc),
     "port_on_jax_objects": (jtypes, jtranslate,
                             talloc.pod_fits_group_constraints, talloc),
 }
@@ -165,7 +168,8 @@ def _run(route, grpres, inits, runs):
     return out
 
 
-@pytest.mark.parametrize("route", ["jax_default", "port", "port_on_jax_objects"])
+@pytest.mark.parametrize("route", ["jax_default", "port", "port_python",
+                                   "port_on_jax_objects"])
 @pytest.mark.parametrize("scenario", sorted(SCENARIOS))
 def test_scenario_parity(scenario, route):
     ref = _run("jax_python", *SCENARIOS[scenario])
