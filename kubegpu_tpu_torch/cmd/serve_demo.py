@@ -187,6 +187,8 @@ def main(argv=None) -> int:
             stats["prefix_hits"] = srv.prefix_hits
             stats["prefix_misses"] = srv.prefix_misses
         if metrics.SERVE_TTFT_MS.n:
+            # from submit() to the end of the step() that returned the
+            # first token: what a caller waits for it
             stats["ttft_p50_ms"] = round(
                 metrics.SERVE_TTFT_MS.percentile(0.5), 3)
             stats["itl_p50_ms"] = round(

@@ -11,7 +11,8 @@ check)."""
 
 from kubegpu_tpu_torch.obs.trace import (RECORDER, TRACE_HEADER,  # noqa: F401
                                          Span, SpanRecorder, batch_context,
-                                         chrome_trace, current, event,
+                                         chrome_trace, current,
+                                         device_span, event,
                                          explain_pod, header_value,
                                          parent_for, record_span,
                                          remote_context, span, start_span,

@@ -25,6 +25,16 @@ the spine that stitches that life back together:
 Span timestamps are wall-clock so rows from different processes on one
 machine align in a merged view; durations are measured with
 ``perf_counter`` so a clock step cannot stretch a span.
+
+The workload's serving path has spans of a second kind
+(``device_span``): ``torch.profiler`` ranges named ``kgt.<layer>.<stage>``
+(``kgt.serve.admit``, ``kgt.model.attn``, ...). A decode chunk opens
+hundreds of them, which would flush the pods' spans out of the ring,
+and they belong on the clock of the device trace, beside the
+kernels they launch, where a profiler links each kernel to the ranges
+open when it was launched. With no profiler running, one opens nothing
+and costs a flag read; it never syncs, never records into ``RECORDER``
+and never allocates on the device.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ import os
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Any, Iterator, Optional
 
 log = logging.getLogger(__name__)
@@ -391,6 +401,26 @@ def remote_context(header: Optional[str]) -> Iterator[None]:
     finally:
         _CTX.batch = prev_batch
         _CTX.stack = prev_stack
+
+
+# ---- workload ranges on the device trace's clock ---------------------------
+
+_NO_SPAN = nullcontext()
+_profiler = None   # torch.autograd.profiler, bound on the first call
+
+
+def device_span(name: str):
+    """A ``torch.profiler`` range ``name`` (``kgt.<layer>.<stage>``)
+    around workload code while a profiler runs; otherwise one shared
+    no-op context, after reading only the profiler's enabled flag (a
+    ``record_function`` entered with no profiler running still costs
+    some microseconds, tens of times the flag's read)."""
+    global _profiler
+    if _profiler is None:
+        import torch.autograd.profiler as _profiler
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _profiler.record_function(name)
 
 
 # ---- export ----------------------------------------------------------------

@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from kubegpu_tpu_torch._device import resolve_device
+from kubegpu_tpu_torch.obs.trace import device_span
 from kubegpu_tpu_torch.workload import keys, spmd
 from kubegpu_tpu_torch.workload.model import (TransformerConfig, _ffn,
                                               _rmsnorm, _rope, gather_span,
@@ -128,7 +129,13 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
     does not divide the head counts, the rank gathers the new K/V (and,
     for ``n_heads``, Q) over ``model``, writes every kv head into its
     replicated cache block and attends the heads its columns overlap
-    (`model.span_attention`)."""
+    (`model.span_attention`).
+
+    While a profiler runs, each layer's cache write and attention (all
+    that reads the cache) are a ``kgt.model.attn`` range and its FFN a
+    ``kgt.model.ffn`` one, ``kgt.model.moe`` where the layer holds
+    experts (`obs.trace.device_span`); the projections, norms and head
+    lie outside them."""
     if mesh is not None:
         spmd.check_mesh(mesh)
         spmd.check_tp(cfg, spmd.axis_size(mesh, spmd.AXIS_MODEL))
@@ -202,17 +209,23 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
                 q, k, v = gather_span(cfg, mesh, q, k, v)
             q = _rope(q, positions, cfg.rope_theta)
             k = _rope(k, positions, cfg.rope_theta)
-            write(kv["k"], k.to(dt))
-            write(kv["v"], v.to(dt))
-            ck, cv = kv["k"].float(), kv["v"].float()
-            if whole:
-                attn = attend(q, ck, cv).reshape(b, t, -1)
-            else:
-                attn = span_attention(cfg, q, ck, cv, tp, tp_rank, attend)
+            with device_span("kgt.model.attn"):     # all that reads the cache
+                write(kv["k"], k.to(dt))
+                write(kv["v"], v.to(dt))
+                ck, cv = kv["k"].float(), kv["v"].float()
+                if whole:
+                    attn = attend(q, ck, cv).reshape(b, t, -1)
+                else:
+                    attn = span_attention(cfg, q, ck, cv, tp, tp_rank,
+                                          attend)
             x = x + spmd.reduce_from(
                 mesh, attn.to(dt) @ layer["wo"].to(dt))
 
-            x = x + _ffn(layer, _rmsnorm(x, layer["ln2"]), dt, cfg, mesh)[0]
+            h = _rmsnorm(x, layer["ln2"])
+            with device_span("kgt.model.moe" if "moe" in layer
+                             else "kgt.model.ffn"):
+                h = _ffn(layer, h, dt, cfg, mesh)[0]
+            x = x + h
 
         x = spmd.copy_to(mesh, _rmsnorm(x, params["final_norm"]))
         logits = spmd.gather_last(mesh, x @ params["unembed"].to(dt))

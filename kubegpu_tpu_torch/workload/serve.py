@@ -36,6 +36,11 @@ token, greedy-exact and distribution-exact under sampling
 ``spec_rounds`` rounds (propose, verify, accept, commit and freezing) run
 as one Python loop of tensor operations with one readback.
 
+While a profiler runs, the server's stages (admission, decode, commit)
+and each layer's attention and FFN are ``kgt.*`` profiler ranges
+(`obs.trace.device_span`); ``timeline(rid)`` gives a request's submit,
+admission and first-token times on the host's ``perf_counter`` clock.
+
 ``prefix_cache_size > 0`` keeps the K/V of served prompts and of their
 bucket-aligned prefixes (LRU, that many entries); a request whose prompt
 extends a stored one copies the stored rows in and prefills only the
@@ -65,6 +70,7 @@ import numpy as np
 import torch
 
 from kubegpu_tpu_torch import metrics
+from kubegpu_tpu_torch.obs.trace import device_span
 from kubegpu_tpu_torch.workload import keys, spmd
 from kubegpu_tpu_torch.workload.decode import (_pick_rows,
                                                _select_token_rows,
@@ -85,6 +91,8 @@ class _Request:
     out: list = field(default_factory=list)
     done: bool = False
     t_submit: float = 0.0
+    t_admit: float | None = None     # `_admit` began
+    t_first: float | None = None     # the first token reached the host
 
 
 def _bucket_for(n: int, buckets: tuple) -> int:
@@ -227,15 +235,28 @@ class DecodeServer:
     def result(self, rid: int) -> list | None:
         """Tokens of a finished request (None while in flight). Reading a
         finished result EVICTS it; re-reading a consumed rid raises."""
+        req = self._request(rid)
+        if not req.done:
+            return None
+        del self._requests[rid]
+        return list(req.out)
+
+    def timeline(self, rid: int) -> dict:
+        """When request ``rid`` was submitted, its admission began and its
+        first token reached the host (``time.perf_counter()`` seconds;
+        None for a stage not reached yet). Readable until `result` evicts
+        the request; raises as `result` does after that."""
+        req = self._request(rid)
+        return {"submit": req.t_submit, "admit": req.t_admit,
+                "first": req.t_first}
+
+    def _request(self, rid: int) -> _Request:
         req = self._requests.get(rid)
         if req is None:
             raise KeyError(
                 f"unknown request id {rid} (never submitted, or its "
                 "result was already read)")
-        if not req.done:
-            return None
-        del self._requests[rid]
-        return list(req.out)
+        return req
 
     @property
     def pending(self) -> int:
@@ -251,44 +272,63 @@ class DecodeServer:
         """Admit what fits, then decode for every active slot: one fused
         chunk (or ``spec_rounds`` speculative rounds), or a single token
         (one round) on the oracle path (``KGTPU_FUSED_SERVE=0``). Returns
-        the number of slots stepped."""
+        the number of slots stepped.
+
+        A caller sees a token when the step that produced it returns, so
+        ``SERVE_TTFT_MS`` observes each request admitted here then, from
+        its ``submit()``. While a profiler runs, each admission is a
+        ``kgt.serve.admit`` range, the decode's upload, dispatch and
+        readback a ``kgt.serve.decode`` one and the host's per-slot
+        bookkeeping after it a ``kgt.serve.commit`` one."""
+        admitted = []
         while self._free and self._queue:
-            self._admit(self._free.pop(0), self._queue.pop(0))
+            req = self._queue.pop(0)
+            self._admit(self._free.pop(0), req)
+            admitted.append(req)
         metrics.SERVE_QUEUE_DEPTH.set(len(self._queue))
         active = [s for s in range(self.slots)
                   if self.slot_req[s] is not None]
         metrics.SERVE_SLOT_UTILIZATION.set(len(active) / self.slots)
         if not active:
-            return 0
-        if self.spec:
-            return self._spec_fused_step(active) if self.fused \
+            stepped = 0
+        elif self.spec:
+            stepped = self._spec_fused_step(active) if self.fused \
                 else self._spec_step(active)
-        if self.fused:
-            return self._fused_step(active)
-        t0 = time.perf_counter()
-        # one upload per step: tok, pos and the keys ride one [3, S]
-        # transfer
-        up = self._local(self._upload(self.tok, self.pos, self.slot_key))
-        logits, self.cache = self._fstep(self.params, self.cache,
-                                         up[0][:, None], up[1])
-        rkeys = keys.fold(up[2], up[1]) if self.sampling else None
-        nxt = _select_token_rows(logits[:, -1, :], rkeys, self.temperature,
-                                 self.top_k, self.top_p)
-        # host-sync: allowed -- one batched [S] readback per step (every
-        # rank's rows): the token is the product here
-        nxt = gather_rows(self.mesh, nxt).cpu().numpy()
-        itl_ms = (time.perf_counter() - t0) * 1e3
-        for s in active:
-            req = self.slot_req[s]
-            tok = int(nxt[s])
-            req.out.append(tok)
-            self.tok[s] = tok
-            self.pos[s] += 1
-            metrics.SERVE_ITL_MS.observe(itl_ms)
-            if (self.eos_id is not None and tok == self.eos_id) or \
-                    len(req.out) >= req.max_new:
-                self._finish(s)
-        return len(active)
+        elif self.fused:
+            stepped = self._fused_step(active)
+        else:
+            with device_span("kgt.serve.decode"):
+                t0 = time.perf_counter()
+                # one upload per step: tok, pos and the keys ride one
+                # [3, S] transfer
+                up = self._local(self._upload(self.tok, self.pos,
+                                              self.slot_key))
+                logits, self.cache = self._fstep(self.params, self.cache,
+                                                 up[0][:, None], up[1])
+                rkeys = keys.fold(up[2], up[1]) if self.sampling else None
+                nxt = _select_token_rows(logits[:, -1, :], rkeys,
+                                         self.temperature, self.top_k,
+                                         self.top_p)
+                # host-sync: allowed -- one batched [S] readback per step
+                # (every rank's rows): the token is the product here
+                nxt = gather_rows(self.mesh, nxt).cpu().numpy()
+                itl_ms = (time.perf_counter() - t0) * 1e3
+            with device_span("kgt.serve.commit"):
+                for s in active:
+                    req = self.slot_req[s]
+                    tok = int(nxt[s])
+                    req.out.append(tok)
+                    self.tok[s] = tok
+                    self.pos[s] += 1
+                    metrics.SERVE_ITL_MS.observe(itl_ms)
+                    if (self.eos_id is not None and tok == self.eos_id) \
+                            or len(req.out) >= req.max_new:
+                        self._finish(s)
+            stepped = len(active)
+        t = time.perf_counter()
+        for req in admitted:
+            metrics.SERVE_TTFT_MS.observe((t - req.t_submit) * 1e3)
+        return stepped
 
     def run(self, max_steps: int = 10_000) -> None:
         """Drive until every submitted request finishes."""
@@ -322,31 +362,34 @@ class DecodeServer:
     def _fused_step(self, active: list) -> int:
         """One fused decode chunk for the whole batch, one batched
         readback at the chunk boundary."""
-        t0 = time.perf_counter()
-        budget, amask = self._budget_mask(active)
-        up = self._upload(self.tok, self.pos, budget, self.slot_key)
-        amask_t = torch.from_numpy(amask).to(self.device)
-        self.cache, toks, n_emit, tok_n, pos_n, _ = self._chunk_step(
-            self.params, self.cache, up[0], up[1], amask_t, up[2], up[3])
-        # host-sync: allowed -- one readback per chunk: emitted tokens,
-        # counts and carry state
-        got = torch.cat([toks, n_emit[:, None], tok_n[:, None],
-                         pos_n[:, None]], dim=1).cpu().numpy()
-        toks, n_emit = got[:, :self.chunk], got[:, self.chunk]
-        tok_n, pos_n = got[:, self.chunk + 1], got[:, self.chunk + 2]
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        for s in active:
-            req = self.slot_req[s]
-            new = [int(x) for x in toks[s, :int(n_emit[s])]]
-            req.out.extend(new)
-            self.tok[s] = int(tok_n[s])
-            self.pos[s] = int(pos_n[s])
-            if new:
-                metrics.SERVE_ITL_MS.observe(wall_ms / len(new))
-            if (self.eos_id is not None and new
-                    and new[-1] == self.eos_id) or \
-                    len(req.out) >= req.max_new:
-                self._finish(s)
+        with device_span("kgt.serve.decode"):
+            t0 = time.perf_counter()
+            budget, amask = self._budget_mask(active)
+            up = self._upload(self.tok, self.pos, budget, self.slot_key)
+            amask_t = torch.from_numpy(amask).to(self.device)
+            self.cache, toks, n_emit, tok_n, pos_n, _ = self._chunk_step(
+                self.params, self.cache, up[0], up[1], amask_t, up[2],
+                up[3])
+            # host-sync: allowed -- one readback per chunk: emitted tokens,
+            # counts and carry state
+            got = torch.cat([toks, n_emit[:, None], tok_n[:, None],
+                             pos_n[:, None]], dim=1).cpu().numpy()
+            toks, n_emit = got[:, :self.chunk], got[:, self.chunk]
+            tok_n, pos_n = got[:, self.chunk + 1], got[:, self.chunk + 2]
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        with device_span("kgt.serve.commit"):
+            for s in active:
+                req = self.slot_req[s]
+                new = [int(x) for x in toks[s, :int(n_emit[s])]]
+                req.out.extend(new)
+                self.tok[s] = int(tok_n[s])
+                self.pos[s] = int(pos_n[s])
+                if new:
+                    metrics.SERVE_ITL_MS.observe(wall_ms / len(new))
+                if (self.eos_id is not None and new
+                        and new[-1] == self.eos_id) or \
+                        len(req.out) >= req.max_new:
+                    self._finish(s)
         return len(active)
 
     # -- speculative rounds: device-side pieces -------------------------------
@@ -460,75 +503,81 @@ class DecodeServer:
         """``spec_rounds`` speculative rounds for the whole batch, one
         batched readback of every slot's emissions, carry state and
         acceptance tallies."""
-        t0 = time.perf_counter()
-        budget, amask = self._budget_mask(active)
-        up = self._local(self._upload(self.prev, self.tok, self.pos, budget,
-                                      self.slot_key))
-        amask_t = self._local(torch.from_numpy(amask).to(self.device))
-        buf, n_tot, *state = self._spec_rounds(up[0], up[1], up[2], amask_t,
-                                               up[3], up[4])
-        # host-sync: allowed -- one readback per dispatch of rounds, of
-        # every rank's rows, so the tallies and commits agree everywhere
-        got = gather_rows(self.mesh, torch.cat(
-            [buf] + [x.long()[:, None] for x in [n_tot, *state]],
-            1)).cpu().numpy()
-        w = buf.shape[1]
-        buf, (n_tot, prev_n, tok_n, pos_n, act_n, acc_n, acc_d) = \
-            got[:, :w], got[:, w:].T
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        self.spec_accepted += int(acc_n.sum())
-        self.spec_proposed += int(acc_d.sum())
-        for s in active:
-            req = self.slot_req[s]
-            new = [int(x) for x in buf[s, :int(n_tot[s])]]
-            req.out.extend(new)
-            if new:
-                metrics.SERVE_ITL_MS.observe(wall_ms / len(new))
-            if not act_n[s]:
-                self._finish(s)
-            else:
-                self.prev[s] = int(prev_n[s])
-                self.tok[s] = int(tok_n[s])
-                self.pos[s] = int(pos_n[s])
+        with device_span("kgt.serve.decode"):
+            t0 = time.perf_counter()
+            budget, amask = self._budget_mask(active)
+            up = self._local(self._upload(self.prev, self.tok, self.pos,
+                                          budget, self.slot_key))
+            amask_t = self._local(torch.from_numpy(amask).to(self.device))
+            buf, n_tot, *state = self._spec_rounds(up[0], up[1], up[2],
+                                                   amask_t, up[3], up[4])
+            # host-sync: allowed -- one readback per dispatch of rounds, of
+            # every rank's rows, so the tallies and commits agree
+            # everywhere
+            got = gather_rows(self.mesh, torch.cat(
+                [buf] + [x.long()[:, None] for x in [n_tot, *state]],
+                1)).cpu().numpy()
+            w = buf.shape[1]
+            buf, (n_tot, prev_n, tok_n, pos_n, act_n, acc_n, acc_d) = \
+                got[:, :w], got[:, w:].T
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        with device_span("kgt.serve.commit"):
+            self.spec_accepted += int(acc_n.sum())
+            self.spec_proposed += int(acc_d.sum())
+            for s in active:
+                req = self.slot_req[s]
+                new = [int(x) for x in buf[s, :int(n_tot[s])]]
+                req.out.extend(new)
+                if new:
+                    metrics.SERVE_ITL_MS.observe(wall_ms / len(new))
+                if not act_n[s]:
+                    self._finish(s)
+                else:
+                    self.prev[s] = int(prev_n[s])
+                    self.tok[s] = int(tok_n[s])
+                    self.pos[s] = int(pos_n[s])
         return len(active)
 
     def _spec_step(self, active: list) -> int:
         """One speculative round for the whole batch on the oracle path:
         ``k`` proposals a slot, one batched verify, per-slot acceptance,
         the commit on the host."""
-        t0 = time.perf_counter()
-        up = self._local(self._upload(self.prev, self.tok, self.pos,
-                                      self.slot_key))
-        drafts, q_rows = self._spec_propose(up[0], up[1], up[2], up[3])
-        chunk = torch.cat([up[1][:, None], drafts], 1)
-        n_acc, extra = self._spec_verify(chunk, up[2], up[3], q_rows)
-        # host-sync: allowed -- one batched readback per round, of every
-        # rank's rows
-        got = gather_rows(self.mesh, torch.cat(
-            [n_acc[:, None], extra[:, None], chunk], 1)).cpu().numpy()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        for s in active:
-            req = self.slot_req[s]
-            n, chunk_s = int(got[s, 0]), got[s, 2:]
-            self.spec_accepted += n
-            self.spec_proposed += self.k
-            # the round's tokens: n accepted drafts + correction/bonus
-            emitted = []
-            for t in [int(x) for x in chunk_s[1:n + 1]] + [int(got[s, 1])]:
-                emitted.append(t)
-                if (self.eos_id is not None and t == self.eos_id) or \
-                        len(req.out) + len(emitted) >= req.max_new:
-                    break
-            req.out.extend(emitted)
-            metrics.SERVE_ITL_MS.observe(wall_ms / len(emitted))
-            if (self.eos_id is not None and self.eos_id in emitted) or \
-                    len(req.out) >= req.max_new:
-                self._finish(s)
-            else:
-                # a full round: advance exactly n + 1 positions
-                self.pos[s] += n + 1
-                self.prev[s] = int(chunk_s[n])
-                self.tok[s] = emitted[-1]
+        with device_span("kgt.serve.decode"):
+            t0 = time.perf_counter()
+            up = self._local(self._upload(self.prev, self.tok, self.pos,
+                                          self.slot_key))
+            drafts, q_rows = self._spec_propose(up[0], up[1], up[2], up[3])
+            chunk = torch.cat([up[1][:, None], drafts], 1)
+            n_acc, extra = self._spec_verify(chunk, up[2], up[3], q_rows)
+            # host-sync: allowed -- one batched readback per round, of
+            # every rank's rows
+            got = gather_rows(self.mesh, torch.cat(
+                [n_acc[:, None], extra[:, None], chunk], 1)).cpu().numpy()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        with device_span("kgt.serve.commit"):
+            for s in active:
+                req = self.slot_req[s]
+                n, chunk_s = int(got[s, 0]), got[s, 2:]
+                self.spec_accepted += n
+                self.spec_proposed += self.k
+                # the round's tokens: n accepted drafts + correction/bonus
+                emitted = []
+                for t in [int(x) for x in chunk_s[1:n + 1]] + \
+                        [int(got[s, 1])]:
+                    emitted.append(t)
+                    if (self.eos_id is not None and t == self.eos_id) or \
+                            len(req.out) + len(emitted) >= req.max_new:
+                        break
+                req.out.extend(emitted)
+                metrics.SERVE_ITL_MS.observe(wall_ms / len(emitted))
+                if (self.eos_id is not None and self.eos_id in emitted) \
+                        or len(req.out) >= req.max_new:
+                    self._finish(s)
+                else:
+                    # a full round: advance exactly n + 1 positions
+                    self.pos[s] += n + 1
+                    self.prev[s] = int(chunk_s[n])
+                    self.tok[s] = emitted[-1]
         return len(active)
 
     # -- admission and the prefix cache ---------------------------------------
@@ -596,66 +645,68 @@ class DecodeServer:
         through a fresh one-row cache copied into the slot's rows, or, on
         a prefix hit, the stored prefix copied in and the remainder run at
         position ``plen``."""
-        n = len(req.prompt)
-        bucket = _bucket_for(n, self.buckets)
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :n] = req.prompt
-        hit = self._prefix_lookup(req.prompt) if self.prefix_cache_size \
-            else None
-        if hit is not None:
-            pkey, stored = hit
-            plen = len(pkey)
-            rem = req.prompt[plen:]
-            rb = _bucket_for(len(rem), self.buckets)
-            if plen + rb > self.max_seq:
-                # the padded remainder would write past the cache end:
-                # full prefill instead
-                hit = None
-        # the request's key root: every selection of this request, on
-        # every path, folds its position into this key
-        req_key = keys.fold_int(self.rng, req.rid)
-        if hit is not None:
-            row = self._row_cache(self.cfg, self.max_seq)
-            for rw, st in zip(row, stored):
-                for kv in ("k", "v"):
-                    rw[kv][:, :st[kv].shape[1]] = st[kv]
-            rem_padded = np.zeros((1, rb), np.int64)
-            rem_padded[0, :len(rem)] = rem
-            logits, row = self._fstep(self.params, row,
-                                      torch.from_numpy(rem_padded), plen)
-            self._install(self.cache, row, slot, self.max_seq)
-            first_t = self._first_token(logits, len(rem) - 1, n - 1, req_key)
-            self.prefix_hits += 1
-        else:
-            row = self._row_cache(self.cfg, bucket)
-            logits, row = self._fstep(self.params, row,
-                                      torch.from_numpy(padded), 0)
-            self._install(self.cache, row, slot, bucket)
-            first_t = self._first_token(logits, n - 1, n - 1, req_key)
+        req.t_admit = time.perf_counter()
+        with device_span("kgt.serve.admit"):
+            n = len(req.prompt)
+            bucket = _bucket_for(n, self.buckets)
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :n] = req.prompt
+            hit = self._prefix_lookup(req.prompt) if self.prefix_cache_size \
+                else None
+            if hit is not None:
+                pkey, stored = hit
+                plen = len(pkey)
+                rem = req.prompt[plen:]
+                rb = _bucket_for(len(rem), self.buckets)
+                if plen + rb > self.max_seq:
+                    # the padded remainder would write past the cache end:
+                    # full prefill instead
+                    hit = None
+            # the request's key root: every selection of this request, on
+            # every path, folds its position into this key
+            req_key = keys.fold_int(self.rng, req.rid)
+            if hit is not None:
+                row = self._row_cache(self.cfg, self.max_seq)
+                for rw, st in zip(row, stored):
+                    for kv in ("k", "v"):
+                        rw[kv][:, :st[kv].shape[1]] = st[kv]
+                rem_padded = np.zeros((1, rb), np.int64)
+                rem_padded[0, :len(rem)] = rem
+                logits, row = self._fstep(self.params, row,
+                                          torch.from_numpy(rem_padded), plen)
+                self._install(self.cache, row, slot, self.max_seq)
+                first_t = self._first_token(logits, len(rem) - 1, n - 1,
+                                            req_key)
+                self.prefix_hits += 1
+            else:
+                row = self._row_cache(self.cfg, bucket)
+                logits, row = self._fstep(self.params, row,
+                                          torch.from_numpy(padded), 0)
+                self._install(self.cache, row, slot, bucket)
+                first_t = self._first_token(logits, n - 1, n - 1, req_key)
+                if self.prefix_cache_size:
+                    self.prefix_misses += 1
             if self.prefix_cache_size:
-                self.prefix_misses += 1
-        if self.prefix_cache_size:
-            self._prefix_store(req.prompt, row)
-        if self.spec:
-            small = self._row_cache(self.draft_cfg, bucket)
-            _, small = self._dstep(self.draft_params, small,
-                                   torch.from_numpy(padded), 0)
-            self._install(self.dcache, small, slot, bucket)
-            self.prev[slot] = req.prompt[-1]        # draft catch-up anchor
-        # host-sync: allowed -- one scalar readback per admitted request:
-        # the host needs the first token for EOS and the output (from
-        # logits gathered over model, the same on every rank)
-        first = int(first_t)
-        metrics.SERVE_TTFT_MS.observe(
-            (time.perf_counter() - req.t_submit) * 1e3)
-        req.out.append(first)
-        self.slot_req[slot] = req
-        self.tok[slot] = first
-        self.pos[slot] = n
-        self.slot_key[slot] = req_key
-        if (self.eos_id is not None and first == self.eos_id) or \
-                len(req.out) >= req.max_new:
-            self._finish(slot)
+                self._prefix_store(req.prompt, row)
+            if self.spec:
+                small = self._row_cache(self.draft_cfg, bucket)
+                _, small = self._dstep(self.draft_params, small,
+                                       torch.from_numpy(padded), 0)
+                self._install(self.dcache, small, slot, bucket)
+                self.prev[slot] = req.prompt[-1]        # draft catch-up anchor
+            # host-sync: allowed -- one scalar readback per admitted request:
+            # the host needs the first token for EOS and the output (from
+            # logits gathered over model, the same on every rank)
+            first = int(first_t)
+            req.t_first = time.perf_counter()
+            req.out.append(first)
+            self.slot_req[slot] = req
+            self.tok[slot] = first
+            self.pos[slot] = n
+            self.slot_key[slot] = req_key
+            if (self.eos_id is not None and first == self.eos_id) or \
+                    len(req.out) >= req.max_new:
+                self._finish(slot)
 
     def _finish(self, slot: int) -> None:
         req = self.slot_req[slot]

@@ -11,8 +11,10 @@ under ``torch.profiler`` (CPU and CUDA activities):
 - ``forward``: three full-width forward passes on tokens [4, 1024]
   (attention through the flash kernel);
 - ``serve``: one drain of the benchmark's traffic through the fused
-  ``DecodeServer`` (after a warm-up drain), with the admit prefills and the
-  decode chunks (or speculative rounds) labelled; ``--temperature`` > 0
+  ``DecodeServer`` (after a warm-up drain), labelled by the program's own
+  ranges (``kgt.serve.admit``, ``kgt.serve.decode``, ``kgt.serve.commit``
+  and, inside them, ``kgt.model.attn`` and ``kgt.model.ffn``/``moe``:
+  `kubegpu_tpu_torch.obs.trace.device_span`); ``--temperature`` > 0
   samples with chip_smoke's top-k and top-p, ``--spec`` decodes
   speculatively with chip_smoke's 1-layer draft (``DRAFT_MODEL``,
   lookahead 4, 4 rounds a dispatch);
@@ -52,7 +54,16 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the program's ranges on the serving path, outermost first
+SERVE_LABELS = ("kgt.serve.admit", "kgt.serve.decode", "kgt.serve.commit",
+                "kgt.model.attn", "kgt.model.ffn", "kgt.model.moe")
+
+
 def _summary(prof, wall_s: float, name: str, labels=()) -> dict:
+    """``labels`` are host ranges: each one's calls, host time and the
+    device time of the kernels launched inside it, at any depth (a
+    kernel under ``kgt.serve.admit`` and ``kgt.model.attn`` counts for
+    both)."""
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
@@ -71,15 +82,15 @@ def _summary(prof, wall_s: float, name: str, labels=()) -> dict:
                and not e.key.startswith("Optimizer.")]
     total_us = sum(dev_us(e) for e in kernels)
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    by_label = {}
-    for lab in labels:
-        hit = [e for e in events if e.key == lab]
-        by_label[lab] = {
-            "calls": sum(e.count for e in hit),
-            "host_ms": sum(e.cpu_time_total for e in hit) / 1e3,
-            "device_ms": sum(getattr(e, "device_time_total",
-                                     getattr(e, "cuda_time_total", 0.0))
-                             for e in hit) / 1e3}
+    by_label = {lab: {"calls": 0, "host_ms": 0.0, "device_ms": 0.0}
+                for lab in labels}
+    for e in prof.events():
+        row = by_label.get(e.name)
+        if row is None or e.device_type != DeviceType.CPU:
+            continue        # the range's mirror on the device's line
+        row["calls"] += 1
+        row["host_ms"] += e.cpu_time_total / 1e3
+        row["device_ms"] += e.device_time_total / 1e3
     return {"phase": name, "wall_ms": wall_s * 1e3,
             "device_kernel_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e3 / (wall_s * 1e3),
@@ -185,7 +196,7 @@ def _forward(cfg, params, dev, acts, out) -> None:
 
 def _serve(cfg, params, acts, temperature: float, spec: bool) -> None:
     import torch
-    from torch.profiler import profile, record_function
+    from torch.profiler import profile
 
     import chip_smoke as cs
     from kubegpu_tpu_torch.workload.model import (TransformerConfig,
@@ -203,21 +214,8 @@ def _serve(cfg, params, acts, temperature: float, spec: bool) -> None:
                       torch.Generator(device=params["embed"].device)
                       .manual_seed(1), dcfg))
 
-    class Labelled(DecodeServer):
-        def _admit(self, slot, req):
-            with record_function("admit_prefill"):
-                return super()._admit(slot, req)
-
-        def _fused_step(self, active):
-            with record_function("decode_chunk"):
-                return super()._fused_step(active)
-
-        def _spec_fused_step(self, active):
-            with record_function("spec_rounds"):
-                return super()._spec_fused_step(active)
-
     def drain():
-        srv = Labelled(cfg, params, slots=cs.SERVE_SLOTS, **kw)
+        srv = DecodeServer(cfg, params, slots=cs.SERVE_SLOTS, **kw)
         rids = [srv.submit(p, max_new=cs.SERVE_MAX_NEW) for p in prompts]
         srv.run()
         torch.cuda.synchronize()
@@ -228,8 +226,7 @@ def _serve(cfg, params, acts, temperature: float, spec: bool) -> None:
         t0 = time.perf_counter()
         n_tok = drain()
         wall = time.perf_counter() - t0
-    row = _summary(prof, wall, "serve", ("admit_prefill", "decode_chunk",
-                                         "spec_rounds"))
+    row = _summary(prof, wall, "serve", SERVE_LABELS)
     row.update(tokens=n_tok, temperature=temperature, spec=spec)
     print(json.dumps(row), flush=True)
 
