@@ -22,7 +22,17 @@ T = 2048, no remat), random weights from a seed:
    operator the model calls), the previous (mma.sync) design's time at the
    same shape, the plain version's, ``scaled_dot_product_attention``'s (a
    yardstick the port never calls) and the least time the card could
-   take;
+   take; then decode_attn: K4, the decode attention over the bf16 KV
+   cache, against ``decode_attention_plain`` at the serving cells' shapes
+   (B 128 and 64, S_max 4096, 32 query heads over 8 kv heads of 128;
+   reasoning's with positions uniform over 300-1500 and with the pool
+   full, the chat's and longprompt's), each row with its ms, its bound
+   (the live K/V bytes over the card's bandwidth), the plain version's
+   ms, ``scaled_dot_product_attention``'s (a yardstick the port never
+   calls) and the ms at each split length of the sweep that chose
+   ``decode_attn.SPLIT_LEN``; each case's relative L2 error must stay
+   under TOL_DECODE_REL and the same case with K/V rounded through
+   float8 e4m3 must exceed it;
 4. forward: the full-width forward pass on tokens [4, 1024] through the
    kernel (one launch per layer), against the same forward with the plain
    attention;
@@ -351,6 +361,15 @@ PEAK_BYTES = 3.35e12
 TOL_F32 = 1e-4
 TOL_BF16_O = 2e-2
 TOL_BF16_LSE = 1e-3
+# K4 against its plain version: the largest relative L2 error of a row of
+# the bf16 output. Both round O to bf16 after rounding P to bf16 at
+# different points (the kernel against its split's running max, the plain
+# version after normalising): about 0.3% at the serving shapes. K/V stored in float8
+# e4m3, the control each case also runs, give about 3.7%; V at each row's
+# pos and window start is set to DECODE_EDGE_V, so a dropped key there
+# errs by 20% or more.
+TOL_DECODE_REL = 1e-2
+DECODE_EDGE_V = 16.0
 # Full forward (logits of unit scale): in bf16 the kernel's path may be
 # at most 1.25x (mean) and 2x (max) as far from the float32 forward as the
 # plain attention's bf16 path is; in float32 the two paths differ only in
@@ -575,6 +594,162 @@ def kernel_phase(dev) -> dict:
     return out
 
 
+# K4's cases: (name, B, S_max, Hq, Hkv, D, window, positions low, high):
+# reasoning (Mistral, 128 slots, prompts 128-512 plus what they decoded),
+# the same with the pool full, the chat (prompts lognormal about 1020
+# tokens plus answers of about 129: "chat" draws them so) and longprompt
+# (Mixtral, 64 slots, prompts 2048-3840 plus up to 160 decoded)
+DECODE_ATTN_CASES = (
+    ("reasoning", 128, 4096, 32, 8, 128, 4096, 300, 1500),
+    ("reasoning_full", 128, 4096, 32, 8, 128, 4096, 4095, 4095),
+    ("chat", 128, 4096, 32, 8, 128, 4096, None, None),
+    ("longprompt", 64, 4096, 32, 8, 128, 0, 2048, 4000),
+)
+DECODE_ATTN_SPLITS = (64, 128, 256, 512, 1024)
+
+
+def _decode_positions(b, lo, hi, seed=0):
+    """Per-row positions: uniform over [lo, hi], or (lo None) the chat's
+    prompt lengths (lognormal, median 1020, sigma 0.8, 32-3072) plus up
+    to 129 decoded tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if lo is None:
+        prompt = np.clip(rng.lognormal(np.log(1020), 0.8, b), 32, 3072)
+        return (prompt + rng.integers(0, 130, b)).astype(np.int64)
+    return rng.integers(lo, hi + 1, b).astype(np.int64)
+
+
+def _rel_l2(got, want):
+    """The largest relative L2 error of a row of ``got`` (all its heads)
+    against ``want``'s, in float32, as a device scalar; a row where both
+    are zero errs by 0. Per row, so one row's fault is not diluted by the
+    others, nor hidden by a row that a planted edge value dominates."""
+    got, want = got.float().flatten(1), want.float().flatten(1)
+    return ((got - want).norm(dim=1)
+            / want.norm(dim=1).clamp_min(1e-30)).max()
+
+
+@contextlib.contextmanager
+def checked_decode_attn():
+    """Inside, every K4 launch of the decode step also runs
+    ``decode_attention_plain`` on its operands; after the block the
+    yielded dict holds the launches checked and their largest relative L2
+    error (None without a launch)."""
+    from kubegpu_tpu_torch.workload import decode
+    from kubegpu_tpu_torch.workload.kernels import decode_attn as da
+
+    errs, real, seen = [], decode.decode_attention, {}
+
+    def checked(q, k_cache, v_cache, pos, scale, window=0):
+        out = real(q, k_cache, v_cache, pos, scale, window)
+        errs.append(_rel_l2(out, da.decode_attention_plain(
+            q, k_cache, v_cache, pos, scale, window)))
+        return out
+
+    decode.decode_attention = checked
+    try:
+        yield seen
+    finally:
+        decode.decode_attention = real
+    seen["checked"] = len(errs)
+    seen["max_rel_err"] = max(float(e) for e in errs) if errs else None
+
+
+def _k4_checked_ok(seen) -> bool:
+    return seen["checked"] > 0 and seen["max_rel_err"] <= TOL_DECODE_REL
+
+
+def decode_attn_phase(dev) -> dict:
+    """K4 against its plain version at the serving cells' shapes, with
+    the float8 K/V control, timed beside its bytes bound, the plain
+    version and SDPA, with the split sweep; returns the rows by case."""
+    import torch
+
+    from kubegpu_tpu_torch.workload.kernels import decode_attn as da
+
+    rows = {}
+    for name, b, s_max, hq, hkv, d, window, lo, hi in DECODE_ATTN_CASES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        q = torch.randn((b, 1, hq, d), generator=gen, device=dev)\
+            .to(torch.bfloat16)
+        k, v = (torch.randn((b, s_max, hkv, d), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        pos_np = _decode_positions(b, lo, hi)
+        pos = torch.from_numpy(pos_np).to(dev)
+        rows_ = torch.arange(b, device=dev)
+        v[rows_, pos] = DECODE_EDGE_V
+        if window:
+            v[rows_, (pos - window + 1).clamp(min=0)] = DECODE_EDGE_V
+        scale = d ** -0.5
+        before = da.decode_attention.launches
+        o = da.decode_attention(q, k, v, pos, scale, window)
+        torch.cuda.synchronize()
+        launched = da.decode_attention.launches - before
+        ref = da.decode_attention_plain(q, k, v, pos, scale, window)
+        err = (o.float() - ref.float()).abs().max().item()
+        rel = _rel_l2(o, ref).item()
+        k8, v8 = (x.to(torch.float8_e4m3fn).to(torch.bfloat16)
+                  for x in (k, v))
+        control = _rel_l2(da.decode_attention(q, k8, v8, pos, scale, window),
+                          ref).item()
+        del k8, v8
+        ok = rel <= TOL_DECODE_REL < control \
+            and bool(torch.isfinite(o).all()) and launched == 1
+        first = (pos_np - window + 1).clip(0) if window else 0 * pos_np
+        live = int((pos_np + 1 - first).sum())
+        # each live K and V row of every kv head read once, q read and o
+        # written once; 4 * D operations a (query head, live key) pair
+        nbytes = 2 * live * hkv * d * 2 + 2 * b * hq * d * 2 + 8 * b
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 4 * d * live * hq / PEAK_FLOPS["bfloat16"] * 1e3
+        kv_pos = torch.arange(s_max, device=dev)
+        mask = kv_pos[None, :] <= pos[:, None]
+        if window:
+            mask &= kv_pos[None, :] > pos[:, None] - window
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sweep = {}
+        real = da.SPLIT_LEN
+        try:
+            for length in DECODE_ATTN_SPLITS:
+                da.SPLIT_LEN = length
+                sweep[str(length)] = time_ms(
+                    lambda: da.decode_attention(q, k, v, pos, scale, window))
+        finally:
+            da.SPLIT_LEN = real
+        row = {"phase": "decode_attn", "case": name,
+               "shape": [b, s_max, hq, hkv, d], "window": window,
+               "pos_min": int(pos_np.min()), "pos_max": int(pos_np.max()),
+               "live_positions": live, "launches": launched,
+               "split_len": da.SPLIT_LEN, "max_abs_err": err,
+               "max_abs_ref": ref.float().abs().max().item(),
+               "rel_err": rel, "fp8_control_rel_err": control,
+               "tol_rel": TOL_DECODE_REL,
+               "ms": time_ms(lambda: da.decode_attention(q, k, v, pos, scale,
+                                                         window)),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes,
+               "plain_ms": time_ms(lambda: da.decode_attention_plain(
+                   q, k, v, pos, scale, window), runs=5, batch=1),
+               "library_ms": time_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=mask[:, None, None, :],
+                       scale=scale, enable_gqa=True), runs=5, batch=1),
+               "ms_by_split_len": sweep, "ok": ok}
+        row["bound_x"] = row["ms"] / row["bound_ms"]
+        emit(row)
+        rows[name] = row
+        del q, k, v, o, ref, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"decode attention kernel disagrees with "
+                                 f"its plain version, or the float8 "
+                                 f"control passes, on {name}: {row}")
+    return rows
+
+
 def forward_phase(dev, cfg, params) -> dict:
     """The full-width forward through the kernel, against plain attention.
 
@@ -708,9 +883,13 @@ def _drain(cfg, params, prompts, fused=True, reverse=False, **kw) -> dict:
 
 def serve_phase(dev, cfg, params) -> dict:
     """DecodeServer on the benchmark's traffic; fused against oracle."""
+    from kubegpu_tpu_torch.workload.kernels import decode_attn
+
     prompts = _serve_prompts(cfg)
     _drain(cfg, params, prompts)                 # warm-up pass
+    before = decode_attn.decode_attention.launches
     fused = _drain(cfg, params, prompts)
+    k4_launches = decode_attn.decode_attention.launches - before
     oracle = _drain(cfg, params, prompts, fused=False)
     row = {"phase": "serve", "slots": SERVE_SLOTS,
            "requests": SERVE_REQUESTS, "max_new": SERVE_MAX_NEW,
@@ -723,8 +902,11 @@ def serve_phase(dev, cfg, params) -> dict:
            "all_full_length": all(len(o) == SERVE_MAX_NEW
                                   for o in fused["outs"]),
            "fused_equals_oracle": fused["outs"] == oracle["outs"],
-           "first_output": fused["outs"][0][:8]}
-    row["ok"] = row["all_full_length"] and row["fused_equals_oracle"]
+           "first_output": fused["outs"][0][:8],
+           # K4 a layer and token step of the fused drain
+           "decode_attn_launches": k4_launches}
+    row["ok"] = row["all_full_length"] and row["fused_equals_oracle"] \
+        and k4_launches > 0
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"serve phase failed: {row}")
@@ -738,15 +920,20 @@ def serve_sampled_phase(dev, cfg, params) -> dict:
     import torch
 
     from kubegpu_tpu_torch.workload import keys
+    from kubegpu_tpu_torch.workload.kernels import decode_attn
 
     prompts = _serve_prompts(cfg)
     kw = dict(SAMPLING, rng=7)
     _drain(cfg, params, prompts, **kw)           # warm-up pass
+    before = decode_attn.decode_attention.launches
     fused = _drain(cfg, params, prompts, **kw)
+    k4_launches = decode_attn.decode_attention.launches - before
     oracle = _drain(cfg, params, prompts, fused=False, **kw)
-    chunk5 = _drain(cfg, params, prompts, chunk=5, **kw)
-    # each request lands in another slot, next to other requests
-    rev = _drain(cfg, params, prompts, reverse=True, **kw)
+    # the untimed drains: each K4 launch checked against the plain version
+    with checked_decode_attn() as k4_checked:
+        chunk5 = _drain(cfg, params, prompts, chunk=5, **kw)
+        # each request lands in another slot, next to other requests
+        rev = _drain(cfg, params, prompts, reverse=True, **kw)
     seeds = torch.arange(4096, dtype=torch.int64) * 2654435761
     cpu_bits = keys.bits(keys.fold(seeds, 12345), 64)
     dev_bits = keys.bits(keys.fold(seeds.to(dev), 12345), 64).cpu()
@@ -762,10 +949,15 @@ def serve_sampled_phase(dev, cfg, params) -> dict:
            "chunk5_equals_chunk16": chunk5["outs"] == fused["outs"],
            "reverse_admission_equals": rev["outs"] == fused["outs"],
            "key_bits_cuda_equal_cpu": bool(torch.equal(cpu_bits, dev_bits)),
-           "first_output": fused["outs"][0][:8]}
+           "first_output": fused["outs"][0][:8],
+           # K4 in the fused drain; its launches in the chunk-5 and
+           # reverse drains, each checked against the plain version
+           "decode_attn_launches": k4_launches,
+           "decode_attn_checked": k4_checked}
     row["ok"] = all(row[k] for k in (
         "all_full_length", "fused_equals_oracle", "chunk5_equals_chunk16",
-        "reverse_admission_equals", "key_bits_cuda_equal_cpu"))
+        "reverse_admission_equals", "key_bits_cuda_equal_cpu")) \
+        and k4_launches > 0 and _k4_checked_ok(k4_checked)
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"serve_sampled phase failed: {row}")
@@ -776,11 +968,13 @@ def serve_spec_phase(dev, cfg, params) -> dict:
     """The speculative server on the serving traffic with a 1-layer draft:
     in float32, greedy streams equal to the plain server's and a
     self-draft sampled acceptance of 1.0; in bf16, sampled tokens/s and
-    acceptance."""
+    acceptance, the draft's K4 launches counted in the timed drain and
+    checked against the plain version in the warm-up drain."""
     import dataclasses
 
     import torch
 
+    from kubegpu_tpu_torch.workload.kernels import decode_attn
     from kubegpu_tpu_torch.workload.model import (TransformerConfig,
                                                   init_params)
 
@@ -796,8 +990,11 @@ def serve_spec_phase(dev, cfg, params) -> dict:
                         draft_cfg=f32, rng=5, **spec, **SAMPLING)
     bf16 = dict(draft_params=draft, draft_cfg=dcfg, rng=5, **spec,
                 **SAMPLING)
-    _drain(cfg, params, prompts, **bf16)         # warm-up pass
+    with checked_decode_attn() as k4_checked:
+        _drain(cfg, params, prompts, **bf16)     # warm-up pass
+    before = decode_attn.decode_attention.launches
     timed = _drain(cfg, params, prompts, **bf16)
+    k4_launches = decode_attn.decode_attention.launches - before
     row = {"phase": "serve_spec", "draft": DRAFT_MODEL, **spec,
            **SAMPLING,
            "f32_greedy_equals_plain": greedy["outs"] == plain["outs"],
@@ -810,13 +1007,17 @@ def serve_spec_phase(dev, cfg, params) -> dict:
            "bf16_sampled_acceptance": timed["srv"].spec_acceptance,
            "bf16_ttft_p50_ms": timed["ttft_p50_ms"],
            "bf16_itl_p50_ms": timed["itl_p50_ms"],
+           # the draft's single-token steps, n_layers K4 each
+           "bf16_decode_attn_launches": k4_launches,
+           "bf16_decode_attn_checked": k4_checked,
            "all_full_length": all(
                len(o) == SERVE_MAX_NEW for r in (greedy, self_draft, timed)
                for o in r["outs"])}
     row["ok"] = (row["f32_greedy_equals_plain"]
                  and row["f32_self_draft_acceptance"] == 1.0
                  and row["f32_self_draft_proposed"] > 0
-                 and row["all_full_length"])
+                 and row["all_full_length"]
+                 and k4_launches > 0 and _k4_checked_ok(k4_checked))
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"serve_spec phase failed: {row}")
@@ -2167,7 +2368,8 @@ def serve_mesh_phase(dev, serve, ckpt, tmp) -> dict:
     """The sharded serving paths and the sharded resume on the card at
     world size 1 (in `world_of_one`): the serving config's sharded
     generate, server and speculative server against the unsharded ones in
-    float32, tokens/s in bf16 in turns; the training config's sharded
+    float32, and the bf16 generate (K4 at each decode step) against the
+    unsharded one, tokens/s in bf16 in turns; the training config's sharded
     save, restore and resumed steps against the uninterrupted run; the dry
     run with its serving leg."""
     import dataclasses
@@ -2182,6 +2384,7 @@ def serve_mesh_phase(dev, serve, ckpt, tmp) -> dict:
         save_checkpoint, train_state_specs)
     from kubegpu_tpu_torch.workload.data import make_loader
     from kubegpu_tpu_torch.workload.decode import make_generate
+    from kubegpu_tpu_torch.workload.kernels import decode_attn
     from kubegpu_tpu_torch.workload.model import (TransformerConfig,
                                                   init_params)
     from kubegpu_tpu_torch.workload.train import (init_sharded,
@@ -2203,6 +2406,14 @@ def serve_mesh_phase(dev, serve, ckpt, tmp) -> dict:
     gen_mesh = make_generate(f32, mesh)(local, rows, SERVE_MAX_NEW)
     gen_one = make_generate(f32)(params, torch.tensor(rows, device=dev),
                                  SERVE_MAX_NEW)
+    # bf16: whole heads over the mesh take K4 at every decode step, each
+    # launch checked against the plain version
+    with checked_decode_attn() as k4_checked:
+        before = decode_attn.decode_attention.launches
+        gen_mesh_bf16 = make_generate(cfg, mesh)(local, rows, SERVE_MAX_NEW)
+        k4_launches = decode_attn.decode_attention.launches - before
+    gen_one_bf16 = make_generate(cfg)(params, torch.tensor(rows, device=dev),
+                                      SERVE_MAX_NEW)
     plain = _drain(f32, params, prompts)["outs"]
     sharded = _drain(f32, local, prompts, mesh=mesh)["outs"]
     spec = _drain(f32, local, prompts, mesh=mesh, draft_params=dlocal,
@@ -2278,6 +2489,10 @@ def serve_mesh_phase(dev, serve, ckpt, tmp) -> dict:
     row = {"phase": "serve_mesh", "mesh": [1, 1, 1],
            "generate_rows": [len(r) for r in rows],
            "generate_equal": bool(torch.equal(gen_mesh, gen_one)),
+           "bf16_generate_equal": bool(torch.equal(gen_mesh_bf16,
+                                                   gen_one_bf16)),
+           "bf16_generate_decode_attn_launches": k4_launches,
+           "bf16_generate_decode_attn_checked": k4_checked,
            "server_equal": sharded == plain,
            "spec_server_equal": spec == plain,
            "all_full_length": all(len(o) == SERVE_MAX_NEW
@@ -2296,6 +2511,9 @@ def serve_mesh_phase(dev, serve, ckpt, tmp) -> dict:
            "checkpoint_phase_restore_s": ckpt["full_restore_s"],
            "dryrun_s": dryrun_s}
     row["ok"] = (row["generate_equal"] and row["server_equal"]
+                 and row["bf16_generate_equal"]
+                 and k4_launches == (SERVE_MAX_NEW - 1) * cfg.n_layers
+                 and _k4_checked_ok(k4_checked)
                  and row["spec_server_equal"] and row["all_full_length"]
                  and row["restored_step"] == 2 and row["resumed_equal"]
                  and all(np.isfinite(whole))
@@ -6197,13 +6415,14 @@ def main() -> int:
           "libraries": sorted(libs), "ptxas": ptxas})
 
     k1 = kernel_phase(dev)
+    k4 = decode_attn_phase(dev)
     cfg = TransformerConfig(**MODEL)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     fwd = forward_phase(dev, cfg, params)
     entry_phase()
     serve = serve_phase(dev, cfg, params)
-    serve_sampled_phase(dev, cfg, params)
-    serve_spec_phase(dev, cfg, params)
+    sampled = serve_sampled_phase(dev, cfg, params)
+    spec = serve_spec_phase(dev, cfg, params)
     serve_prefix_phase(dev, cfg, params)
     del params                      # the training phases need the memory
     torch.cuda.empty_cache()
@@ -6356,7 +6575,30 @@ def main() -> int:
         "ms": kb["dkv_ms"], "previous_ms": kb["dkv_previous_ms"],
         "plain_ms": kb["dkv_plain_ms"],
         "bound_ms": kb["dkv_bound_ms"], "bound_by": kb["dkv_bound_by"],
-        "library_ms": kb["library_bwd_ms"]}]})
+        "library_ms": kb["library_bwd_ms"]}, {
+        "name": "decode_attn", "route": "cuda",
+        "source": src + "decode_attn_sm90.cu", "replaces": None,
+        "launches_serve_run": serve["decode_attn_launches"],
+        "launches_serve_sampled_run": sampled["decode_attn_launches"],
+        "launches_serve_spec_bf16_run": spec["bf16_decode_attn_launches"],
+        "launches_mesh_generate_bf16":
+            serve_mesh["bf16_generate_decode_attn_launches"],
+        # the launches of those paths checked against the plain version
+        "checked_launches_max_rel_err": {
+            "serve_sampled": sampled["decode_attn_checked"],
+            "serve_spec_bf16": spec["bf16_decode_attn_checked"],
+            "mesh_generate_bf16":
+                serve_mesh["bf16_generate_decode_attn_checked"]},
+        "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
+        "max_rel_err": max(r["rel_err"] for r in k4.values()),
+        "min_fp8_control_rel_err": min(r["fp8_control_rel_err"]
+                                       for r in k4.values()),
+        **{key: k4["reasoning_full"][key] for key in (
+            "ms", "bound_ms", "bound_by", "plain_ms", "library_ms")},
+        "by_case": {name: {key: r[key] for key in (
+            "ms", "bound_ms", "plain_ms", "library_ms", "split_len",
+            "rel_err", "fp8_control_rel_err")}
+            for name, r in k4.items()}}]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

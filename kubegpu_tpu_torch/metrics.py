@@ -229,6 +229,10 @@ SERVE_TTFT_MS = Histogram("serve_ttft_ms", start_us=0.25)
 SERVE_ITL_MS = Histogram("serve_itl_ms", start_us=0.01)
 SERVE_QUEUE_DEPTH = Gauge("serve_queue_depth")
 SERVE_SLOT_UTILIZATION = Gauge("serve_slot_utilization")  # 0..1 ratio
+# Launches of the decode attention kernel (workload/kernels/decode_attn.py,
+# K4): a serving run's decode that took the kernel counts n_layers a token
+# step. The port's own metric: the JAX package has no such kernel.
+DECODE_ATTN_KERNEL_CALLS = Counter("decode_attn_kernel_calls_total")
 
 # The control-plane wire (cluster/stream.py, cluster/httpapi.py): bytes
 # this process moved per wire ("json"/"stream") and direction ("tx"/"rx"),

@@ -3,9 +3,12 @@ sampled.
 
 The counterpart of ``kubegpu_tpu/workload/decode.py``:
 
-- the KV cache is allocated at a fixed length up front and every step
-  attends the whole cache under a position mask, so each step has the
-  same shapes;
+- the KV cache is allocated at a fixed length up front, so each step has
+  the same shapes; a single-token step on a bf16 cache on CUDA reads only
+  each row's live positions through the decode attention kernel
+  (`kernels.decode_attn`), and every other step (a prefill, a speculative
+  verify, tensor-parallel head spans, the CPU) attends the whole cache,
+  cast to float32, under a position mask;
 - `make_forward_step` takes a scalar ``start_pos`` (the whole batch at one
   depth) or a ``[B]`` tensor of per-row positions (continuous batching);
 - `make_decode_chunk` generates up to ``chunk`` tokens for every row in a
@@ -45,6 +48,8 @@ import torch.distributed as dist
 from kubegpu_tpu_torch._device import resolve_device
 from kubegpu_tpu_torch.obs.trace import device_span
 from kubegpu_tpu_torch.workload import keys, spmd
+from kubegpu_tpu_torch.workload.kernels.decode_attn import (
+    decode_attention, grouped_attention, takes)
 from kubegpu_tpu_torch.workload.model import (TransformerConfig, _ffn,
                                               _rmsnorm, _rope, gather_span,
                                               span_attention, whole_heads)
@@ -131,6 +136,12 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
     replicated cache block and attends the heads its columns overlap
     (`model.span_attention`).
 
+    A single-token step (``T == 1``) over whole heads and a cache the
+    decode attention kernel takes (`kernels.decode_attn.takes`: bf16 on
+    CUDA) attends through the kernel, which reads each row's live
+    positions alone; every other step attends the whole cache cast to
+    float32 under a position mask (`grouped_attention`).
+
     While a profiler runs, each layer's cache write and attention (all
     that reads the cache) are a ``kgt.model.attn`` range and its FFN a
     ``kgt.model.ffn`` one, ``kgt.model.moe`` where the layer holds
@@ -159,13 +170,15 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
             row_start = torch.full((b,), int(start_pos), device=dev,
                                    dtype=torch.long)
         positions = row_start[:, None] + ar[None, :]        # [B, T]
-        # chunk position i attends cache positions <= row_start + i (and,
-        # with a sliding window, only the newest window of them)
-        kv_pos = torch.arange(s_max, device=dev)
-        q_pos = positions[:, :, None]
-        mask = kv_pos[None, None, :] <= q_pos                # [B, T, S]
-        if cfg.attn_window:
-            mask &= kv_pos[None, None, :] > q_pos - cfg.attn_window
+        kernel = t == 1 and whole and takes(heads, cache[0]["k"])
+        if not kernel:
+            # chunk position i attends cache positions <= row_start + i
+            # (and, with a sliding window, only the newest window of them)
+            kv_pos = torch.arange(s_max, device=dev)
+            q_pos = positions[:, :, None]
+            mask = kv_pos[None, None, :] <= q_pos            # [B, T, S]
+            if cfg.attn_window:
+                mask &= kv_pos[None, None, :] > q_pos - cfg.attn_window
         rows = torch.arange(b, device=dev)[:, None]
 
         def write(buf, new):
@@ -176,24 +189,7 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
                 buf[:, p0:p0 + t] = new
 
         def attend(q, ck, cv):
-            """float32 products of the bf16 values (float32 accumulation,
-            as the reference). With GQA the query heads are grouped
-            against the narrow cache (g = kv head, r = query head in the
-            group), so the full-width K/V is never materialized."""
-            hq, hk = q.shape[2], ck.shape[2]
-            if hk != hq:
-                rep = hq // hk
-                qg = q.reshape(b, t, hk, rep, cfg.head_dim)
-                s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), ck) * scale
-                s = s.masked_fill(~mask[:, None, None], NEG_INF)
-                p = torch.softmax(s, dim=-1)
-                attn = torch.einsum("bgrqk,bkgd->bqgrd",
-                                    p.to(dt).float(), cv)
-                return attn.reshape(b, t, hq, cfg.head_dim)
-            s = torch.einsum("bqhd,bkhd->bhqk", q.float(), ck) * scale
-            s = s.masked_fill(~mask[:, None], NEG_INF)
-            p = torch.softmax(s, dim=-1)
-            return torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), cv)
+            return grouped_attention(q, ck, cv, mask, scale)
 
         x = params["embed"].to(dt)[tokens]
         for layer, kv in zip(params["layers"], cache):
@@ -212,12 +208,17 @@ def make_forward_step(cfg: TransformerConfig, mesh=None):
             with device_span("kgt.model.attn"):     # all that reads the cache
                 write(kv["k"], k.to(dt))
                 write(kv["v"], v.to(dt))
-                ck, cv = kv["k"].float(), kv["v"].float()
-                if whole:
-                    attn = attend(q, ck, cv).reshape(b, t, -1)
+                if kernel:
+                    attn = decode_attention(q, kv["k"], kv["v"], row_start,
+                                            scale, cfg.attn_window)
+                    attn = attn.reshape(b, t, -1)
                 else:
-                    attn = span_attention(cfg, q, ck, cv, tp, tp_rank,
-                                          attend)
+                    ck, cv = kv["k"].float(), kv["v"].float()
+                    if whole:
+                        attn = attend(q, ck, cv).reshape(b, t, -1)
+                    else:
+                        attn = span_attention(cfg, q, ck, cv, tp, tp_rank,
+                                              attend)
             x = x + spmd.reduce_from(
                 mesh, attn.to(dt) @ layer["wo"].to(dt))
 
